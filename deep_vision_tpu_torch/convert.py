@@ -1,0 +1,57 @@
+"""Bridge the JAX package's variables into the port's state_dict.
+
+`variables_from_jax(tree)` takes the flax `{"params": ..., "batch_stats":
+...}` tree with numpy leaves (`jax.device_get` of the reference's
+variables; nothing here imports JAX) and returns a state_dict for the
+port's model of the same name. The port's submodules carry the flax
+auto-names, so the mapping is by path:
+
+    params/Darknet53_0/DarknetConv_0/ConvBN_0/Conv_0/kernel  (H, W, I, O)
+        -> Darknet53_0.DarknetConv_0.ConvBN_0.Conv_0.weight  (O, I, H, W)
+    params/.../Conv_0/bias                    -> ....Conv_0.bias
+    params/.../BatchNorm_0/{scale,bias}       -> ....BatchNorm_0.{scale,bias}
+    batch_stats/.../BatchNorm_0/{mean,var}    -> ....BatchNorm_0.{mean,var}
+
+`model.load_state_dict(sd)` (strict) then proves the mapping complete.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+COLLECTIONS = ("params", "batch_stats")
+
+
+def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, prefix + (str(k),))
+        else:
+            yield prefix + (str(k),), np.asarray(v)
+
+
+def torch_key(path: Tuple[str, ...]) -> str:
+    """flax leaf path (collection stripped) -> state_dict key."""
+    *mods, leaf = path
+    return ".".join(mods + ["weight" if leaf == "kernel" else leaf])
+
+
+def variables_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """flax variables (numpy leaves) -> the port's state_dict."""
+    unknown = sorted(set(tree) - set(COLLECTIONS))
+    if unknown:
+        raise ValueError(f"collections {unknown} have no counterpart in the "
+                         f"port (known: {COLLECTIONS})")
+    out: Dict[str, torch.Tensor] = {}
+    for col in COLLECTIONS:
+        for path, arr in _leaves(tree.get(col, {})):
+            if path[-1] == "kernel":
+                if arr.ndim != 4:
+                    raise ValueError(f"{'/'.join(path)}: only conv kernels "
+                                     f"(HWIO) are bridged, got {arr.shape}")
+                arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+            out[torch_key(path)] = torch.tensor(arr)  # a contiguous copy
+    return out

@@ -1,0 +1,143 @@
+"""Greedy NMS selection: the CUDA kernel's wrapper and its plain version.
+
+The port of `pallas_nms` (deep_vision_tpu/ops/pallas/nms.py:88-125); the
+kernel is `csrc/nms.cu`, whose header says what it replaces, what bounds
+it and what a faster version would do.
+
+`greedy_nms` routes by the tensors' device and nothing else: a CPU tensor
+takes `nms_plain`, a CUDA tensor launches the kernel or raises. There is
+no fallback from the kernel to the plain version. `greedy_nms.launches`
+counts kernel launches (a plain integer; set it to 0 to start a count).
+
+Semantics, shared by both and by the reference: scores below
+`score_threshold` become -1; each of the D rounds picks the largest live
+score (first index on ties) and keeps it only if it is > 0; a kept pick
+suppresses itself and every candidate with IoU >= `iou_threshold`.
+Returns `(sel_scores (B, D) f32, sel_idx (B, D) int32)`, -1 = no pick.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from deep_vision_tpu_torch.ops.cuda import build
+
+_ARGTYPES = {
+    "dvt_nms_max_smem_candidates": [ctypes.c_int],
+    "dvt_nms_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p],
+}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("nms")
+    for fn, argtypes in _ARGTYPES.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def _check(boxes: torch.Tensor, scores: torch.Tensor,
+           max_detections: int) -> None:
+    if boxes.dim() != 3 or boxes.shape[-1] != 4:
+        raise ValueError(f"boxes must be (B, N, 4), got {tuple(boxes.shape)}")
+    if tuple(scores.shape) != tuple(boxes.shape[:2]):
+        raise ValueError(f"scores {tuple(scores.shape)} do not match boxes "
+                         f"{tuple(boxes.shape)}")
+    if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
+        raise TypeError(f"boxes and scores must be float32, got "
+                        f"{boxes.dtype} and {scores.dtype}")
+    if boxes.device != scores.device:
+        raise ValueError(f"boxes on {boxes.device}, scores on {scores.device}")
+    if max_detections < 0:
+        raise ValueError(f"max_detections must be >= 0, got {max_detections}")
+
+
+def nms_plain(boxes: torch.Tensor, scores: torch.Tensor, max_detections: int,
+              iou_threshold: float, score_threshold: float
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The same D rounds in plain PyTorch, vectorised over the batch, with
+    the kernel's arithmetic (thresholds as float32, IoU in the same order).
+    Runs every round: a round after the last keep changes nothing."""
+    b, n, _ = boxes.shape
+    d, dev = int(max_detections), boxes.device
+    out_s = torch.zeros((b, d), dtype=torch.float32, device=dev)
+    out_i = torch.full((b, d), -1, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out_s, out_i
+    iou_thr = torch.tensor(iou_threshold, dtype=torch.float32, device=dev)
+    score_thr = torch.tensor(score_threshold, dtype=torch.float32, device=dev)
+    live = torch.where(scores >= score_thr, scores,
+                       torch.tensor(-1.0, device=dev))
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    area = (x2 - x1).clamp(min=0.0) * (y2 - y1).clamp(min=0.0)
+    idx = torch.arange(n, device=dev)
+    rows = torch.arange(b, device=dev)
+    for i in range(d):
+        best = live.max(dim=1).values
+        bi = torch.where(live == best[:, None], idx, n).min(dim=1).values
+        keep = best > 0.0
+        out_s[:, i] = torch.where(keep, best, 0.0)
+        out_i[:, i] = torch.where(keep, bi, -1).to(torch.int32)
+        bx1, by1, bx2, by2 = (c[rows, bi][:, None] for c in (x1, y1, x2, y2))
+        iw = (torch.minimum(x2, bx2) - torch.maximum(x1, bx1)).clamp(min=0.0)
+        ih = (torch.minimum(y2, by2) - torch.maximum(y1, by1)).clamp(min=0.0)
+        inter = iw * ih
+        union = area + area[rows, bi][:, None] - inter
+        iou = inter / union.clamp(min=1e-9)
+        suppress = (iou >= iou_thr) | (idx == bi[:, None])
+        live = torch.where(keep[:, None] & suppress, -1.0, live)
+    return out_s, out_i
+
+
+def _launch(boxes: torch.Tensor, scores: torch.Tensor, d: int,
+            iou_threshold: float, score_threshold: float
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if not (boxes.is_contiguous() and scores.is_contiguous()):
+        raise ValueError("the NMS kernel takes contiguous boxes and scores")
+    if boxes.data_ptr() % 16:
+        raise ValueError("the NMS kernel reads boxes as float4: their data "
+                         "must be 16-byte aligned")
+    lib = _lib()
+    b, n, _ = boxes.shape
+    dev = boxes.device
+    out_s = torch.empty((b, d), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, d), dtype=torch.int32, device=dev)
+    if b == 0 or d == 0:
+        return out_s, out_i  # nothing to select: no launch
+    fit = lib.dvt_nms_max_smem_candidates(dev.index)
+    if fit < 0:
+        raise RuntimeError("could not query the NMS kernel's shared memory")
+    # live scores that do not fit in a block's shared memory go to global
+    scratch = (torch.empty((b, n), dtype=torch.float32, device=dev)
+               if n > fit else None)
+    err = lib.dvt_nms_launch(
+        boxes.data_ptr(), scores.data_ptr(), out_s.data_ptr(),
+        out_i.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        b, n, d, iou_threshold, score_threshold, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"NMS kernel launch failed: cudaError_t {err}")
+    greedy_nms.launches += 1
+    return out_s, out_i
+
+
+def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, max_detections: int,
+               iou_threshold: float, score_threshold: float
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched greedy NMS selection over boxes (B, N, 4) xyxy float32 and
+    scores (B, N) float32. CPU tensors: `nms_plain`; CUDA tensors: the
+    kernel."""
+    _check(boxes, scores, max_detections)
+    if boxes.device.type == "cpu":
+        return nms_plain(boxes, scores, max_detections, iou_threshold,
+                         score_threshold)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"greedy_nms runs on cpu or cuda, not {boxes.device}")
+    return _launch(boxes, scores, int(max_detections), float(iou_threshold),
+                   float(score_threshold))
+
+
+greedy_nms.launches = 0
