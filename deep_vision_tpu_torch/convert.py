@@ -8,6 +8,9 @@ auto-names, so the mapping is by path:
 
     params/Darknet53_0/DarknetConv_0/ConvBN_0/Conv_0/kernel  (H, W, I, O)
         -> Darknet53_0.DarknetConv_0.ConvBN_0.Conv_0.weight  (O, I, H, W)
+    params/SpaceToDepthStem_0/kernel (7, 7, 3, 64)
+        -> SpaceToDepthStem_0.weight (64, 3, 7, 7)
+    params/Dense_0/kernel  (in, out)  -> Dense_0.weight  (out, in)
     params/.../Conv_0/bias                    -> ....Conv_0.bias
     params/.../BatchNorm_0/{scale,bias}       -> ....BatchNorm_0.{scale,bias}
     batch_stats/.../BatchNorm_0/{mean,var}    -> ....BatchNorm_0.{mean,var}
@@ -39,6 +42,13 @@ def torch_key(path: Tuple[str, ...]) -> str:
     return ".".join(mods + ["weight" if leaf == "kernel" else leaf])
 
 
+def flax_path(key: str) -> str:
+    """state_dict key -> flax leaf path, '/'-joined without the collection
+    (the names the reference's optimizer masks match on)."""
+    *mods, leaf = key.split(".")
+    return "/".join(mods + ["kernel" if leaf == "weight" else leaf])
+
+
 def variables_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """flax variables (numpy leaves) -> the port's state_dict."""
     unknown = sorted(set(tree) - set(COLLECTIONS))
@@ -49,9 +59,13 @@ def variables_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     for col in COLLECTIONS:
         for path, arr in _leaves(tree.get(col, {})):
             if path[-1] == "kernel":
-                if arr.ndim != 4:
-                    raise ValueError(f"{'/'.join(path)}: only conv kernels "
-                                     f"(HWIO) are bridged, got {arr.shape}")
-                arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+                if arr.ndim == 4:
+                    arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+                elif arr.ndim == 2:
+                    arr = arr.T  # (in, out) -> (out, in)
+                else:
+                    raise ValueError(f"{'/'.join(path)}: only conv (HWIO) "
+                                     f"and dense (in, out) kernels are "
+                                     f"bridged, got {arr.shape}")
             out[torch_key(path)] = torch.tensor(arr)  # a contiguous copy
     return out

@@ -1,41 +1,47 @@
 """Model registry, the port of deep_vision_tpu/models/__init__.py.
 
 Only the models of the ported slices are registered: `yolov3` and its
-backbone `darknet53`. `get_model` returns the model in eval mode on the
-resolved device, its weights drawn as flax draws them, from a
-`torch.Generator` seeded with `seed` (the draws differ from JAX's; load
-the reference's numbers through convert.py where they must agree).
+backbone `darknet53`, and `resnet34`, `resnet50`, `resnet152`. Each
+registers with its own initialiser, which draws the weights as flax
+draws them from a `torch.Generator` seeded with `seed` (the draws differ
+from JAX's; load the reference's numbers through convert.py where they
+must agree). `get_model` returns the model on the resolved device, in
+eval mode unless `train=True`.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from deep_vision_tpu_torch.core.backend import DeviceLike, resolve_device
 
-MODEL_REGISTRY: Dict[str, Callable] = {}
+Init = Callable[[torch.nn.Module, Optional[torch.Generator]], None]
+MODEL_REGISTRY: Dict[str, Tuple[Callable, Init]] = {}
 
 
-def register_model(name: str):
+def register_model(name: str, *, init: Init):
+    """Register a builder under `name`, with `init(model, generator)`,
+    which (re)draws all of the model's weights."""
     def deco(fn):
-        MODEL_REGISTRY[name] = fn
+        MODEL_REGISTRY[name] = (fn, init)
         return fn
 
     return deco
 
 
 def get_model(name: str, *, device: DeviceLike = None, seed: int = 0,
-              **kwargs) -> torch.nn.Module:
+              train: bool = False, **kwargs) -> torch.nn.Module:
     """Build `name` on `device` (default: cuda, raising without a card),
-    with seeded random weights, in eval mode."""
+    with seeded random weights, in training mode if `train` else eval."""
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model '{name}'; have {sorted(MODEL_REGISTRY)}")
     dev = resolve_device(device)
-    model = MODEL_REGISTRY[name](**kwargs)
-    yolov3.reset_parameters(model, torch.Generator().manual_seed(seed))
-    return model.eval().to(dev)
+    build, init = MODEL_REGISTRY[name]
+    model = build(**kwargs)
+    init(model, torch.Generator().manual_seed(seed))
+    return model.train(train).to(dev)
 
 
 # importing the modules populates the registry
-from deep_vision_tpu_torch.models import yolov3  # noqa: E402
+from deep_vision_tpu_torch.models import resnet, yolov3  # noqa: E402,F401

@@ -163,11 +163,11 @@ class YoloV3(nn.Module):
         return out_large, out_medium, out_small
 
 
-@register_model("yolov3")
+@register_model("yolov3", init=reset_parameters)
 def yolov3(num_classes: int = 80, **_):
     return YoloV3(num_classes=num_classes)
 
 
-@register_model("darknet53")
+@register_model("darknet53", init=reset_parameters)
 def darknet53(**_):
     return Darknet53()

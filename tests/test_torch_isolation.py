@@ -1,7 +1,8 @@
-"""The port stands alone: importing any of its modules loads neither JAX,
-flax nor the JAX package; its entry points default to the card and
-raise without one; and the kernel builder names what is missing when
-there is no `nvcc`.
+"""The port stands alone: importing any of its modules (the training
+slice's included) loads neither JAX, flax, optax nor the JAX package;
+its entry points (serving and training) default to the card and raise
+without one; and the kernel builder names what is missing when there is
+no `nvcc`.
 """
 import ast
 import subprocess
@@ -61,9 +62,13 @@ def test_no_source_imports_the_reference(path):
 def test_default_device_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
+    from deep_vision_tpu_torch.core.train_state import create_train_state
     from deep_vision_tpu_torch.inference import make_yolo_detector
+    from deep_vision_tpu_torch.losses import classification_loss_fn
     from deep_vision_tpu_torch.models import get_model
     from deep_vision_tpu_torch.serve import Engine
+    from deep_vision_tpu_torch.tools.profile_train import make_train_parts
+    from deep_vision_tpu_torch.train import Trainer, build_optimizer
 
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         get_model("darknet53")
@@ -71,7 +76,16 @@ def test_default_device_entry_points_raise_without_a_card():
         Engine()
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         make_yolo_detector(torch.nn.Identity())
+    tiny = torch.nn.Linear(2, 2)
+    tx = build_optimizer("sgd", 0.1)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        create_train_state(tiny, tx, torch.zeros(1, 2))
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        Trainer(tiny, tx, classification_loss_fn, torch.zeros(1, 2))
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        make_train_parts(1)
     assert get_model("darknet53", device="cpu") is not None
+    assert get_model("resnet50", device="cpu") is not None
 
 
 def test_builder_raises_clearly_without_nvcc(monkeypatch, tmp_path):
@@ -89,6 +103,6 @@ def test_builder_raises_clearly_without_nvcc(monkeypatch, tmp_path):
 def test_every_kernel_source_is_known_to_the_builder():
     from deep_vision_tpu_torch.ops.cuda import build
 
-    assert sorted(build.sources()) == ["nms"]
+    assert sorted(build.sources()) == ["bn_act", "nms"]
     with pytest.raises(KeyError):
         build.build(["no_such_kernel"])

@@ -1,5 +1,6 @@
 """Port parity: deep_vision_tpu_torch/nn/layers.py against the JAX
-ConvBN/BatchNorm on the eval path.
+ConvBN/BatchNorm on the eval path (the training path is held against
+the reference in tests/test_torch_resnet.py).
 
 Inputs and every variable are drawn with numpy from a seed and handed to
 both packages (the variables through `variables_from_jax`).
@@ -121,5 +122,11 @@ def test_batchnorm_keeps_reference_arithmetic_and_layout():
 
 
 def test_batchnorm_training_mode_raises():
-    with pytest.raises(NotImplementedError, match="eval"):
-        BatchNorm(2).train()(torch.zeros(1, 2, 1, 1))
+    # training mode normalises with batch statistics (held against the
+    # reference in tests/test_torch_resnet.py); what it cannot take raises
+    bn = BatchNorm(2).train()
+    x = torch.arange(36.0).view(2, 2, 3, 3)
+    assert torch.allclose(bn(x).mean(dim=(0, 2, 3)), torch.zeros(2),
+                          atol=1e-6)
+    with pytest.raises(ValueError, match="does not match"):
+        bn(x, residual=torch.zeros(2, 2, 3, 1))

@@ -176,4 +176,4 @@ def test_bridge_rejects_unknown_collections_and_kernels():
         variables_from_jax({"params": {}, "cache": {}})
     with pytest.raises(ValueError, match="HWIO"):
         variables_from_jax({"params": {"Dense_0": {
-            "kernel": np.zeros((3, 4), np.float32)}}})
+            "kernel": np.zeros((3, 4, 5), np.float32)}}})
