@@ -16,7 +16,12 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            plus an odd C: forward, dx and dres exactly equal, dscale and
            dbias within BN_SUM_TOL of the sum of |terms| per channel;
            kernel, plain and bound times, summed over one step's calls,
-           and each wrapper's host cost per call;
+           and each wrapper's host cost per call; flash attention over
+           flash_cases() (the ViT step's shape in bf16 and f32, causal,
+           cross, ragged T, D 32 and 128, scores x120), forward with lse
+           and the dq/dkv backward with and without an lse cotangent,
+           within FLASH_TOL; kernel, plain, bound and
+           scaled_dot_product_attention times at the step's shape;
 4. serve   YOLOv3 at 416x416, 80 classes, seeded weights, through the
            port's Engine (buckets 1, 2, 4, 8) and Server: a mixed burst
            stream, response checks, the NMS launch count against the
@@ -26,7 +31,13 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            SGD) through the port's Trainer: warm-up and timed steps,
            48 + 48 bn_act launches per step, a finite and falling loss;
            then one float32 step at batch 8 on the card (kernels)
-           against the same step on the CPU (plain versions);
+           against the same step on the CPU (plain versions); then
+           ViT-S/16 at 512x512 (bf16, batch 64, AdamW + warmup-cosine)
+           through the Trainer: 12 + 12 + 12 flash launches a step, a
+           finite and falling loss; a 224x224 vit_s16 forward that
+           launches no flash kernel (the dense route); and one float32
+           batch-2 ViT step on the card against the CPU: loss, grad norm
+           and every parameter's gradient within VIT_CHECK_TOL;
 6. report  the card line, the kernels line, and the final status line.
 """
 import json
@@ -53,6 +64,32 @@ BN_SUM_TOL = 1e-5
 #: float32 operations per element: forward x*a + b (+ r) and the ReLU;
 #: backward the mask, g'*a, and the two running sums (mul + 2 adds)
 BN_FWD_OPS, BN_BWD_OPS = 4, 5
+
+#: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet) and the
+#: special-function units' exponential rate: 16 a clock on each of 132
+#: SMs (Hopper white paper) at the 1.98 GHz maximum boost clock
+BF16_FLOPS = 989e12
+EXP_PER_S = 132 * 16 * 1.98e9
+#: flash kernel against plain version, (rtol, atol, atol relative to the
+#: compared tensor's largest magnitude?), tests/test_pallas.py's: f32
+#: out/lse (:29-30) and dq/dk/dv (:105-107); scores x120 (:50-57), where
+#: near-one-hot rows turn a one-ulp score difference into a weight
+#: difference; bf16 out (:82-85) and dq/dk/dv relative to the largest
+#: |value| (the kernels round P and dS to bf16 for the second products)
+FLASH_TOL = {
+    ("f32", "out"): (2e-4, 2e-5, False), ("f32", "grad"): (2e-4, 2e-4, True),
+    ("x120", "out"): (2e-3, 1e-4, False), ("x120", "grad"): (2e-3, 1e-3, True),
+    ("bf16", "out"): (2e-2, 2e-2, False), ("bf16", "grad"): (0.0, 2e-2, True),
+    ("lse", "out"): (2e-4, 2e-5, False),
+}
+VIT_BATCH, VIT_IMAGE = 64, 512
+VIT_CHECK_BATCH = 2
+#: the float32 ViT step, card (kernels) against CPU (plain versions): loss
+#: and grad norm relative; each parameter's gradient relative to the
+#: largest magnitude of its tensor. Both sides sum f32 products in other
+#: orders (cuBLAS and the flash kernels' 64-key tiles against MKL and the
+#: dense plain softmax).
+VIT_CHECK_TOL = {"loss": 1e-4, "grad_norm": 1e-3, "grad": 2e-3}
 
 IMAGE = 416
 NUM_CLASSES = 80
@@ -317,6 +354,307 @@ def bn_act_cases(torch, dev, calls, card):
     return rows
 
 
+def flash_case_list():
+    """(label, B, T, Tk, H, D, causal, score scale) for phase 3."""
+    b, t, h, d = VIT_BATCH, (VIT_IMAGE // 16) ** 2, 6, 64
+    return [
+        ("the ViT step's shape", b, t, t, h, d, False, 1.0),
+        ("causal", 8, t, t, h, d, True, 1.0),
+        ("cross Tq 256, Tk 1024", 8, 256, t, h, d, False, 1.0),
+        ("ragged T 1000", 8, 1000, 1000, h, d, False, 1.0),
+        ("ragged T 77, causal", 16, 77, 77, h, d, True, 1.0),
+        ("D 32", 8, 512, 512, 4, 32, False, 1.0),
+        ("D 128, causal", 8, 512, 512, 4, 128, True, 1.0),
+        ("scores x120, causal", 8, t, t, h, d, True, 120.0),
+    ]
+
+
+def flash_inputs(torch, dev, b, t, tk, h, d, dtype, gen, qk_scale=1.0):
+    """q, k, v as the ViT's qkv projection gives them (strided views of
+    one (B, T, 3, H, D) tensor) when T == Tk, else separate tensors; and
+    a contiguous output gradient."""
+    if t == tk:
+        qkv = torch.randn(b, t, 3, h, d, generator=gen, device=dev)
+        qkv[:, :, 0] *= qk_scale
+        q, k, v = qkv.to(dtype).unbind(2)
+    else:
+        q, k, v = (torch.randn(b, n, h, d, generator=gen, device=dev).to(
+            dtype) for n in (t, tk, tk))
+        q = q * qk_scale
+    return q, k, v, torch.randn(b, t, h, d, generator=gen, device=dev).to(
+        dtype)
+
+
+def flash_error(torch, got, want, kind, part):
+    """(max |got - want|, worst share of the tolerance used)."""
+    rtol, atol, relative = FLASH_TOL[kind, part]
+    got, want = got.float(), want.float()
+    if relative:
+        atol *= float(want.abs().max())
+    err = (got - want).abs()
+    return float(err.max()), float((err / (atol + rtol * want.abs())).max())
+
+
+def flash_cases(torch, dev, card):
+    """Phase 3 for flash attention: every case of flash_case_list() in
+    f32 and bf16, kernel against plain version within FLASH_TOL: the
+    forward (out and lse), then dq/dk/dv from the plain forward's out and
+    lse, without and with an lse cotangent. Then, at the ViT step's
+    shape in bf16, the kernel, plain, bound and
+    scaled_dot_product_attention times. Returns the kernels line's
+    fields for flash_fwd, flash_dq and flash_dkv."""
+    from deep_vision_tpu_torch.ops.cuda.flash_attention import (
+        flash_backward,
+        flash_bwd_plain,
+        flash_delta,
+        flash_dkv,
+        flash_dkv_plain,
+        flash_dq,
+        flash_dq_plain,
+        flash_forward,
+        flash_fwd_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # max |kernel - plain| at the main path's inputs (the step's shape,
+    # bf16); every case's errors are printed
+    max_err = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    for i, (label, b, t, tk, h, d, causal, qk_scale) in enumerate(
+            flash_case_list()):
+        for dtype in (torch.float32, torch.bfloat16):
+            main_path = i == 0 and dtype is torch.bfloat16
+            kind = ("bf16" if dtype is torch.bfloat16
+                    else "x120" if qk_scale != 1.0 else "f32")
+            q, k, v, g = flash_inputs(torch, dev, b, t, tk, h, d, dtype, gen,
+                                      qk_scale)
+            scale = d ** -0.5
+            out, lse = flash_forward(q, k, v, causal=causal)
+            want_out, want_lse = flash_fwd_plain(q, k, v, causal, scale)
+            errs = {"out": flash_error(torch, out, want_out, kind, "out"),
+                    "lse": flash_error(torch, lse, want_lse, "lse", "out")}
+            if main_path:
+                max_err["flash_fwd"] = errs["out"][0]
+            shift = torch.randn(b, h, t, generator=gen, device=dev)
+            for tag, delta_shift in (("", None), (" lse-cot", shift)):
+                got = flash_backward(q, k, v, want_out, want_lse, g,
+                                     causal=causal, delta_shift=delta_shift)
+                want = flash_bwd_plain(q, k, v, want_out, want_lse, g, causal,
+                                       scale, delta_shift)
+                for name, a, w in zip(("dq", "dk", "dv"), got, want):
+                    errs[name + tag] = flash_error(torch, a, w, kind, "grad")
+                    key = "flash_dq" if name == "dq" else "flash_dkv"
+                    if main_path:
+                        max_err[key] = max(max_err[key], errs[name + tag][0])
+                del got, want
+            torch.cuda.synchronize()
+            worst = max(e[1] for e in errs.values())
+            print(f"[kernels] flash {label} (B {b}, T {t}, Tk {tk}, H {h}, "
+                  f"D {d}) {dtype}: max |err| "
+                  f"{ {n: float(f'{e[0]:.3e}') for n, e in errs.items()} }; "
+                  f"worst {worst:.3f} of the tolerance")
+            check(worst <= 1.0, f"flash kernel beyond tolerance: {label} "
+                  f"{dtype}: {errs}")
+            del q, k, v, g, out, lse, want_out, want_lse
+            torch.cuda.empty_cache()
+
+    # times at the step's shape, bf16: the kernels, the plain versions and
+    # the library's fused attention (timed only; the port never calls it)
+    _, b, t, tk, h, d, causal, _ = flash_case_list()[0]
+    q, k, v, g = flash_inputs(torch, dev, b, t, tk, h, d, torch.bfloat16,
+                              gen)
+    scale = d ** -0.5
+    out, lse = flash_forward(q, k, v)
+    delta = flash_delta(out, g)
+    times = {}
+    for name, fn in (
+            ("fwd", lambda: flash_forward(q, k, v)),
+            ("fwd_plain", lambda: flash_fwd_plain(q, k, v, False, scale)),
+            ("dq", lambda: flash_dq(q, k, v, g, lse, delta)),
+            ("dq_plain", lambda: flash_dq_plain(q, k, v, g, lse, delta,
+                                                False, scale)),
+            ("dkv", lambda: flash_dkv(q, k, v, g, lse, delta)),
+            ("dkv_plain", lambda: flash_dkv_plain(q, k, v, g, lse, delta,
+                                                  False, scale))):
+        times[name] = time_cuda(torch, fn)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    times["sdpa_fwd"] = time_cuda(torch, lambda: sdpa(qt, kt, vt))
+    o_sdpa = sdpa(qt, kt, vt)
+    g_sdpa = g.transpose(1, 2)
+    times["sdpa_bwd"] = time_cuda(torch, lambda: torch.autograd.grad(
+        o_sdpa, (qt, kt, vt), g_sdpa, retain_graph=True))
+    check(torch.allclose(o_sdpa.transpose(1, 2).float(), out.float(),
+                         rtol=2e-2, atol=2e-2),
+          "scaled_dot_product_attention disagrees with the flash kernel")
+    pairs = b * h * t * tk
+    qkvo = b * t * h * d * q.element_size()
+    rows = b * h * t * 4  # one f32 per (b, h, query)
+    work = {  # (flops, exponentials, bytes: inputs read, outputs written)
+        "flash_fwd": (4 * pairs * d, pairs, 4 * qkvo + rows),
+        "flash_dq": (6 * pairs * d, pairs, 5 * qkvo + 2 * rows),
+        "flash_dkv": (8 * pairs * d, pairs, 6 * qkvo + 2 * rows),
+    }
+    fields = {}
+    for name, kernel, plain, library, replaces in (
+            ("flash_fwd", "fwd", "fwd_plain", "sdpa_fwd", ":85"),
+            ("flash_dq", "dq", "dq_plain", "sdpa_bwd", ":192"),
+            ("flash_dkv", "dkv", "dkv_plain", "sdpa_bwd", ":232")):
+        flops, exps, nbytes = work[name]
+        terms = {"tensor cores": flops / BF16_FLOPS * 1e3,
+                 "exponentials": exps / EXP_PER_S * 1e3,
+                 "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+        by = max(terms, key=terms.get)
+        fields[name] = {
+            "replaces": "deep_vision_tpu/ops/pallas/flash_attention.py"
+                        + replaces,
+            "max_abs_err": max_err[name], "ms": times[kernel][0],
+            "plain_ms": times[plain][0], "bound_ms": terms[by],
+            "bound_by": "bytes" if by == "bytes" else "operations",
+            "library_ms": times[library][0]}
+        print(f"[kernels] {name} at (B {b}, T {t}, H {h}, D {d}) bf16, one "
+              f"call: kernel {times[kernel][0]:.4f} ms, plain "
+              f"{times[plain][0]:.4f} ms, bound {terms[by]:.4f} ms ({by}; "
+              f"{ {n: round(v, 4) for n, v in terms.items()} }: {flops} "
+              f"flops, {exps} exponentials, {nbytes} bytes), "
+              f"{100 * terms[by] / times[kernel][0]:.1f}% of the bound; "
+              f"scaled_dot_product_attention "
+              f"{'forward' if library == 'sdpa_fwd' else 'backward (dq, dk and dv together)'} "
+              f"{times[library][0]:.4f} ms; host {times[kernel][1]:.1f} us "
+              f"a call ({card})")
+    print(f"[kernels] flash backward, dq + dkv: "
+          f"{times['dq'][0] + times['dkv'][0]:.4f} ms against "
+          f"scaled_dot_product_attention's backward "
+          f"{times['sdpa_bwd'][0]:.4f} ms ({card})")
+    del q, k, v, g, out, lse, delta, qt, kt, vt, o_sdpa
+    torch.cuda.empty_cache()
+    return fields
+
+
+def vit_phase(torch, dev, card):
+    """Phase 5 for the ViT: the ViT-S/16 512 bf16 batch-64 step through
+    the Trainer. Returns the flash launch counts of its run."""
+    from deep_vision_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from deep_vision_tpu_torch.tools.profile_train import make_vit_train_parts
+
+    trainer, batch = make_vit_train_parts(VIT_BATCH, VIT_IMAGE, device=dev)
+    steps = WARMUP_STEPS + TIMED_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    flash_attention.launches = 0  # the ViT training path's run starts here
+    flash_attention.dq_launches = 0
+    flash_attention.dkv_launches = 0
+    losses, events, lrs = [], [], []
+    for i in range(steps):
+        if i == WARMUP_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(trainer.train_step(batch)["loss"])
+        end.record()
+        events.append((start, end))
+        lrs.append(trainer.state.optimizer.param_groups[0]["lr"])
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    launches = {"flash_fwd": flash_attention.launches,
+                "flash_dq": flash_attention.dq_launches,
+                "flash_dkv": flash_attention.dkv_launches}
+    # ... and ends here
+    step_ms = statistics.median(s.elapsed_time(e)
+                                for s, e in events[WARMUP_STEPS:])
+    losses = [float(v) for v in losses]
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    print(f"[train] ViT-S/16 {VIT_IMAGE}x{VIT_IMAGE} bf16 ({n_params} "
+          f"parameters) batch {VIT_BATCH}: {step_ms:.3f} ms/step median of "
+          f"{TIMED_STEPS} (CUDA events; wall {wall_ms:.3f} ms/step), "
+          f"{VIT_BATCH / step_ms * 1e3:.1f} images/s, max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB ({card})")
+    print(f"[train] ViT loss by step {[round(v, 4) for v in losses]}; lr by "
+          f"step {[float(f'{v:.3e}') for v in lrs]}; flash launches "
+          f"{launches} over {steps} steps")
+    check(n_params == 22_367_848, f"ViT-S/16 at 512 has {n_params} params")
+    check(launches == {k: 12 * steps for k in launches},
+          f"flash launches {launches}, want 12 + 12 + 12 per step")
+    check(all(np.isfinite(losses)), "non-finite ViT loss")
+    check(losses[-1] < losses[WARMUP_STEPS],
+          "the ViT loss did not fall over the timed steps on a fixed batch")
+    del trainer, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_vit_dense_route(torch, dev):
+    """A 224x224 vit_s16 eval forward (196 tokens) takes the dense
+    einsum: no flash launch."""
+    from deep_vision_tpu_torch.models import get_model
+    from deep_vision_tpu_torch.ops.cuda.flash_attention import flash_attention
+
+    model = get_model("vit_s16", dtype=torch.bfloat16, device=dev)
+    images = torch.from_numpy(np.random.RandomState(1).rand(
+        8, 224, 224, 3).astype(np.float32)).to(dev)
+    before = (flash_attention.launches, flash_attention.dq_launches,
+              flash_attention.dkv_launches)
+    with torch.no_grad():
+        logits = model(images)
+    torch.cuda.synchronize()
+    after = (flash_attention.launches, flash_attention.dq_launches,
+             flash_attention.dkv_launches)
+    print(f"[train] vit_s16 224x224 eval forward, batch 8: logits "
+          f"{tuple(logits.shape)}, flash launches {after[0] - before[0]} "
+          f"(dense route)")
+    check(after == before, "the 224x224 ViT launched a flash kernel")
+    check(bool(torch.isfinite(logits).all()), "non-finite 224 logits")
+    del model
+
+
+def check_vit_against_cpu(torch, dev):
+    """One float32 ViT-S/16 512 step at batch VIT_CHECK_BATCH on the card
+    (kernels) and on the CPU (plain versions), from the same seeded
+    weights and batch: loss, grad norm and each parameter's gradient
+    within VIT_CHECK_TOL. (The first AdamW update is not compared: it is
+    about lr * g / (|g| + eps), so a rounding difference in a gradient
+    near 0 becomes a full-size difference.)"""
+    from deep_vision_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from deep_vision_tpu_torch.tools.profile_train import make_vit_train_parts
+
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        before = flash_attention.launches
+        trainer, batch = make_vit_train_parts(
+            VIT_CHECK_BATCH, VIT_IMAGE, device=where, dtype=torch.float32)
+        start = {k: v.detach().cpu().clone()
+                 for k, v in trainer.model.state_dict().items()}
+        metrics = trainer.train_step(batch)
+        grads = {n: p.grad.detach().cpu()
+                 for n, p in trainer.model.named_parameters()}
+        runs[where.type] = (float(metrics["loss"]),
+                            float(metrics["grad_norm"]), start, grads,
+                            flash_attention.launches - before)
+        del trainer, batch
+    (lk, gk, sk, dk, nk), (lp, gp, sp, dp, np_) = runs["cuda"], runs["cpu"]
+    check(nk > 0 and np_ == 0, f"flash launches card {nk}, cpu {np_}")
+    check(all(torch.equal(sk[k], sp[k]) for k in sp),
+          "the card and CPU steps did not start from the same weights")
+    worst = {"loss": abs(lk - lp) / abs(lp),
+             "grad_norm": abs(gk - gp) / abs(gp), "grad": 0.0}
+    where = ""
+    for k in dp:
+        e = float((dk[k] - dp[k]).abs().max()) / max(
+            float(dp[k].abs().max()), 1e-30)
+        if e > worst["grad"]:
+            worst["grad"], where = e, k
+    print(f"[train] ViT float32 batch {VIT_CHECK_BATCH}, card vs CPU: loss "
+          f"{lk:.6f} vs {lp:.6f}, grad_norm {gk:.6f} vs {gp:.6f}; worst "
+          f"relative errors {worst} (gradient: {where}); tolerances "
+          f"{VIT_CHECK_TOL}")
+    for kind, e in worst.items():
+        check(e <= VIT_CHECK_TOL[kind], f"ViT card vs CPU {kind} error "
+              f"{e:.3e} > {VIT_CHECK_TOL[kind]}")
+
+
 def train_phase(torch, trainer, batch, card):
     """Phase 5: the flagship step through the Trainer. Returns the
     bn_act launch counts of its run."""
@@ -428,6 +766,7 @@ def main():
     from deep_vision_tpu_torch.nn.layers import calibrate_batch_stats
     from deep_vision_tpu_torch.ops.cuda import build
     from deep_vision_tpu_torch.ops.cuda.bn_act import fused_scale_bias_act
+    from deep_vision_tpu_torch.ops.cuda.flash_attention import flash_attention
     from deep_vision_tpu_torch.ops.cuda.nms import greedy_nms, nms_plain
     from deep_vision_tpu_torch.serve import Engine, Server
     from deep_vision_tpu_torch.tools.profile_train import make_train_parts
@@ -483,6 +822,7 @@ def main():
           f"the flagship step should make 48 bn_act calls, got {calls}")
     bn_rows = bn_act_cases(torch, dev, calls, card)
     torch.cuda.empty_cache()
+    flash_rows = flash_cases(torch, dev, card)
 
     # -- 4. serving ----------------------------------------------------------
     rng = np.random.RandomState(0)
@@ -510,6 +850,7 @@ def main():
     greedy_nms.launches = 0  # the serving path's run starts here
     fused_scale_bias_act.launches = 0
     fused_scale_bias_act.backward_launches = 0
+    flash_attention.launches = 0
     t0 = time.perf_counter()
     rows = []
     for burst in BURSTS:
@@ -518,6 +859,7 @@ def main():
     stream_s = time.perf_counter() - t0
     launches = greedy_nms.launches  # ... and ends here
     check(fused_scale_bias_act.launches == 0, "YOLOv3 serving ran bn_act")
+    check(flash_attention.launches == 0, "YOLOv3 serving ran flash")
     slo = server.slo.report()["yolov3"]
     print(f"[serve] {len(rows)} requests in {len(BURSTS)} bursts, "
           f"{slo['batches']} batches, {stream_s:.3f} s; nms launches "
@@ -627,6 +969,10 @@ def main():
     del trainer, train_batch
     torch.cuda.empty_cache()
     check_against_cpu(torch, dev)
+    vit_launches = vit_phase(torch, dev, card)
+    check_vit_dense_route(torch, dev)
+    torch.cuda.empty_cache()
+    check_vit_against_cpu(torch, dev)
     for name, n in launches.items():
         row = bn_rows[name]
         kernels.append({
@@ -636,6 +982,11 @@ def main():
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None})
+    for name, n in vit_launches.items():
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "deep_vision_tpu_torch/csrc/"
+                                  "flash_attention.cu",
+                        "launches": n, **flash_rows[name]})
 
     # -- 6. report -----------------------------------------------------------
     print(card)

@@ -1,12 +1,12 @@
 """Model registry, the port of deep_vision_tpu/models/__init__.py.
 
 Only the models of the ported slices are registered: `yolov3` and its
-backbone `darknet53`, and `resnet34`, `resnet50`, `resnet152`. Each
-registers with its own initialiser, which draws the weights as flax
-draws them from a `torch.Generator` seeded with `seed` (the draws differ
-from JAX's; load the reference's numbers through convert.py where they
-must agree). `get_model` returns the model on the resolved device, in
-eval mode unless `train=True`.
+backbone `darknet53`, `resnet34`, `resnet50`, `resnet152`, and the dense
+ViTs `vit_s16` and `vit_b16`. Each registers with its own initialiser,
+which draws the weights as flax draws them from a `torch.Generator`
+seeded with `seed` (the draws differ from JAX's; load the reference's
+numbers through convert.py where they must agree). `get_model` returns
+the model on the resolved device, in eval mode unless `train=True`.
 """
 from __future__ import annotations
 
@@ -44,4 +44,4 @@ def get_model(name: str, *, device: DeviceLike = None, seed: int = 0,
 
 
 # importing the modules populates the registry
-from deep_vision_tpu_torch.models import resnet, yolov3  # noqa: E402,F401
+from deep_vision_tpu_torch.models import resnet, vit, yolov3  # noqa: E402,F401

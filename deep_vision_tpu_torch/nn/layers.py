@@ -1,4 +1,5 @@
-"""ConvBN and BatchNorm, the port of deep_vision_tpu/nn/layers.py.
+"""ConvBN and BatchNorm, the port of deep_vision_tpu/nn/layers.py, and
+the flax layers the ViT uses (LayerNorm, Dense, DenseGeneral).
 
 Layout: modules take and return NCHW-indexed tensors (PyTorch's
 convolution layout), in whatever memory format they are given; the
@@ -42,6 +43,8 @@ Padding = Union[str, Sequence[Tuple[int, int]]]
 #: profiler range around a training BatchNorm's batch statistics
 #: (tools/profile_train.py attributes its kernels to them)
 BN_STATS_RANGE = "dvt::bn_stats"
+#: profiler range around a LayerNorm
+LAYERNORM_RANGE = "dvt::layernorm"
 
 
 def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -188,6 +191,83 @@ class ConvBN(nn.Module):
         x = self.BatchNorm_0(conv2d(x, w, self.strides, self._pads(x)),
                              residual=residual)
         return self.act(x) if self.act is not None else x
+
+
+class LayerNorm(nn.Module):
+    """flax `LayerNorm` over the last axis, as the ViT uses it: epsilon
+    1e-6 (torch's default is 1e-5); statistics in at least float32 with
+    the fast variance `max(E[x^2] - E[x]^2, 0)`; `(x - mean) * (rsqrt(var
+    + eps) * scale) + bias` in float32, returned in `dtype` (default: the
+    promotion of x's dtype and float32). `scale` and `bias` keep the flax
+    names. `LAYERNORM_RANGE` marks its work for the profiler."""
+
+    def __init__(self, features: int, epsilon: float = 1e-6,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters(self) -> None:
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with torch.profiler.record_function(LAYERNORM_RANGE):
+            xf = x.float()
+            mean = xf.mean(-1, keepdim=True)
+            var = torch.clamp_min(
+                torch.square(xf).mean(-1, keepdim=True) - torch.square(mean),
+                0.0)
+            y = (xf - mean) * (torch.rsqrt(var + self.epsilon) * self.scale)
+            y = y + self.bias
+            return y.to(self.dtype or torch.promote_types(x.dtype,
+                                                          torch.float32))
+
+
+class DenseGeneral(nn.Module):
+    """flax `Dense` / `DenseGeneral` over the last len(in_shape) axes:
+    `(..., *in_shape) -> (..., *features)`. The kernel is kept as one 2-D
+    (prod(features), prod(in_shape)) `weight`, as `F.linear` takes it
+    (convert.py flattens flax's (*in_shape, *features) kernel into it),
+    and the bias as (prod(features),). As `flax_cast` does, input and
+    kernel are cast to `dtype` (default: their promotion), and the bias
+    is added after the product, in the product's dtype, as flax adds
+    it."""
+
+    def __init__(self, in_shape: Union[int, Sequence[int]],
+                 features: Union[int, Sequence[int]],
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.in_shape = ((in_shape,) if isinstance(in_shape, int)
+                         else tuple(in_shape))
+        self.features = ((features,) if isinstance(features, int)
+                         else tuple(features))
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(math.prod(self.features),
+                                               math.prod(self.in_shape)))
+        self.bias = nn.Parameter(torch.zeros(math.prod(self.features)))
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        """lecun_normal over the flattened fan-in, zero bias (flax's
+        defaults)."""
+        with torch.no_grad():
+            trunc_normal_fan_in_(self.weight, 1.0, generator)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:x.dim() - len(self.in_shape)]
+        x, w = flax_cast(x.reshape(*lead, -1), self.weight, self.dtype)
+        y = F.linear(x, w) + self.bias.to(w.dtype)
+        return y.reshape(*lead, *self.features)
+
+
+def Dense(in_features: int, features: int,
+          dtype: Optional[torch.dtype] = None) -> DenseGeneral:
+    """flax `nn.Dense`: a DenseGeneral over the last axis."""
+    return DenseGeneral(in_features, features, dtype=dtype)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,12 @@ gradients. As on one device in the reference (`_pad_and_mask`), every
 batch gets a `_mask` of ones unless it has one, so the loss takes its
 weighted path. `eval_step`, `evaluate` and `fit` loop over steps.
 
+A learning-rate schedule (`lr_schedule`, by default the optimizer
+spec's own when `build_optimizer` was given one) sets every parameter
+group's lr to `lr_schedule(step)` before each update, where `step`
+counts the updates taken so far: the count optax's `inject_hyperparams`
+evaluates the reference's schedule at.
+
 Not ported yet: checkpoints, the run journal and telemetry, EMA weights,
 multistep supersteps, device prefetch, profiler windows, plateau LR,
 the non-finite skip policy, meshes and sharding.
@@ -23,18 +29,22 @@ from torch import nn
 
 from deep_vision_tpu_torch.core.backend import DeviceLike, resolve_device
 from deep_vision_tpu_torch.core.train_state import create_train_state
+from deep_vision_tpu_torch.train.optimizers import set_lr
 
 
 class Trainer:
     """loss_fn(outputs, batch) -> (loss, metrics dict). `tx` builds the
-    optimizer from the model (`train.optimizers.build_optimizer`)."""
+    optimizer from the model (`train.optimizers.build_optimizer`);
+    `lr_schedule` (step -> lr) defaults to its `schedule`, if any."""
 
     def __init__(self, model: nn.Module,
                  tx: Callable[[nn.Module], torch.optim.Optimizer],
                  loss_fn: Callable, sample_input,
                  eval_loss_fn: Optional[Callable] = None,
-                 input_key: str = "image", device: DeviceLike = None):
+                 input_key: str = "image", device: DeviceLike = None,
+                 lr_schedule: Optional[Callable[[int], float]] = None):
         self.device = resolve_device(device)
+        self.lr_schedule = lr_schedule or getattr(tx, "schedule", None)
         self.loss_fn = loss_fn
         self.eval_loss_fn = eval_loss_fn or loss_fn
         self.input_key = input_key
@@ -66,6 +76,8 @@ class Trainer:
         loss.backward()
         grads = [p.grad for p in model.parameters() if p.grad is not None]
         metrics["grad_norm"] = torch.nn.utils.get_total_norm(grads)
+        if self.lr_schedule is not None:
+            set_lr(opt, self.lr_schedule(self.state.step))
         opt.step()
         self.state.step += 1
         return {k: v.detach() for k, v in metrics.items()}

@@ -6,11 +6,22 @@ also runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Equality is exact: the kernels are built without FMA contraction or fast
-math and evaluate the plain versions' float32 operations in their order.
-The one exception is the bn_act backward's channel sums (dscale, dbias),
-taken in another order than the plain version's: they must agree within
-1e-5 of the sum of |terms| per channel.
+NMS and bn_act: equality is exact: the kernels are built without FMA
+contraction or fast math and evaluate the plain versions' float32
+operations in their order. The one exception is the bn_act backward's
+channel sums (dscale, dbias), taken in another order than the plain
+version's: they must agree within 1e-5 of the sum of |terms| per channel.
+
+Flash attention sums its products in another order than the plain
+versions (tiles of 64 keys, tensor cores for bf16), so it is held to
+tests/test_pallas.py's tolerances: float32 out and lse within rtol 2e-4,
+atol 2e-5, float32 dq/dk/dv within rtol 2e-4, atol 2e-4 x the tensor's
+largest magnitude (with scores scaled by 120, out within rtol 2e-3, atol
+1e-4, as there, and dq/dk/dv within rtol 2e-3, atol 1e-3 x the largest
+magnitude); bfloat16 out within 2e-2, bfloat16 dq/dk/dv within
+2e-2 of the tensor's largest magnitude (the kernels round P and dS to
+bf16 for their second products, where the plain versions keep float32).
+lse is float32 in both and held to the float32 tolerance.
 """
 import numpy as np
 import pytest
@@ -23,6 +34,13 @@ from deep_vision_tpu_torch.ops.cuda.bn_act import (
     bn_act_plain,
     fused_scale_bias_act,
 )
+from deep_vision_tpu_torch.ops.cuda.flash_attention import (
+    flash_attention,
+    flash_backward,
+    flash_bwd_plain,
+    flash_forward,
+    flash_fwd_plain,
+)
 from deep_vision_tpu_torch.ops.cuda.nms import greedy_nms, nms_plain
 
 
@@ -30,6 +48,7 @@ from deep_vision_tpu_torch.ops.cuda.nms import greedy_nms, nms_plain
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions
     return torch.device("cuda")
 
 
@@ -138,3 +157,109 @@ def test_bn_act_kernels_refuse_what_they_do_not_take(cuda_device):
         bn_act_forward(x, a.cpu(), b)
     with pytest.raises(ValueError, match="does not match"):
         bn_act_forward(x, a, b, torch.zeros(2, 8, 3, 5))
+
+
+def flash_inputs(dev, b, t, tk, h, d, dtype, seed, qk_scale=1.0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(n):
+        return torch.randn(b, n, h, d, generator=gen, device=dev)
+
+    q = (draw(t) * qk_scale).to(dtype)
+    return q, draw(tk).to(dtype), draw(tk).to(dtype), draw(t).to(dtype)
+
+
+def flash_tolerance(dtype, grad=False, extreme=False):
+    """(rtol, atol, atol relative to the largest |want|?) of the module
+    doc; `extreme` (scores scaled by 120) is test_pallas.py's looser f32
+    tolerance for that case (:50-57): near-one-hot rows, where a one-ulp
+    difference between the two top scores moves the weights."""
+    if dtype == torch.bfloat16:
+        return (0.0, 2e-2, True) if grad else (2e-2, 2e-2, False)
+    if extreme:
+        return (2e-3, 1e-3, True) if grad else (2e-3, 1e-4, False)
+    return (2e-4, 2e-4, True) if grad else (2e-4, 2e-5, False)
+
+
+def assert_flash_close(got, want, dtype, name, grad=False, extreme=False):
+    got, want = got.float(), want.float()
+    rtol, atol, relative = flash_tolerance(dtype, grad, extreme)
+    if relative:
+        atol *= float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                               msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,tk,h,d,causal,qk_scale", [
+    (2, 1024, 1024, 6, 64, False, 1.0),  # the ViT-S/16 512 shape, 2 images
+    (2, 1000, 1000, 2, 64, True, 1.0),   # ragged T, causal
+    (1, 77, 77, 3, 32, False, 1.0),
+    (1, 100, 300, 2, 128, False, 1.0),   # cross attention
+    (1, 300, 100, 2, 128, True, 1.0),    # causal, more queries than keys
+    (1, 64, 200, 1, 8, True, 1.0),       # more keys than queries, D = 8
+    (2, 130, 130, 2, 40, False, 1.0),    # D = 40 (computed at 64)
+    (2, 128, 128, 2, 64, True, 120.0),   # extreme scores
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain(cuda_device, b, t, tk, h, d, causal,
+                                   qk_scale, dtype):
+    q, k, v, g = flash_inputs(cuda_device, b, t, tk, h, d, dtype,
+                              seed=t + tk + d, qk_scale=qk_scale)
+    scale = d ** -0.5
+    before = (flash_attention.launches, flash_attention.dq_launches,
+              flash_attention.dkv_launches)
+    out, lse = flash_forward(q, k, v, causal=causal)
+    want_out, want_lse = flash_fwd_plain(q, k, v, causal, scale)
+    extreme = qk_scale != 1.0
+    assert out.dtype == dtype and lse.shape == (b, h, t)
+    assert_flash_close(out, want_out, dtype, "out", extreme=extreme)
+    torch.testing.assert_close(lse, want_lse, rtol=2e-4, atol=2e-5,
+                               msg=lambda m: f"lse: {m}")
+    shift = torch.randn(b, h, t, device=cuda_device)
+    for delta_shift in (None, shift):
+        got = flash_backward(q, k, v, want_out, want_lse, g, causal=causal,
+                             delta_shift=delta_shift)
+        want = flash_bwd_plain(q, k, v, want_out, want_lse, g, causal, scale,
+                               delta_shift)
+        for a, w, name in zip(got, want, ("dq", "dk", "dv")):
+            assert a.dtype == dtype
+            assert_flash_close(a, w, dtype, name, grad=True, extreme=extreme)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.dq_launches,
+            flash_attention.dkv_launches) == (before[0] + 1, before[1] + 2,
+                                              before[2] + 2)
+
+
+@pytest.mark.cuda
+def test_flash_reads_the_qkv_projection_in_place(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    qkv = torch.randn(2, 256, 3, 4, 64, generator=gen, device=cuda_device,
+                      dtype=torch.bfloat16).requires_grad_()
+    q, k, v = qkv.unbind(2)
+    assert q.stride() == (256 * 3 * 4 * 64, 3 * 4 * 64, 64, 1)
+    out = flash_attention(q, k, v)
+    ref = flash_attention(*(t.detach().contiguous().requires_grad_()
+                            for t in (q, k, v)))
+    assert torch.equal(out, ref)
+    g = torch.randn(out.shape, generator=gen, device=cuda_device,
+                    dtype=out.dtype)
+    out.backward(g)
+    want = flash_bwd_plain(q.detach(), k.detach(), v.detach(),
+                           *flash_fwd_plain(q.detach(), k.detach(),
+                                            v.detach(), False, 0.125),
+                           g, False, 0.125)
+    for i, (w, name) in enumerate(zip(want, ("dq", "dk", "dv"))):
+        assert_flash_close(qkv.grad[:, :, i], w, torch.bfloat16, name,
+                           grad=True)
+
+
+@pytest.mark.cuda
+def test_flash_refuses_what_the_kernels_do_not_take(cuda_device):
+    flat = torch.zeros(1 + 8 * 2 * 16, device=cuda_device)
+    q = flat[1:].view(1, 8, 2, 16)  # 4-byte offset: rows not 16-byte aligned
+    k = torch.zeros(1, 8, 2, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_forward(q, k, k)
+    with pytest.raises(ValueError, match="on"):
+        flash_forward(k, k.cpu(), k)

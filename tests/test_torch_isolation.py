@@ -67,7 +67,10 @@ def test_default_device_entry_points_raise_without_a_card():
     from deep_vision_tpu_torch.losses import classification_loss_fn
     from deep_vision_tpu_torch.models import get_model
     from deep_vision_tpu_torch.serve import Engine
-    from deep_vision_tpu_torch.tools.profile_train import make_train_parts
+    from deep_vision_tpu_torch.tools.profile_train import (
+        make_train_parts,
+        make_vit_train_parts,
+    )
     from deep_vision_tpu_torch.train import Trainer, build_optimizer
 
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
@@ -84,8 +87,16 @@ def test_default_device_entry_points_raise_without_a_card():
         Trainer(tiny, tx, classification_loss_fn, torch.zeros(1, 2))
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         make_train_parts(1)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        get_model("vit_s16")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        make_vit_train_parts(1, 32)
     assert get_model("darknet53", device="cpu") is not None
     assert get_model("resnet50", device="cpu") is not None
+    assert get_model("vit_s16", device="cpu") is not None
+    trainer, batch = make_vit_train_parts(1, 32, device="cpu")
+    assert trainer.device.type == "cpu" and batch["image"].shape == (
+        1, 32, 32, 3)
 
 
 def test_builder_raises_clearly_without_nvcc(monkeypatch, tmp_path):
@@ -103,6 +114,6 @@ def test_builder_raises_clearly_without_nvcc(monkeypatch, tmp_path):
 def test_every_kernel_source_is_known_to_the_builder():
     from deep_vision_tpu_torch.ops.cuda import build
 
-    assert sorted(build.sources()) == ["bn_act", "nms"]
+    assert sorted(build.sources()) == ["bn_act", "flash_attention", "nms"]
     with pytest.raises(KeyError):
         build.build(["no_such_kernel"])
