@@ -8,7 +8,9 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
 
 1. setup   the card's name and power limit, torch/CUDA versions, TF32 off
            (the JAX YOLOv3 is a float32 model);
-2. build   every kernel under deep_vision_tpu_torch/csrc with nvcc;
+2. build   every kernel under deep_vision_tpu_torch/csrc with nvcc, and
+           ptxas's registers and spills for each (none allowed in the
+           Hopper flash kernels, flash_fwd_sm90 and flash_dkv_sm90);
 3. kernels each kernel against its plain PyTorch version on the card:
            NMS, exact equality, over the cases of kernel_cases(); bn_act
            at every (shape, residual) the flagship training step gives
@@ -20,8 +22,10 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            flash_cases() (the ViT step's shape in bf16 and f32, causal,
            cross, ragged T, D 32 and 128, scores x120), forward with lse
            and the dq/dkv backward with and without an lse cotangent,
-           within FLASH_TOL; kernel, plain, bound and
-           scaled_dot_product_attention times at the step's shape;
+           within FLASH_TOL (also T 129 with Tk 65, one query against
+           1024 keys, causal cross attention 256 x 1024); kernel, plain,
+           bound and scaled_dot_product_attention times at the step's
+           shape;
 4. serve   YOLOv3 at 416x416, 80 classes, seeded weights, through the
            port's Engine (buckets 1, 2, 4, 8) and Server: a mixed burst
            stream, response checks, the NMS launch count against the
@@ -366,6 +370,9 @@ def flash_case_list():
         ("D 32", 8, 512, 512, 4, 32, False, 1.0),
         ("D 128, causal", 8, 512, 512, 4, 128, True, 1.0),
         ("scores x120, causal", 8, t, t, h, d, True, 120.0),
+        ("T 129, Tk 65", 8, 129, 65, h, d, False, 1.0),
+        ("a single query, Tk 1024", 8, 1, t, h, d, False, 1.0),
+        ("causal cross Tq 256, Tk 1024", 8, 256, t, h, d, True, 1.0),
     ]
 
 
@@ -794,9 +801,15 @@ def main():
     print(f"[build] {sorted(secs)} in {time.perf_counter() - t0:.2f} s "
           f"(per source: {secs})")
     for name in secs:
-        for line in build.ptxas_report(name).splitlines():
-            if "registers" in line or "bytes" in line:
-                print(f"[build] {name}: {line.strip()}")
+        for kernel, use in sorted(build.ptxas_usage(
+                build.ptxas_report(name)).items()):
+            print(f"[build] {name}: {kernel}: {use['registers']} registers,"
+                  f" spill stores {use['spill_stores']} B, spill loads "
+                  f"{use['spill_loads']} B")
+            # the Hopper flash kernels hold their tiles' products in
+            # registers: a spill there is a design fault, not a detail
+            check("sm90" not in kernel or use["spill_stores"]
+                  + use["spill_loads"] == 0, f"{kernel} spills")
 
     # -- 3. kernels against plain versions -----------------------------------
     for label, boxes, scores, thr in kernel_cases():

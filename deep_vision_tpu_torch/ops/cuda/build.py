@@ -8,30 +8,40 @@ under a name that carries a hash of the source and the flags, so an
 edited source is rebuilt and an unchanged one is reused. `build()` starts
 one `nvcc` per source, all at once, and waits for them together.
 
-Flags: `sm_90a` (Hopper), `-O3`, `--fmad=false` (the NMS kernel must
-round like its plain version; no fast math either), and `-Xptxas -v`,
-whose report of registers and shared memory is kept beside the library
-(`ptxas_report`).
+Flags (`flags(name)`): `sm_90a` (Hopper), `-O3` and `-Xptxas -v`,
+whose report of registers, shared memory and spills is kept beside the
+library (`ptxas_report`, `ptxas_usage`), for every source; then each
+source's own (`SOURCE_FLAGS`): `--fmad=false` for NMS and bn_act, whose
+kernels must round like their plain versions bit for bit (no fast math
+either). Flash attention is held to tolerances, not bits, so its
+multiply-adds contract into FMAs.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
+#: flags of one source beyond NVCC_FLAGS
+SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {
+    "nms": ("--fmad=false",),
+    "bn_act": ("--fmad=false",),
+    "flash_attention": (),
+}
 _DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -62,10 +72,21 @@ def sources() -> Dict[str, Path]:
     return {p.stem: p for p in sorted(CSRC_DIR.glob("*.cu"))}
 
 
+def flags(name: str) -> Tuple[str, ...]:
+    """nvcc's flags for `csrc/<name>.cu`; a source without an entry in
+    SOURCE_FLAGS raises, so none is built without a decision on FMA."""
+    if name not in SOURCE_FLAGS:
+        raise KeyError(f"no build flags for {name!r}: add it to "
+                       f"SOURCE_FLAGS")
+    return NVCC_FLAGS + SOURCE_FLAGS[name]
+
+
 def library_path(name: str) -> Path:
+    """The library's path: its name carries a hash of the source and of
+    its flags, so a change to either builds anew."""
     src = sources()[name]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + " ".join(flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -75,6 +96,34 @@ def ptxas_report(name: str) -> str:
     build directory."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_REGS = re.compile(r"Used (\d+) registers")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+
+
+def ptxas_usage(report: str) -> Dict[str, Dict[str, int]]:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
+    from a `-Xptxas -v` report."""
+    usage: Dict[str, Dict[str, int]] = {}
+    entry = None
+    for line in report.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            entry = usage.setdefault(m.group(1), {
+                "registers": 0, "spill_stores": 0, "spill_loads": 0})
+            continue
+        if entry is None:
+            continue
+        m = _SPILLS.search(line)
+        if m:
+            entry["spill_stores"] = int(m.group(1))
+            entry["spill_loads"] = int(m.group(2))
+        m = _REGS.search(line)
+        if m:
+            entry["registers"] = int(m.group(1))
+    return usage
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
@@ -95,7 +144,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     procs = {}
     for n in todo:
         tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(srcs[n])]
+        cmd = [nvcc, *flags(n), "-o", str(tmp), str(srcs[n])]
         procs[n] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     seconds, failed = {n: 0.0 for n in names}, {}

@@ -13,7 +13,7 @@ channel sums (dscale, dbias), taken in another order than the plain
 version's: they must agree within 1e-5 of the sum of |terms| per channel.
 
 Flash attention sums its products in another order than the plain
-versions (tiles of 64 keys, tensor cores for bf16), so it is held to
+versions (tiles of keys, tensor cores for bf16), so it is held to
 tests/test_pallas.py's tolerances: float32 out and lse within rtol 2e-4,
 atol 2e-5, float32 dq/dk/dv within rtol 2e-4, atol 2e-4 x the tensor's
 largest magnitude (with scores scaled by 120, out within rtol 2e-3, atol
@@ -38,6 +38,8 @@ from deep_vision_tpu_torch.ops.cuda.flash_attention import (
     flash_attention,
     flash_backward,
     flash_bwd_plain,
+    flash_delta,
+    flash_dkv,
     flash_forward,
     flash_fwd_plain,
 )
@@ -200,6 +202,9 @@ def assert_flash_close(got, want, dtype, name, grad=False, extreme=False):
     (1, 64, 200, 1, 8, True, 1.0),       # more keys than queries, D = 8
     (2, 130, 130, 2, 40, False, 1.0),    # D = 40 (computed at 64)
     (2, 128, 128, 2, 64, True, 120.0),   # extreme scores
+    (1, 129, 65, 2, 64, False, 1.0),     # one row past 128, one key past 64
+    (2, 1, 1024, 3, 64, False, 1.0),     # a single query
+    (1, 256, 1024, 2, 64, True, 1.0),    # causal cross attention, Tq < Tk
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_match_plain(cuda_device, b, t, tk, h, d, causal,
@@ -229,6 +234,36 @@ def test_flash_kernels_match_plain(cuda_device, b, t, tk, h, d, causal,
     assert (flash_attention.launches, flash_attention.dq_launches,
             flash_attention.dkv_launches) == (before[0] + 1, before[1] + 2,
                                               before[2] + 2)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_forward_and_dkv_repeat_bitwise(cuda_device):
+    """The ViT step's shape: two calls give the same bits (no atomics;
+    every sum in a fixed order)."""
+    q, k, v, g = flash_inputs(cuda_device, 64, 1024, 1024, 6, 64,
+                              torch.bfloat16, seed=11)
+    out, lse = flash_forward(q, k, v)
+    out2, lse2 = flash_forward(q, k, v)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    delta = flash_delta(out, g)
+    dk, dv = flash_dkv(q, k, v, g, lse, delta)
+    dk2, dv2 = flash_dkv(q, k, v, g, lse, delta)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_without_lse_gives_the_same_out(cuda_device, dtype):
+    q, k, v, _ = flash_inputs(cuda_device, 2, 300, 300, 3, 64, dtype,
+                              seed=12)
+    before = flash_attention.launches
+    out, lse = flash_forward(q, k, v, causal=True)
+    bare, none = flash_forward(q, k, v, causal=True, need_lse=False)
+    torch.cuda.synchronize()
+    assert none is None and lse.shape == (2, 3, 300)
+    assert torch.equal(out, bare)
+    assert flash_attention.launches == before + 2
 
 
 @pytest.mark.cuda
