@@ -30,57 +30,68 @@
 //
 // Two designs live here.
 //
-// bf16 forward and dK/dV: the Hopper design (flash_fwd_sm90, flash_dkv_sm90).
-// - A CTA is consumer warpgroups and one producer warp. The forward CTA
-//   owns 128 query rows of one (b, h), 64 for each of two warpgroups, and
-//   walks key tiles of 128 (64 at D = 128). The dK/dV CTA owns 128 keys,
-//   64 for each of two warpgroups (64 keys and one warpgroup at D = 128,
-//   where dK and dV take 64 registers each: a CTA of 160 threads may give a
-//   thread 255), holds its K and V tiles in shared memory for its whole
-//   life and walks query tiles of 64 (32 at D = 128).
+// bf16: the Hopper design (flash_fwd_sm90, flash_dq_sm90, flash_dkv_sm90).
+// - A CTA is consumer warpgroups and one producer warp. The forward and
+//   dq CTAs own 128 query rows of one (b, h), 64 for each of two
+//   warpgroups, and walk key tiles: 128 keys in the forward (64 at
+//   D = 128), 64 in dq (32 at D = 128, where dQ takes 64 registers). The
+//   dK/dV CTA owns 128 keys, 64 for each of two warpgroups (64 keys and
+//   one warpgroup at D = 128, where dK and dV take 64 registers each: a
+//   CTA of 160 threads may give a thread 255), holds its K and V tiles in
+//   shared memory for its whole life and walks query tiles of 64 (32 at
+//   D = 128). The dq CTA likewise holds Q and dO.
 // - Tiles arrive by TMA (cp.async.bulk.tensor, 4-D maps over (D, H, T, B)
 //   built on the host per call from the views' strides, so strided views are
 //   read in place; no view needs cp.async) into a ring of kStages stages
-//   guarded by mbarriers: the producer warp waits for a free stage and
+//   (4 in dq) guarded by mbarriers: the producer warp waits for a free stage and
 //   issues the next tile's copies while the consumers compute on the
 //   current one. TMA zero-fills rows past T or Tk and columns past D;
 //   shared tiles carry TMA's 128-byte swizzle (64-byte at D = 32), in
 //   column blocks of 64 elements at D = 128.
-// - Products are wgmma.mma_async m64nNk16 bf16 -> f32. S = Q K^T (S^T = K
-//   Q^T and dP^T = V dO^T in dkv) read both operands from shared memory
-//   through K-major descriptors and stay in registers. P (P^T, dS^T) is
-//   rounded to bf16 in registers, where wgmma's accumulator layout is its A
-//   fragment layout, and enters O += P V (dV += P^T dO, dK += dS^T Q) as the
-//   register A operand against an MN-major (transposed) shared B operand.
+// - Products are wgmma.mma_async m64nNk16 bf16 -> f32. S = Q K^T (and
+//   dP = dO V^T in dq; S^T = K Q^T and dP^T = V dO^T in dkv) read both
+//   operands from shared memory through K-major descriptors and stay in
+//   registers. P (dS in dq, P^T and dS^T in dkv) is rounded to bf16 in
+//   registers, where wgmma's accumulator layout is its A fragment layout,
+//   and enters O += P V (dQ += dS K; dV += P^T dO, dK += dS^T Q) as the
+//   register A operand against an MN-major (transposed) shared B operand:
+//   dq reads the same K tile twice, K-major for S and MN-major for dQ.
 // - The softmax runs on each thread's own fragment rows: a row's max and sum
 //   reduce over the four threads of a quad with two shuffles; scores enter
 //   exp2 as one FFMA, s * (scale log2 e) - m2, and one ex2.approx; the
 //   rescale factor multiplies the O accumulators in registers. lse is
-//   written in natural log, (m2 + log2 max(l, 1e-20)) ln 2.
+//   written in natural log, (m2 + log2 max(l, 1e-20)) ln 2. The backward
+//   knows lse: P = exp2(s * (scale log2 e) - lse log2 e) needs no
+//   reduction, and dq keeps lse log2 e and delta of its two fragment rows
+//   in registers.
 // - Masks are applied only on the tiles that need them: the ragged last key
-//   tile (keys >= Tk set to -inf: TMA's zero rows would give score 0), the
-//   causal diagonal tiles, and in dkv the ragged last query tile (P = 0 for
-//   queries >= T).
-// - dK and dV accumulate in registers over the whole loop and are stored
-//   once: no atomics, repeatable bits.
-// - The forward is software-pipelined inside each warpgroup: the product
-//   S_j = Q K_j^T is issued together with P_{j-1} V_{j-1}, and the softmax
-//   of S_j runs on the CUDA cores and SFUs while P_{j-1} V_{j-1} is on the
-//   tensor cores; O is rescaled once that product has landed.
+//   tile (keys >= Tk set to -inf in the forward, P = 0 in dq: TMA's zero
+//   rows would give score 0), the causal diagonal tiles, and in dkv the
+//   ragged last query tile (P = 0 for queries >= T). Query rows >= T
+//   score 0 against lse 0 and delta 0 in dq, so dS = 0 there; they are
+//   not stored. Under causal masking the key loop ends at the tile of the
+//   CTA's last valid row (in dq, of the warpgroup's).
+// - dQ, dK and dV accumulate in registers over the whole loop and are
+//   stored once: no atomics, repeatable bits. dq folds the softmax scale
+//   into that store (dS is rounded to bf16 unscaled).
+// - The forward and dq are software-pipelined inside each warpgroup: the
+//   scores of tile j (S_j, and dP_j in dq) are issued together with the
+//   second product of tile j - 1, and the exponentials of tile j run on
+//   the CUDA cores and SFUs while that product is on the tensor cores; a
+//   ring stage is released once the product reading it has landed.
 // What is left for later: the two warpgroups are not ordered against each
-// other (no ping-pong of one's softmax against the other's products on
-// named barriers), dK/dV is not pipelined across query tiles, and outputs
-// are stored from registers rather than through shared memory and TMA.
+// other (a ping-pong of one's exponentials against the other's products
+// on named barriers gave no gain in the forward or in dq), dK/dV is not
+// pipelined across query tiles, S and dP in dq are shared-memory products
+// at N = 64 (Q and dO as register fragments would halve what they read),
+// and outputs are stored from registers rather than through shared
+// memory and TMA.
 //
-// float32 (all three kernels) and bf16 dq: the first design (flash_fwd,
-// flash_dq, flash_dkv). One CTA of 4 warps per 64-row tile (64 keys in
-// dkv), looping over the other axis; tiles loaded synchronously with 16-byte
-// accesses; each warp owns 16 rows. float32 multiplies on the CUDA cores in
-// full precision: wgmma takes f32 only as TF32, which would break the
-// card-vs-CPU float32 check of the ViT step. bf16 dq uses nvcuda::wmma
-// 16x16x16 with each product written to a per-warp f32 scratch and added
-// into accumulators with a fixed element -> lane mapping; its move to the
-// Hopper design is the next step.
+// float32: the first design (flash_fwd, flash_dq, flash_dkv). One CTA of 4
+// warps per 64-row tile (64 keys in dkv), looping over the other axis;
+// tiles loaded synchronously with 16-byte accesses; each warp owns 16 rows
+// and multiplies on the CUDA cores in full precision: wgmma takes f32 only
+// as TF32, which would break the card-vs-CPU float32 check of the ViT step.
 //
 // Numerics. Products of bf16 values are exact in f32, so S and dP match the
 // TPU kernel's f32 dots up to summation order; P and dS are rounded to bf16
@@ -93,7 +104,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
-#include <mma.h>
 
 namespace {
 
@@ -101,26 +111,17 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kTile = 64;              // query rows and key columns per tile
 constexpr int kWarps = 4;
+// threads a CTA; the kernels' launch bounds also ask for just one CTA an
+// SM, so ptxas keeps their accumulators in registers (given only the
+// thread count it trimmed registers toward more resident CTAs, which
+// their 80-205 KB of shared memory does not allow, and spilled them)
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = kTile / kWarps;  // tile rows per warp
-constexpr int kLdS = kTile + 4;        // f32 score tiles (wmma: ldm % 4 == 0)
+constexpr int kLdS = kTile + 4;        // f32 score tiles
+// f32 elements of padding per shared-memory row: 16 bytes, which keeps rows
+// 16-byte aligned for the loads
+constexpr int kPad = 4;
 constexpr float kNegInf = -1e30f;      // the reference's NEG_INF
-
-// elements of padding per shared-memory row of T: 16 bytes, which keeps rows
-// 16-byte aligned for the loads and wmma's ldm a multiple of 8 (bf16) or 4
-template <typename T>
-__host__ __device__ constexpr int pad() {
-  return 16 / static_cast<int>(sizeof(T));
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1)
@@ -147,12 +148,13 @@ struct Dims {
 // Rows [t0, t0 + kTile) of head (b, h) into a kTile x kD shared tile with
 // leading dimension ld; zeros for rows at or beyond n and columns at or
 // beyond d (a multiple of 8, so a 16-byte chunk is all in or all out).
-template <typename T, int kD>
-__device__ void load_tile(T* dst, int ld, const View& src, int b, int h,
+template <int kD>
+__device__ void load_tile(float* dst, int ld, const View& src, int b, int h,
                           int t0, int n, int d) {
-  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  constexpr int kVec = 4;
   constexpr int kChunks = kD / kVec;
-  const T* base = static_cast<const T*>(src.p) + b * src.sb + h * src.sh;
+  const float* base =
+      static_cast<const float*>(src.p) + b * src.sb + h * src.sh;
   for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
     const int r = i / kChunks, c = (i % kChunks) * kVec;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -166,30 +168,6 @@ __device__ void load_tile(T* dst, int ld, const View& src, int b, int h,
 // One warp: C (16 x N, f32, row-major, ldc) = A (16 x K, row-major, lda) * B
 // with B(k, n) = b[n * ldb + k] when kBT (B stored transposed: a tile whose
 // rows are B's columns) and b[k * ldb + n] otherwise.
-template <int N, int K, bool kBT>
-__device__ __forceinline__ void warp_gemm(const bf16* a, int lda,
-                                          const bf16* b, int ldb, float* c,
-                                          int ldc) {
-  using namespace nvcuda;
-  using BLayout =
-      typename std::conditional<kBT, wmma::col_major, wmma::row_major>::type;
-#pragma unroll
-  for (int n = 0; n < N; n += 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> fb;
-      wmma::load_matrix_sync(fa, a + k, lda);
-      wmma::load_matrix_sync(fb, kBT ? b + n * ldb + k : b + k * ldb + n,
-                             ldb);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(c + n, acc, ldc, wmma::mem_row_major);
-  }
-}
-
 template <int N, int K, bool kBT>
 __device__ __forceinline__ void warp_gemm(const float* a, int lda,
                                           const float* b, int ldb, float* c,
@@ -205,32 +183,30 @@ __device__ __forceinline__ void warp_gemm(const float* a, int lda,
   }
 }
 
-// Shared-memory plan, in elements, shared by the three kernels: kTiles tiles
-// of kTile x (kD + pad) T, kPTiles of kTile x (kTile + pad) T, a per-warp f32
+// Shared-memory plan, in floats, shared by the three kernels: kTiles tiles
+// of kTile x (kD + kPad), kPTiles of kTile x (kTile + kPad), a per-warp
 // scratch (two score tiles of kRows x kLdS, or one kRows x (kD + 4) product,
-// which aliases them), then kVecs per-row f32 vectors of kTile.
-template <typename T, int kD, int kTiles, int kPTiles, int kVecs>
+// which aliases them), then kVecs per-row vectors of kTile.
+template <int kD, int kTiles, int kPTiles, int kVecs>
 struct Plan {
-  static constexpr int kLd = kD + pad<T>();
-  static constexpr int kLdP = kTile + pad<T>();
+  static constexpr int kLd = kD + kPad;
+  static constexpr int kLdP = kTile + kPad;
   static constexpr int kLdO = kD + 4;
   static constexpr int kScratch =
       (2 * kLdS > kLdO ? 2 * kLdS : kLdO) * kRows;  // floats per warp
-  static constexpr size_t kTileBytes = sizeof(T) * kTile * kLd;
-  static constexpr size_t kPBytes = sizeof(T) * kTile * kLdP;
-  static constexpr size_t kBytes = kTiles * kTileBytes + kPTiles * kPBytes +
-                                   sizeof(float) * (kWarps * kScratch +
-                                                    kVecs * kTile);
-  __device__ static T* tile(unsigned char* s, int i) {
-    return reinterpret_cast<T*>(s + i * kTileBytes);
+  static constexpr int kTileFloats = kTile * kLd;
+  static constexpr int kPFloats = kTile * kLdP;
+  static constexpr size_t kBytes =
+      sizeof(float) * (kTiles * kTileFloats + kPTiles * kPFloats +
+                       kWarps * kScratch + kVecs * kTile);
+  __device__ static float* tile(unsigned char* s, int i) {
+    return reinterpret_cast<float*>(s) + i * kTileFloats;
   }
-  __device__ static T* ptile(unsigned char* s, int i) {
-    return reinterpret_cast<T*>(s + kTiles * kTileBytes + i * kPBytes);
+  __device__ static float* ptile(unsigned char* s, int i) {
+    return tile(s, kTiles) + i * kPFloats;
   }
   __device__ static float* scratch(unsigned char* s, int warp) {
-    return reinterpret_cast<float*>(s + kTiles * kTileBytes +
-                                    kPTiles * kPBytes) +
-           warp * kScratch;
+    return ptile(s, kPTiles) + warp * kScratch;
   }
   __device__ static float* vec(unsigned char* s, int i) {
     return scratch(s, kWarps) + i * kTile;
@@ -238,11 +214,11 @@ struct Plan {
 };
 
 template <int kD>
-using FwdPlan = Plan<float, kD, 3, 1, 3>;  // Q K V | P | m l alpha
-template <typename T, int kD>
-using DqPlan = Plan<T, kD, 4, 1, 2>;       // Q dO K V | dS | lse delta
+using FwdPlan = Plan<kD, 3, 1, 3>;  // Q K V | P | m l alpha
 template <int kD>
-using DkvPlan = Plan<float, kD, 4, 2, 2>;  // K V Q dO | P^T dS^T | lse delta
+using DqPlan = Plan<kD, 4, 1, 2>;   // Q dO K V | dS | lse delta
+template <int kD>
+using DkvPlan = Plan<kD, 4, 2, 2>;  // K V Q dO | P^T dS^T | lse delta
 
 // Accumulators: element e = lane + 32 i of the warp's kRows x kD block.
 template <int kD>
@@ -257,7 +233,7 @@ struct Acc {
 
 // The float32 forward.
 template <int kD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_fwd(View q, View k, View v, float* __restrict__ out,
               float* __restrict__ lse, Dims s) {
   using P = FwdPlan<kD>;
@@ -275,7 +251,7 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = blockIdx.x * kTile;
   const int bh = blockIdx.y, b = bh / s.H, h = bh % s.H;
 
-  load_tile<float, kD>(qs, P::kLd, q, b, h, q0, s.T, s.D);
+  load_tile<kD>(qs, P::kLd, q, b, h, q0, s.T, s.D);
   if (threadIdx.x < kTile) {
     row_m[threadIdx.x] = kNegInf;
     row_l[threadIdx.x] = 0.0f;
@@ -288,8 +264,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();  // every warp is done with the previous K and V tiles
-    load_tile<float, kD>(ks, P::kLd, k, b, h, k0, s.Tk, s.D);
-    load_tile<float, kD>(vs, P::kLd, v, b, h, k0, s.Tk, s.D);
+    load_tile<kD>(ks, P::kLd, k, b, h, k0, s.Tk, s.D);
+    load_tile<kD>(vs, P::kLd, v, b, h, k0, s.Tk, s.D);
     __syncthreads();
     warp_gemm<kTile, kD, true>(qs + r0 * P::kLd, P::kLd, ks, P::kLd, sc,
                                kLdS);
@@ -366,8 +342,8 @@ __device__ void load_rows(float* row_lse, float* row_delta, const float* lse,
   }
 }
 
-template <typename T, int kD>
-__device__ void store_rows(T* __restrict__ dst, const Acc<kD>& acc, int b,
+template <int kD>
+__device__ void store_rows(float* __restrict__ dst, const Acc<kD>& acc, int b,
                            int h, int t0, int n, const Dims& s) {
   const int lane = threadIdx.x & 31, r0 = (threadIdx.x >> 5) * kRows;
 #pragma unroll
@@ -376,21 +352,23 @@ __device__ void store_rows(T* __restrict__ dst, const Acc<kD>& acc, int b,
     const int t = t0 + r0 + rr;
     if (t < n && c < s.D)
       dst[((static_cast<int64_t>(b) * n + t) * s.H + h) * s.D + c] =
-          from_f32<T>(acc.v[i]);
+          acc.v[i];
   }
 }
 
-template <typename T, int kD>
-__global__ void __launch_bounds__(kThreads)
+// The float32 dq.
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1)
     flash_dq(View q, View k, View v, View dout, const float* __restrict__ lse,
-             const float* __restrict__ delta, T* __restrict__ dq, Dims s) {
-  using P = DqPlan<T, kD>;
+             const float* __restrict__ delta, float* __restrict__ dq,
+             Dims s) {
+  using P = DqPlan<kD>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* qs = P::tile(smem, 0);
-  T* dos = P::tile(smem, 1);
-  T* ks = P::tile(smem, 2);
-  T* vs = P::tile(smem, 3);
-  T* dss = P::ptile(smem, 0);
+  float* qs = P::tile(smem, 0);
+  float* dos = P::tile(smem, 1);
+  float* ks = P::tile(smem, 2);
+  float* vs = P::tile(smem, 3);
+  float* dss = P::ptile(smem, 0);
   float* row_lse = P::vec(smem, 0);
   float* row_delta = P::vec(smem, 1);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -400,8 +378,8 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = blockIdx.x * kTile;
   const int bh = blockIdx.y, b = bh / s.H, h = bh % s.H;
 
-  load_tile<T, kD>(qs, P::kLd, q, b, h, q0, s.T, s.D);
-  load_tile<T, kD>(dos, P::kLd, dout, b, h, q0, s.T, s.D);
+  load_tile<kD>(qs, P::kLd, q, b, h, q0, s.T, s.D);
+  load_tile<kD>(dos, P::kLd, dout, b, h, q0, s.T, s.D);
   load_rows(row_lse, row_delta, lse, delta, bh, q0, s.T);
   Acc<kD> acc;
   acc.zero();
@@ -411,8 +389,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kTile;
     __syncthreads();
-    load_tile<T, kD>(ks, P::kLd, k, b, h, k0, s.Tk, s.D);
-    load_tile<T, kD>(vs, P::kLd, v, b, h, k0, s.Tk, s.D);
+    load_tile<kD>(ks, P::kLd, k, b, h, k0, s.Tk, s.D);
+    load_tile<kD>(vs, P::kLd, v, b, h, k0, s.Tk, s.D);
     __syncthreads();
     warp_gemm<kTile, kD, true>(qs + r0 * P::kLd, P::kLd, ks, P::kLd, ss,
                                kLdS);
@@ -427,7 +405,7 @@ __global__ void __launch_bounds__(kThreads)
         const float p = expf(ss[rr * kLdS + c] * s.scale - row_lse[row]);
         d = p * (sdp[rr * kLdS + c] - row_delta[row]) * s.scale;
       }
-      dss[row * P::kLdP + c] = from_f32<T>(d);
+      dss[row * P::kLdP + c] = d;
     }
     __syncwarp();
     warp_gemm<kD, kTile, false>(dss + r0 * P::kLdP, P::kLdP, ks, P::kLd, ss,
@@ -439,12 +417,12 @@ __global__ void __launch_bounds__(kThreads)
       acc.v[i] += ss[(e / kD) * P::kLdO + e % kD];
     }
   }
-  store_rows<T, kD>(dq, acc, b, h, q0, s.T, s);
+  store_rows<kD>(dq, acc, b, h, q0, s.T, s);
 }
 
 // The float32 dK/dV.
 template <int kD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_dkv(View q, View k, View v, View dout, const float* __restrict__ lse,
               const float* __restrict__ delta, float* __restrict__ dk,
               float* __restrict__ dv, Dims s) {
@@ -465,8 +443,8 @@ __global__ void __launch_bounds__(kThreads)
   const int k0 = blockIdx.x * kTile;
   const int bh = blockIdx.y, b = bh / s.H, h = bh % s.H;
 
-  load_tile<float, kD>(ks, P::kLd, k, b, h, k0, s.Tk, s.D);
-  load_tile<float, kD>(vs, P::kLd, v, b, h, k0, s.Tk, s.D);
+  load_tile<kD>(ks, P::kLd, k, b, h, k0, s.Tk, s.D);
+  load_tile<kD>(vs, P::kLd, v, b, h, k0, s.Tk, s.D);
   Acc<kD> dk_acc, dv_acc;
   dk_acc.zero();
   dv_acc.zero();
@@ -477,8 +455,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int qt = qt0; qt < nq; ++qt) {
     const int q0 = qt * kTile;
     __syncthreads();
-    load_tile<float, kD>(qs, P::kLd, q, b, h, q0, s.T, s.D);
-    load_tile<float, kD>(dos, P::kLd, dout, b, h, q0, s.T, s.D);
+    load_tile<kD>(qs, P::kLd, q, b, h, q0, s.T, s.D);
+    load_tile<kD>(dos, P::kLd, dout, b, h, q0, s.T, s.D);
     load_rows(row_lse, row_delta, lse, delta, bh, q0, s.T);
     __syncthreads();
     warp_gemm<kTile, kD, true>(ks + r0 * P::kLd, P::kLd, qs, P::kLd, ss,
@@ -516,11 +494,11 @@ __global__ void __launch_bounds__(kThreads)
       dk_acc.v[i] += ss[(e / kD) * P::kLdO + e % kD];
     }
   }
-  store_rows<float, kD>(dk, dk_acc, b, h, k0, s.Tk, s);
-  store_rows<float, kD>(dv, dv_acc, b, h, k0, s.Tk, s);
+  store_rows<kD>(dk, dk_acc, b, h, k0, s.Tk, s);
+  store_rows<kD>(dv, dv_acc, b, h, k0, s.Tk, s);
 }
 
-// -- the Hopper design (bf16 forward and dK/dV) ------------------------------
+// -- the Hopper design (bf16) ------------------------------------------------
 
 constexpr int kStages = 3;                         // tiles in flight
 constexpr float kLog2e = 1.4426950408889634f;
@@ -648,6 +626,12 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// ... and the bf16 A fragments an asynchronous RS product reads
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -1034,6 +1018,205 @@ __global__ void __launch_bounds__(FwdSm90<kD>::kThreads, 1)
 }
 
 template <int kD>
+struct DqSm90 {
+  using L = Tiles<kD>;
+  static constexpr int kQRows = 128;                 // query rows a CTA
+  static constexpr int kWarps = 8;                   // consumer warps: 2 groups
+  static constexpr int kThreads = 32 * kWarps + 32;  // + the producer warp
+  // keys a tile: S and dP (kBN / 2 registers each), dQ (kD / 2) and the
+  // packed dS (kBN / 4) stay under the 168 registers a thread of a
+  // 288-thread CTA may hold (32 keys at D = 128, where dQ takes 64)
+  static constexpr int kBN = kD == 128 ? 32 : 64;
+  static constexpr int kStages = 4;  // K/V tiles in flight
+  // causal: the first warpgroup may skip up to 64 / kBN last tiles and
+  // never release them; the producer waits for none of them
+  static_assert(64 / kBN < kStages, "a warpgroup's causal early end");
+  static constexpr int kQBytes = L::bytes(kQRows);  // Q, and dO
+  static constexpr int kKVBytes = L::bytes(kBN);    // a K or a V tile
+  static constexpr int kStageBytes = 2 * kKVBytes;
+  static constexpr size_t kSmem = 1024 + 2 * kQBytes + kStages * kStageBytes;
+};
+
+// The bf16 dq: CTA (blockIdx.x: 128 query rows, blockIdx.y: b * H + h).
+template <int kD>
+__global__ void __launch_bounds__(DqSm90<kD>::kThreads, 1)
+    flash_dq_sm90(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dq,
+                  Dims s) {
+  using C = DqSm90<kD>;
+  using L = Tiles<kD>;
+  constexpr int kBN = C::kBN, kQRows = C::kQRows, kStages = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages], qbar;
+  uint8_t* qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* dos = qs + C::kQBytes;
+  uint8_t* ring = dos + C::kQBytes;  // stage i: K, then V
+
+  const int q0 = blockIdx.x * kQRows;
+  const int bh = blockIdx.y, b = bh / s.H, h = bh % s.H;
+  int nk = (s.Tk + kBN - 1) / kBN;
+  if (s.causal) nk = min(nk, (min(q0 + kQRows, s.T) - 1) / kBN + 1);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], C::kWarps);
+    }
+    mbar_init(&qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (warp == C::kWarps) {  // the producer: one thread issues copies
+    if (lane == 0) {
+      mbar_expect_tx(&qbar, 2 * C::kQBytes);
+      for (int c = 0; c < L::kBlocks; ++c) {
+        tma_load(qs + c * L::block(kQRows), &tq, &qbar, c * L::kSw, h, q0,
+                 b);
+        tma_load(dos + c * L::block(kQRows), &tdo, &qbar, c * L::kSw, h, q0,
+                 b);
+      }
+      for (int j = 0; j < nk; ++j) {
+        const int st = j % kStages;
+        mbar_wait(&empty[st], ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[st], C::kStageBytes);
+        uint8_t* kt = ring + st * C::kStageBytes;
+        for (int c = 0; c < L::kBlocks; ++c) {
+          tma_load(kt + c * L::block(kBN), &tk, &full[st], c * L::kSw, h,
+                   j * kBN, b);
+          tma_load(kt + C::kKVBytes + c * L::block(kBN), &tv, &full[st],
+                   c * L::kSw, h, j * kBN, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows [qw, qw + 64)
+  const int wg = warp / 4;
+  const int qw = q0 + wg * 64;
+  const int row0 = qw + 16 * (warp & 3) + lane / 4;  // and row0 + 8
+  // causal: the first warpgroup's rows may see none of the CTA's last
+  // 64 / kBN tiles
+  const int nkw =
+      s.causal ? min(nk, (min(qw + 64, s.T) - 1) / kBN + 1) : nk;
+  const float sl2 = s.scale * kLog2e;
+  // -lse log2 e and delta of this thread's two rows (0 past T: those rows
+  // score 0 against zero-filled Q and dO, so dS = 0 there)
+  float neg_lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = row0 + 8 * r;
+    const int64_t at = static_cast<int64_t>(bh) * s.T + t;
+    neg_lse2[r] = t < s.T ? -lse[at] * kLog2e : 0.0f;
+    dl[r] = t < s.T ? delta[at] : 0.0f;
+  }
+  float dqa[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) dqa[i] = 0.0f;
+  mbar_wait(&qbar, 0);
+
+  // S_j = Q K_j^T into sc and dP_j = dO V_j^T into dp (issued, not waited
+  // for)
+  float sc[kBN / 2], dp[kBN / 2];
+  auto issue_sdp = [&](int j) {
+    const uint8_t* kt = ring + (j % kStages) * C::kStageBytes;
+    const uint8_t* vt = kt + C::kKVBytes;
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_ss<kBN>(sc, kmajor<kD>(qs, kQRows, wg * 64, kk),
+                    kmajor<kD>(kt, kBN, 0, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk)
+      wgmma_ss<kBN>(dp, kmajor<kD>(dos, kQRows, wg * 64, kk),
+                    kmajor<kD>(vt, kBN, 0, kk), kk > 0);
+    wg_commit();
+  };
+  // dQ += dS_j K_j from the bf16 fragments dsf, K_j read MN-major (issued,
+  // not waited for)
+  uint32_t dsf[kBN / 4];
+  auto issue_dq = [&](int j) {
+    const uint8_t* kt = ring + (j % kStages) * C::kStageBytes;
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < L::kBlocks; ++c)
+        wgmma_rs<L::kSw>(dqa + c * L::kSw / 2, dsf + 4 * kk,
+                         mnmajor<kD>(kt, kBN, c, kk));
+    wg_commit();
+  };
+  // dS_j / scale = P (dP - delta) in place of S_j (the scale is applied
+  // once, to dQ)
+  auto dscores = [&](int j) {
+    const int k0 = j * kBN;
+    const bool masked = k0 + kBN > s.Tk || (s.causal && k0 + kBN - 1 > qw);
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      float p = ex2(fmaf(sc[i], sl2, neg_lse2[r]));
+      if (masked) {
+        const int key = k0 + acc_col(i, lane), row = row0 + acc_row(i);
+        if (key >= s.Tk || (s.causal && key > row)) p = 0.0f;
+      }
+      sc[i] = p * (dp[i] - dl[r]);
+    }
+  };
+  auto pack_ds = [&] {
+#pragma unroll
+    for (int i = 0; i < kBN / 4; ++i)
+      dsf[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+  };
+  auto release = [&](int j) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[j % kStages]);
+  };
+
+  // Software pipeline: S_j and dP_j are issued before dS_{j-1} K_{j-1},
+  // and dS_j is computed while that product is on the tensor cores; dsf
+  // is overwritten, and the stage of K_{j-1} released, only once it has
+  // landed.
+  mbar_wait(&full[0], 0);
+  wg_fence();
+  issue_sdp(0);
+  wg_wait_all();
+  fence_regs(sc);
+  fence_regs(dp);
+  dscores(0);
+  pack_ds();
+  for (int j = 1; j < nkw; ++j) {
+    mbar_wait(&full[j % kStages], (j / kStages) & 1);
+    fence_regs(dqa);
+    wg_fence();
+    issue_sdp(j);
+    issue_dq(j - 1);
+    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+    fence_regs(sc);
+    fence_regs(dp);
+    dscores(j);
+    wg_wait_all();
+    fence_regs(dqa);
+    fence_regs(dsf);
+    release(j - 1);
+    pack_ds();
+  }
+  fence_regs(dqa);
+  wg_fence();
+  issue_dq(nkw - 1);
+  wg_wait_all();
+  fence_regs(dqa);
+  fence_regs(dsf);
+  release(nkw - 1);
+
+  const float mul[2] = {s.scale, s.scale};
+  store_acc<kD>(dq, dqa, mul, b, h, qw, s.T, s);
+}
+
+template <int kD>
 struct DkvSm90 {
   using L = Tiles<kD>;
   // at D = 128 dK and dV take 64 registers each: one consumer warpgroup
@@ -1309,9 +1492,24 @@ cudaError_t dq(const long long* st, const void* q, const void* k,
                const void* v, const void* dout, const float* lse,
                const float* delta, void* dq_out, const Dims& d,
                cudaStream_t s) {
-  return launch(flash_dq<T, kD>, DqPlan<T, kD>::kBytes, d.T, kTile, kThreads,
-                d, s, view(q, st), view(k, st + 3), view(v, st + 6),
-                view(dout, st + 9), lse, delta, static_cast<T*>(dq_out));
+  if constexpr (std::is_same<T, bf16>::value) {
+    using C = DqSm90<kD>;
+    CUtensorMap tq, tk, tv, tdo;
+    cudaError_t err;
+    if ((err = tensor_map<kD>(&tq, q, st, d.T, C::kQRows, d)) ||
+        (err = tensor_map<kD>(&tk, k, st + 3, d.Tk, C::kBN, d)) ||
+        (err = tensor_map<kD>(&tv, v, st + 6, d.Tk, C::kBN, d)) ||
+        (err = tensor_map<kD>(&tdo, dout, st + 9, d.T, C::kQRows, d)))
+      return err;
+    return launch(flash_dq_sm90<kD>, C::kSmem, d.T, C::kQRows, C::kThreads,
+                  d, s, tq, tk, tv, tdo, lse, delta,
+                  static_cast<bf16*>(dq_out));
+  } else {
+    return launch(flash_dq<kD>, DqPlan<kD>::kBytes, d.T, kTile, kThreads, d,
+                  s, view(q, st), view(k, st + 3), view(v, st + 6),
+                  view(dout, st + 9), lse, delta,
+                  static_cast<float*>(dq_out));
+  }
 }
 
 template <typename T, int kD>

@@ -40,6 +40,7 @@ from deep_vision_tpu_torch.ops.cuda.flash_attention import (
     flash_bwd_plain,
     flash_delta,
     flash_dkv,
+    flash_dq,
     flash_forward,
     flash_fwd_plain,
 )
@@ -250,6 +251,22 @@ def test_flash_bf16_forward_and_dkv_repeat_bitwise(cuda_device):
     dk2, dv2 = flash_dkv(q, k, v, g, lse, delta)
     torch.cuda.synchronize()
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_dq_repeats_bitwise(cuda_device):
+    """The ViT step's shape: two dq calls give the same bits (dQ is summed
+    in registers over the key tiles in order, no atomics)."""
+    q, k, v, g = flash_inputs(cuda_device, 64, 1024, 1024, 6, 64,
+                              torch.bfloat16, seed=13)
+    out, lse = flash_forward(q, k, v)
+    delta = flash_delta(out, g)
+    before = flash_attention.dq_launches
+    dq = flash_dq(q, k, v, g, lse, delta)
+    dq2 = flash_dq(q, k, v, g, lse, delta)
+    torch.cuda.synchronize()
+    assert flash_attention.dq_launches == before + 2
+    assert bool(torch.isfinite(dq).all()) and torch.equal(dq, dq2)
 
 
 @pytest.mark.cuda

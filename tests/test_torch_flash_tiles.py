@@ -1,8 +1,8 @@
 """A CPU model of the Hopper flash-attention tiling, held against the
 plain versions and the JAX Pallas kernels.
 
-`csrc/flash_attention.cu`'s bf16 forward (`flash_fwd_sm90`) and dK/dV
-(`flash_dkv_sm90`) cannot run here. This file models their arithmetic
+`csrc/flash_attention.cu`'s bf16 forward (`flash_fwd_sm90`), dq
+(`flash_dq_sm90`) and dK/dV (`flash_dkv_sm90`) cannot run here. This file models their arithmetic
 tile by tile in PyTorch, with the kernels' constants and edge rules, so
 the rules are rehearsed on the CPU before they run on the card:
 
@@ -11,28 +11,36 @@ the rules are rehearsed on the CPU before they run on the card:
   valid row);
   scores enter exp2 as s * (scale log2 e) - m2 with m2 the running max in
   log2 units; lse = (m2 + log2 max(l, 1e-20)) ln 2;
+- dq: a CTA owns 128 query rows, two warpgroups of 64, and walks key
+  tiles of 64 (32 at D = 128); causal: each warpgroup stops at the tile
+  of its last valid row. P = exp2(s scale log2 e - lse log2 e) with lse
+  log2 e and delta kept per row; dS / scale = P (dP - delta), and the
+  scale is applied once, to dQ. Query rows >= T score 0 against lse 0
+  and delta 0, so their dS is 0 with no mask;
 - dK/dV: a CTA owns 128 keys, two warpgroups of 64 (64 keys, one
   warpgroup at D = 128), and walks query tiles of 64 (32 at D = 128) from
   the first one that sees its first key (causal);
   P^T = exp2(s^T scale log2 e - lse log2 e);
 - masks only on the tiles that need them: keys >= Tk set to -inf on the
-  ragged last key tile (zero-filled rows would score 0), P = 0 for
+  ragged last key tile in the forward and P = 0 there in dq (zero-filled
+  rows would score 0), P = 0 for
   queries >= T on the ragged last query tile, causal masks on diagonal
   tiles. The model asserts that every tile it leaves unmasked, and every
   tile the loops skip, needs no mask;
-- P (forward, dK/dV) and dS^T (dK/dV) rounded to bf16 before the second
-  products, as the kernels feed them to wgmma (`round_p`).
+- P (forward, dK/dV), dS (dq) and dS^T (dK/dV) rounded to bf16 before
+  the second products, as the kernels feed them to wgmma (`round_p`).
 
 The model is the test's, not the package's. Tolerances:
 - model without rounding against the plain versions and the JAX kernels
   (interpret mode, as tests/test_pallas.py runs them): test_pallas.py's
-  float32 tolerances, out and lse rtol 2e-4, atol 2e-5 (:29-30), dK/dV
-  rtol 2e-4, atol 2e-4 (:105-107), as tests/test_torch_flash.py. Both
+  float32 tolerances, out and lse rtol 2e-4, atol 2e-5 (:29-30), dq and
+  dK/dV rtol 2e-4, atol 2e-4 (:105-107), as tests/test_torch_flash.py. Both
   sides are float32; they differ in summation order and in exp2 against
   exp (the folded scale rounds once more: ~1e-7 relative);
 - model with bf16 rounding against the plain versions: the card's bf16
-  tolerances (chip_smoke.py FLASH_TOL), out within 2e-2, dK/dV within 2e-2
-  of the largest magnitude: one bf16 rounding of each P and dS term.
+  tolerances (chip_smoke.py FLASH_TOL), out within 2e-2, dq and dK/dV
+  within 2e-2 of the largest magnitude: one bf16 rounding of each P and
+  dS term.
 """
 import math
 
@@ -49,13 +57,16 @@ from deep_vision_tpu.ops.pallas.flash_attention import (
     flash_attention_with_lse as jax_flash_lse,
 )
 from deep_vision_tpu_torch.ops.cuda.flash_attention import (
+    NEG_INF,
     flash_delta,
     flash_dkv_plain,
+    flash_dq_plain,
     flash_fwd_plain,
 )
 
 Q_ROWS = 128  # query rows a forward CTA owns
 WG_ROWS = 64  # of them (or of a dK/dV CTA's keys), a warpgroup's
+DQ_STAGES = 4  # dq's ring of K/V tiles
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 FWD = dict(rtol=2e-4, atol=2e-5)
@@ -71,6 +82,12 @@ def key_tile(d: int) -> int:
 def cta_keys(d: int) -> int:
     """Keys a dK/dV CTA owns: one warpgroup's 64 at D = 128, else 128."""
     return 64 if d > 64 else 128
+
+
+def dq_key_tile(d: int) -> int:
+    """dq's key tile: 32 at D = 128, else 64 (S, dP, dQ and the packed dS
+    in registers)."""
+    return 32 if d > 64 else 64
 
 
 def query_tile(d: int) -> int:
@@ -136,6 +153,62 @@ def fwd_tiles(q, k, v, causal: bool, scale: float, round_p: bool):
                 0, 2, 1, 3)
             lse[:, :, qw:qw + n] = ((m + torch.log2(l)) * LN2)[:, :, :n]
     return out, lse
+
+
+def dq_probs(s, neg_lse2, bad, sl2):
+    """dq's P: exp2 of one FFMA, then 0 where `bad` (by select, after the
+    exponential, so no masked score or lse can turn into inf or NaN)."""
+    p = torch.exp2(s * sl2 + neg_lse2[..., None])
+    return p if bad is None else torch.where(bad, 0.0, p)
+
+
+def dq_tiles(q, k, v, dout, lse, delta, causal: bool, scale: float,
+             round_p: bool):
+    """dq as flash_dq_sm90 computes it, in float32."""
+    b, t, h, d = q.shape
+    tk = k.shape[1]
+    bn = dq_key_tile(d)
+    sl2 = scale * LOG2E
+    dq = torch.zeros(q.shape)
+    for q0 in range(0, t, Q_ROWS):
+        nk = math.ceil(tk / bn)
+        if causal:
+            nk = min(nk, (min(q0 + Q_ROWS, t) - 1) // bn + 1)
+        for qw in (q0, q0 + WG_ROWS):
+            row = torch.arange(qw, qw + WG_ROWS)
+            nkw = (min(nk, (min(qw + WG_ROWS, t) - 1) // bn + 1) if causal
+                   else nk)
+            # the producer never waits for a stage this warpgroup skips
+            assert nk - nkw <= WG_ROWS // bn < DQ_STAGES
+            for k0 in range(nkw * bn, tk, bn):  # skipped key tiles
+                key = torch.arange(k0, min(k0 + bn, tk))
+                seen = (key[None, :] <= row[:, None]) & (row[:, None] < t)
+                assert not seen.any(), "a skipped key tile is seen"
+            n = max(0, min(WG_ROWS, t - qw))
+            neg_lse2 = torch.zeros(b, h, WG_ROWS)
+            dl = torch.zeros(b, h, WG_ROWS)
+            neg_lse2[..., :n] = -lse[..., qw:qw + n] * LOG2E
+            dl[..., :n] = delta[..., qw:qw + n]
+            qs, dos = rows(q, qw, WG_ROWS), rows(dout, qw, WG_ROWS)
+            acc = torch.zeros(b, h, WG_ROWS, d)
+            for k0 in range(0, nkw * bn, bn):
+                key = torch.arange(k0, k0 + bn)
+                ks = rows(k, k0, bn)
+                s = qs @ ks.transpose(-1, -2)
+                dp = dos @ rows(v, k0, bn).transpose(-1, -2)
+                bad = (key[None, :] >= tk) | (
+                    causal & (key[None, :] > row[:, None]))
+                if k0 + bn > tk or (causal and k0 + bn - 1 > qw):
+                    p = dq_probs(s, neg_lse2, bad, sl2)
+                else:
+                    assert not bad.any(), "an unmasked tile needs a mask"
+                    p = dq_probs(s, neg_lse2, None, sl2)
+                ds = p * (dp - dl[..., None])
+                assert torch.isfinite(ds).all()
+                assert not ds[:, :, n:].any(), "a row past T has dS != 0"
+                acc += (bf16(ds) if round_p else ds) @ ks
+            dq[:, qw:qw + n] = (acc * scale)[:, :, :n].permute(0, 2, 1, 3)
+    return dq
 
 
 def dkv_tiles(q, k, v, dout, lse, delta, causal: bool, scale: float,
@@ -311,3 +384,107 @@ def test_exp2_with_the_folded_scale_is_the_natural_softmax():
     torch.testing.assert_close(lse, torch.logsumexp(s * scale, -1), **FWD)
     torch.testing.assert_close(p2 / l2[:, None],
                                torch.softmax(s * scale, -1), **FWD)
+
+
+def jax_dq(q, k, v, g, causal, g_lse=None):
+    """dq from the Pallas kernels in interpret mode: through the
+    reference's vjp, with an lse cotangent when `g_lse` is given."""
+    b, t, h, _ = q.shape
+    jq, jk, jv, jg = (jnp.asarray(x.numpy()) for x in (q, k, v, g))
+    if g_lse is None:
+        _, vjp = jax.vjp(lambda a: jax_flash(a, jk, jv, causal=causal,
+                                             interpret=True), jq)
+        return np.asarray(vjp(jg)[0])
+
+    def loss(a):
+        out, lse = jax_flash_lse(a, jk, jv, causal=causal, interpret=True)
+        lse = lse[:, :, 0].reshape(b, h, t)  # (B*H, T, 128) -> (B, H, T)
+        return jnp.vdot(out, jg) + jnp.vdot(lse, jnp.asarray(g_lse.numpy()))
+
+    return np.asarray(jax.grad(loss)(jq))
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t,tk", SHAPES)
+def test_dq_tile_model_matches_the_plain_version(t, tk, causal, d):
+    q, k, v, g = inputs(1, t, tk, 2, d, seed=5 * t + d + causal)
+    scale = d ** -0.5
+    out, lse = flash_fwd_plain(q, k, v, causal, scale)
+    delta = flash_delta(out, g)
+    want = flash_dq_plain(q, k, v, g, lse, delta, causal, scale)
+    got = dq_tiles(q, k, v, g, lse, delta, causal, scale, round_p=False)
+    torch.testing.assert_close(got, want, **GRAD)
+
+
+@pytest.mark.parametrize("t,tk,causal,d", [
+    (129, 65, False, 64),    # one row past a 128-row CTA, one key past 64
+    (1, 256, False, 64),     # a single query
+    (64, 256, True, 64),     # causal cross: the second warpgroup is empty
+    (200, 70, True, 32),     # causal, more queries than keys
+    (96, 96, True, 128),     # D = 128: key tiles of 32
+    (256, 256, True, 128),   # the first warpgroup skips two key tiles
+    (100, 300, False, 128),  # cross attention, ragged at D = 128
+])
+def test_dq_tile_model_on_ragged_and_cross_shapes(t, tk, causal, d):
+    q, k, v, g = inputs(2, t, tk, 1, d, seed=t * tk + d + 1)
+    scale = d ** -0.5
+    out, lse = flash_fwd_plain(q, k, v, causal, scale)
+    shift = torch.from_numpy(
+        np.random.RandomState(t).randn(2, 1, t).astype(np.float32))
+    for delta_shift in (None, shift):  # with and without an lse cotangent
+        delta = flash_delta(out, g, delta_shift)
+        want = flash_dq_plain(q, k, v, g, lse, delta, causal, scale)
+        got = dq_tiles(q, k, v, g, lse, delta, causal, scale, round_p=False)
+        torch.testing.assert_close(got, want, **GRAD)
+
+
+@pytest.mark.parametrize("lse_cotangent", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t,d", [(1, 64), (77, 32), (129, 64), (256, 64),
+                                 (64, 128)])
+def test_dq_tile_model_matches_the_pallas_dq_kernel(t, d, causal,
+                                                    lse_cotangent):
+    q, k, v, g = inputs(1, t, t, 2, d, seed=7 * t + d + causal)
+    scale = d ** -0.5
+    g_lse = (torch.from_numpy(np.random.RandomState(t + 1).randn(
+        1, 2, t).astype(np.float32)) if lse_cotangent else None)
+    want = jax_dq(q, k, v, g, causal, g_lse)
+    out, lse = fwd_tiles(q, k, v, causal, scale, round_p=False)
+    delta = flash_delta(out, g, g_lse)
+    got = dq_tiles(q, k, v, g, lse, delta, causal, scale, round_p=False)
+    np.testing.assert_allclose(got.numpy(), want, **GRAD, err_msg="dq")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("t,d", [(256, 64), (129, 32), (160, 128)])
+def test_bf16_rounding_of_ds_in_dq_stays_in_the_card_tolerance(t, d, causal):
+    q, k, v, g = inputs(2, t, t, 2, d, seed=t + d + 2, as_bf16=True)
+    scale = d ** -0.5
+    out, lse = flash_fwd_plain(q, k, v, causal, scale)
+    delta = flash_delta(out, g)
+    want = flash_dq_plain(q, k, v, g, lse, delta, causal, scale)
+    got = dq_tiles(q, k, v, g, lse, delta, causal, scale, round_p=True)
+    unrounded = dq_tiles(q, k, v, g, lse, delta, causal, scale,
+                         round_p=False)
+    close_to_max(bf16(got).numpy(), want.numpy(), 2e-2, "dq")
+    assert not torch.equal(got, unrounded), "dS was not rounded"
+
+
+def test_dq_masks_after_the_exponential_so_a_masked_row_stays_finite():
+    """A row whose every key is masked, with the lse a forward gives it
+    (NEG_INF + log 1e-20): dq's select after exp2 gives P = 0, where
+    masking the score before the exponential would overflow to inf."""
+    scale = 64 ** -0.5
+    sl2 = scale * LOG2E
+    lse = torch.full((1, 1, 4), NEG_INF + math.log(1e-20))
+    neg_lse2 = -lse * LOG2E
+    s = torch.from_numpy(np.random.RandomState(9).randn(1, 1, 4, 64).astype(
+        np.float32))
+    bad = torch.ones(4, 64, dtype=torch.bool)
+    for scores in (s, torch.zeros_like(s)):  # zero-filled keys score 0
+        p = dq_probs(scores, neg_lse2, bad, sl2)
+        assert torch.isfinite(p).all() and not p.any()
+    masked_first = torch.exp2(torch.full_like(s, NEG_INF) * sl2
+                              + neg_lse2[..., None])
+    assert torch.isinf(masked_first).all()

@@ -382,13 +382,18 @@ def test_profile_groups_for_the_vit_step():
         op("aten::mul", [("elementwise_kernel", 3.0)], ln, seq=3),
         op("aten::mul", [("elementwise_kernel", 5.0)], backward),
         op("_Flash", [("void flash_fwd<__nv_bfloat16, 64>", 2.0)]),
-        op("_FlashBackward", [("void flash_dq<__nv_bfloat16, 64>", 4.0),
-                              ("void flash_dkv<__nv_bfloat16, 64>", 6.0)]),
+        op("_FlashBackward", [("void flash_dq<64>", 4.0),
+                              ("void flash_dkv<64>", 6.0)]),
+        op("_FlashBackward", [
+            ("void (anonymous namespace)::flash_dq_sm90<64>(CUtensorMap)",
+             2.0),
+            ("void (anonymous namespace)::flash_dkv_sm90<64>(CUtensorMap)",
+             3.0)]),
         op("aten::_foreach_mul_", [("multi_tensor_apply_kernel", 1.0)],
            step),
         op("aten::mm", [("nvjet_tst_128x256_64x4_2x1_v_bz_coopA_NNT", 9.0)]),
         op("aten::gelu", [("gelu_kernel", 7.0)]),
     ]
     assert kernel_groups(events, VIT_GROUPING) == {
-        "flash_fwd": 2.0, "flash_dq": 4.0, "flash_dkv": 6.0, "matmul": 9.0,
+        "flash_fwd": 2.0, "flash_dq": 6.0, "flash_dkv": 9.0, "matmul": 9.0,
         "layernorm": 8.0, "optimizer": 1.0, "other": 7.0}
