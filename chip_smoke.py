@@ -14,7 +14,9 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            flash_fwd_sm90, flash_dq_sm90 and flash_dkv_sm90, and the
            float32 flash_fwd, flash_dq and flash_dkv);
 3. kernels each kernel against its plain PyTorch version on the card:
-           NMS, exact equality, over the cases of kernel_cases(); bn_act
+           NMS, exact equality, over the cases of kernel_cases() (serving
+           sizes, the CPU model's edge cases, M > K) and the edge cases
+           again at K = 64 (several passes); bn_act
            at every (shape, residual) the flagship training step gives
            it, in f32 and bf16, channels_last and NCHW, ReLU and none,
            plus an odd C: forward, dx and dres exactly equal, dscale and
@@ -33,6 +35,9 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            stream, response checks, the NMS launch count against the
            batch count, one batch against the same predictor with the
            plain NMS, per-bucket latency, SLO quantiles, drain ledger;
+           then NMS at the served batch's inputs: M per image, passes,
+           one call under CUDA's sync debug mode (a host sync raises),
+           kernel and plain times at B = 8 and the kernel's at B = 1;
 5. train   the flagship step (ResNet-50, s2d stem, bf16, batch 128,
            SGD) through the port's Trainer: warm-up and timed steps,
            48 + 48 bn_act launches per step, a finite and falling loss;
@@ -166,32 +171,71 @@ def time_cuda(torch, fn, runs=TIMED_RUNS, warmup=3):
             statistics.median(host))
 
 
-def detections(seed, b, n):
-    rng = np.random.RandomState(seed)
-    xy = rng.rand(b, n, 2).astype(np.float32) * 0.8
-    wh = rng.rand(b, n, 2).astype(np.float32) * 0.25 + 0.02
-    return np.concatenate([xy, xy + wh], -1), rng.rand(b, n).astype(np.float32)
-
-
 def kernel_cases():
-    """(label, boxes, scores, score_threshold) for phase 3."""
+    """(label, boxes, scores, max_detections, iou_threshold,
+    score_threshold) for phase 3: serving-sized images, then the edge
+    cases the CPU model of the NMS kernels rehearses, then more
+    candidates than one pass (K = 4096) takes."""
+    from deep_vision_tpu_torch.tools.nms_cases import (
+        detections,
+        edge_cases,
+        large_cases,
+    )
+
     cases = []
     for b in (1, 8):
         for thr in (0.3, 0.5):
             boxes, scores = detections(b, b, 10_647)
-            cases.append((f"B={b} N=10647 thr={thr}", boxes, scores, thr))
+            cases.append((f"B={b} N=10647 thr={thr}", boxes, scores, MAX_DET,
+                          IOU_THR, thr))
     boxes, scores = detections(3, 1, 10_647)
     scores[0, [17, 4000, 9000]] = 2.0  # the tie rule: first index wins
     boxes[0, 4000] = boxes[0, 17]
-    cases.append(("ties on the top score", boxes, scores, 0.5))
+    cases.append(("ties on the top score, N=10647", boxes, scores, MAX_DET,
+                  IOU_THR, 0.5))
     boxes, scores = detections(4, 1, 10_647)
-    cases.append(("all scores below threshold", boxes, scores * 0.2, 0.5))
-    boxes, scores = detections(5, 2, 1_001)
-    cases.append(("N=1001 (not a multiple of 32)", boxes, scores, 0.3))
-    boxes, scores = detections(6, 2, 70_000)
-    cases.append(("N=70000 (live scores in global memory)", boxes, scores,
-                  0.5))
-    return cases
+    cases.append(("all scores below threshold", boxes, scores * 0.2,
+                  MAX_DET, IOU_THR, 0.5))
+    return cases + edge_cases() + large_cases()
+
+
+def check_nms(torch, dev):
+    """Phase 3 for NMS: every case of kernel_cases() at the default K, and
+    the edge cases again at K = 64, where most take several passes; the
+    kernels' output must equal the plain version's exactly."""
+    from deep_vision_tpu_torch.ops.cuda import nms
+    from deep_vision_tpu_torch.tools.nms_cases import edge_cases
+
+    runs = [(case, nms.PASS_CANDIDATES) for case in kernel_cases()]
+    runs += [(case, 64) for case in edge_cases()]
+    default_k = nms.PASS_CANDIDATES
+    try:
+        for (label, boxes, scores, d, iou, thr), k in runs:
+            nms.PASS_CANDIDATES = k
+            b = torch.from_numpy(boxes).to(dev)
+            s = torch.from_numpy(scores).to(dev)
+            got = nms.greedy_nms(b, s, d, iou, thr)
+            torch.cuda.synchronize()
+            want = nms.nms_plain(b, s, d, iou, thr)
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            kept = (got[1] >= 0).sum(dim=1).tolist()
+            ms, passes, _ = nms.selection_plan(s, want[1], thr, k)
+            print(f"[kernels] nms {label} (B {b.shape[0]}, N {b.shape[1]}, "
+                  f"D {d}, iou {iou}, score {thr}, K {k}): "
+                  f"{'equal' if same else 'DIFFERENT'}; M {ms}, passes "
+                  f"{passes}, picks {kept}")
+            check(same, f"nms kernels differ from the plain version: {label}"
+                  f" at K {k}")
+            if label.startswith("ties on the top score, N"):
+                check(got[1][0, :2].tolist() == [17, 9000],
+                      f"tie rule: picks {got[1][0, :3].tolist()}")
+            if label.startswith("all scores"):
+                check(sum(kept) == 0, "an all-below-threshold image kept a "
+                      "box")
+    finally:
+        nms.PASS_CANDIDATES = default_k
+    print(f"[kernels] nms: {len(runs)} cases equal to the plain version")
+
 
 def bn_act_calls(torch, model, images):
     """{(NCHW shape, has residual): calls} of the bn_act calls one
@@ -776,7 +820,12 @@ def main():
     from deep_vision_tpu_torch.ops.cuda import build
     from deep_vision_tpu_torch.ops.cuda.bn_act import fused_scale_bias_act
     from deep_vision_tpu_torch.ops.cuda.flash_attention import flash_attention
-    from deep_vision_tpu_torch.ops.cuda.nms import greedy_nms, nms_plain
+    from deep_vision_tpu_torch.ops.cuda.nms import (
+        PASS_CANDIDATES,
+        greedy_nms,
+        nms_plain,
+        selection_plan,
+    )
     from deep_vision_tpu_torch.serve import Engine, Server
     from deep_vision_tpu_torch.tools.profile_train import make_train_parts
 
@@ -815,22 +864,7 @@ def main():
                   + use["spill_loads"] == 0, f"{kernel} spills")
 
     # -- 3. kernels against plain versions -----------------------------------
-    for label, boxes, scores, thr in kernel_cases():
-        b = torch.from_numpy(boxes).to(dev)
-        s = torch.from_numpy(scores).to(dev)
-        got = greedy_nms(b, s, MAX_DET, IOU_THR, thr)
-        torch.cuda.synchronize()
-        want = nms_plain(b, s, MAX_DET, IOU_THR, thr)
-        same = all(torch.equal(g, w) for g, w in zip(got, want))
-        kept = int((got[1] >= 0).sum())
-        print(f"[kernels] nms {label}: {'equal' if same else 'DIFFERENT'} "
-              f"({kept} picks)")
-        check(same, f"nms kernel differs from its plain version: {label}")
-        if label.startswith("ties"):
-            check(got[1][0, :2].tolist() == [17, 9000],
-                  f"tie rule: picks {got[1][0, :3].tolist()}")
-        if label.startswith("all scores"):
-            check(kept == 0, "an all-below-threshold image kept a box")
+    check_nms(torch, dev)
 
     trainer, train_batch = make_train_parts(TRAIN_BATCH, "s2d", device=dev)
     calls = bn_act_calls(torch, trainer.model, train_batch["image"])
@@ -945,10 +979,25 @@ def main():
     p_out = nms_plain(shifted, best, MAX_DET, IOU_THR, SCORE_THR)
     check(torch.equal(k_out[1], p_out[1]), "nms indices at serving inputs")
     max_abs_err = float((k_out[0] - p_out[0]).abs().max())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # a host sync would raise
+    try:
+        greedy_nms(shifted, best, MAX_DET, IOU_THR, SCORE_THR)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ms, passes, chunks = selection_plan(best, k_out[1], SCORE_THR,
+                                        PASS_CANDIDATES)
+    print(f"[kernels] nms at serving inputs: M per image {ms}, passes "
+          f"{passes} (K {PASS_CANDIDATES}), 64-candidate chunks scanned "
+          f"{chunks}, keeps {(k_out[1] >= 0).sum(dim=1).tolist()}; one "
+          f"call enqueues every phase without a host sync")
     plain_ms, plain_us = time_cuda(torch, lambda: nms_plain(
         shifted, best, MAX_DET, IOU_THR, SCORE_THR))
     nms_ms, nms_us = time_cuda(torch, lambda: greedy_nms(
         shifted, best, MAX_DET, IOU_THR, SCORE_THR))
+    one = (shifted[:1].contiguous(), best[:1].contiguous())
+    nms1_ms, nms1_us = time_cuda(torch, lambda: greedy_nms(
+        *one, MAX_DET, IOU_THR, SCORE_THR))
     nb, n = best.shape
     picks = (k_out[1] >= 0).sum(dim=1)
     rounds = int(torch.clamp(picks + (picks < MAX_DET).long(),
@@ -959,8 +1008,13 @@ def main():
     print(f"[kernels] nms at serving inputs (B={nb}, N={n}, D={MAX_DET}): "
           f"kernel {nms_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{max(bytes_ms, ops_ms):.6f} ms ({nbytes} B, {ops} ops, {rounds} "
-          f"rounds); library: none (no single PyTorch call computes greedy "
-          f"NMS, and torchvision is not installed) ({card})")
+          f"rounds); serial chain of the scan: {sum(chunks)} chunks + "
+          f"{int(picks.sum())} keeps over {nb} images in parallel (a note, "
+          f"not the bound); library: none (no single PyTorch call computes "
+          f"greedy NMS, and torchvision is not installed) ({card})")
+    print(f"[kernels] nms at serving inputs, B=1 (N={n}, D={MAX_DET}, M "
+          f"{ms[0]}): kernel {nms1_ms:.4f} ms, host {nms1_us:.1f} us a call "
+          f"({card})")
     print(f"[kernels] host cost of greedy_nms: {nms_us:.1f} us a call "
           f"(plain version {plain_us:.1f} us); the host clock around each "
           f"call, not in the device times above ({card})")

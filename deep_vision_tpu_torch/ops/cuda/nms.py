@@ -1,13 +1,17 @@
-"""Greedy NMS selection: the CUDA kernel's wrapper and its plain version.
+"""Greedy NMS selection: the CUDA kernels' wrapper and its plain version.
 
 The port of `pallas_nms` (deep_vision_tpu/ops/pallas/nms.py:88-125); the
-kernel is `csrc/nms.cu`, whose header says what it replaces, what bounds
-it and what a faster version would do.
+kernels are `csrc/nms.cu` (nms_compact, then the cooperative nms_select:
+a sort, then an IoU bitmask and a chunked scan per pass of sorted
+candidates, `pass_starts`), whose header says what they replace, why a
+sorted scan is the same function and what bounds it.
 
 `greedy_nms` routes by the tensors' device and nothing else: a CPU tensor
-takes `nms_plain`, a CUDA tensor launches the kernel or raises. There is
-no fallback from the kernel to the plain version. `greedy_nms.launches`
-counts kernel launches (a plain integer; set it to 0 to start a count).
+takes `nms_plain`, a CUDA tensor launches the kernels or raises. There is
+no fallback from the kernels to the plain version. One call enqueues every
+phase on the current stream with one ctypes call and no host
+synchronisation; `greedy_nms.launches` counts such calls (a plain integer;
+set it to 0 to start a count).
 
 Semantics, shared by both and by the reference: scores below
 `score_threshold` become -1; each of the D rounds picks the largest live
@@ -24,19 +28,74 @@ import torch
 
 from deep_vision_tpu_torch.ops.cuda import build
 
-_ARGTYPES = {
-    "dvt_nms_max_smem_candidates": [ctypes.c_int],
-    "dvt_nms_launch": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-    + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p],
+#: K, the most sorted candidates one pass's IoU bitmask covers (a
+#: multiple of 64, at most the kernels' 4096): a K x K bit workspace per
+#: image, 2 MB at 4096. Passes cover FIRST_PASS candidates, then twice
+#: as many each time up to K, until D keeps or the last candidate.
+PASS_CANDIDATES = 4096
+FIRST_PASS = 512
+
+_SIGNATURES = {  # name: (restype, argtypes)
+    "dvt_nms_workspace_bytes": (ctypes.c_longlong, [ctypes.c_int] * 3),
+    "dvt_nms_launch": (ctypes.c_int, [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                       + [ctypes.c_int, ctypes.c_void_p]),
 }
 
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("nms")
-    for fn, argtypes in _ARGTYPES.items():
+    for fn, (restype, argtypes) in _SIGNATURES.items():
         getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).restype = restype
     return lib
+
+
+def pass_size(n: int, pass_candidates: int) -> int:
+    """K for N candidates: `pass_candidates`, or N rounded up to 64 when
+    that is smaller (the mask is K x K bits)."""
+    return max(64, min(pass_candidates, -(-n // 64) * 64))
+
+
+def pass_starts(n: int, pass_candidates: int) -> list:
+    """[(first sorted position, size)] of the passes the kernels may run
+    over N candidates: FIRST_PASS, then doubling up to K."""
+    k = pass_size(n, pass_candidates)
+    size, base, passes = min(FIRST_PASS, k), 0, []
+    while base < n:
+        passes.append((base, size))
+        base, size = base + size, min(2 * size, k)
+    return passes
+
+
+def selection_plan(scores: torch.Tensor, sel_idx: torch.Tensor,
+                   score_threshold: float, pass_candidates: int
+                   ) -> Tuple[list, list, list]:
+    """(M, passes, chunks) per image, for the record, from the inputs and
+    the selection alone: M = the candidates (score >= threshold and > 0);
+    passes and chunks = the passes (`pass_starts`) and 64-candidate chunks
+    the scan walks, up to the D-th keep or the last candidate."""
+    n = scores.shape[1]
+    passes = pass_starts(n, pass_candidates)
+    d = sel_idx.shape[1]
+    thr = torch.tensor(score_threshold, dtype=torch.float32,
+                       device=scores.device)
+    idx = torch.arange(n, device=scores.device)
+    plan = ([], [], [])
+    for s, sel in zip(scores, sel_idx):
+        cand = (s >= thr) & (s > 0.0)
+        m = int(cand.sum())
+        kept = sel[sel >= 0].long()
+        if d and len(kept) == d:  # stopped at the D-th keep: its rank
+            last = kept[-1]
+            rank = int((cand & ((s > s[last]) | ((s == s[last])
+                                                 & (idx < last)))).sum())
+        else:  # walked every candidate
+            rank = m - 1
+        walked = (sum(base <= rank for base, _ in passes), rank // 64 + 1)
+        for part, v in zip(plan, (m,) + walked):
+            part.append(v)
+    return plan
 
 
 def _check(boxes: torch.Tensor, scores: torch.Tensor,
@@ -107,16 +166,14 @@ def _launch(boxes: torch.Tensor, scores: torch.Tensor, d: int,
     out_i = torch.empty((b, d), dtype=torch.int32, device=dev)
     if b == 0 or d == 0:
         return out_s, out_i  # nothing to select: no launch
-    fit = lib.dvt_nms_max_smem_candidates(dev.index)
-    if fit < 0:
-        raise RuntimeError("could not query the NMS kernel's shared memory")
-    # live scores that do not fit in a block's shared memory go to global
-    scratch = (torch.empty((b, n), dtype=torch.float32, device=dev)
-               if n > fit else None)
+    k = pass_size(n, PASS_CANDIDATES)
+    # uninitialised: every phase writes what a later one reads
+    workspace = torch.empty(lib.dvt_nms_workspace_bytes(b, n, k),
+                            dtype=torch.uint8, device=dev)
     err = lib.dvt_nms_launch(
         boxes.data_ptr(), scores.data_ptr(), out_s.data_ptr(),
-        out_i.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        b, n, d, iou_threshold, score_threshold, dev.index,
+        out_i.data_ptr(), workspace.data_ptr(), b, n, d,
+        min(FIRST_PASS, k), k, iou_threshold, score_threshold, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"NMS kernel launch failed: cudaError_t {err}")

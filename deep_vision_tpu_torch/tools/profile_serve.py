@@ -9,13 +9,15 @@ and profiles the same calls with torch.profiler. Per bucket it prints
 the wall time per batch, the device-busy time per batch (the sum of
 kernel and copy times, which do not overlap on one stream), the busy
 share of the unprofiled wall time, kernel time by group (convolution,
-the NMS kernel, everything else) and the top kernels by name. Needs one
-CUDA card.
+the NMS kernels, everything else), the NMS kernels' times by kernel
+(nms_compact, nms_select) and the top kernels by name. Needs one CUDA card.
 """
 from __future__ import annotations
 
+import re
 import statistics
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -28,14 +30,24 @@ from deep_vision_tpu_torch.nn.layers import calibrate_batch_stats
 from deep_vision_tpu_torch.serve import Engine
 
 IMAGE, NUM_CLASSES, RUNS = 416, 80, 5
+NMS_KERNEL = re.compile(r"(?<![A-Za-z])(nms_[a-z0-9_]+)")
 CONV_MARKERS = ("conv", "gemm", "xmma", "cudnn", "cutlass", "winograd",
                 "implicit", "sm90")
 
 
+def nms_phase(name: str) -> Optional[str]:
+    """The NMS kernel a profiler name names (nms_compact, nms_select), or
+    None."""
+    m = NMS_KERNEL.search(name)
+    return m.group(1) if m else None
+
+
 def group(name: str) -> str:
-    low = name.lower()
-    if "nms_kernel" in low:
+    """"nms" for the NMS kernels, tested before the convolution markers,
+    which their names could otherwise match; then "conv", else "other"."""
+    if nms_phase(name):
         return "nms"
+    low = name.lower()
     if any(m in low for m in CONV_MARKERS):
         return "conv"
     return "other"
@@ -83,6 +95,8 @@ def main() -> None:
         for e in kernels:
             by_group[group(e.key)] += device_us(e) / 1e3 / RUNS
         busy_ms = sum(by_group.values())
+        nms_phases = {nms_phase(e.key): device_us(e) / 1e3 / RUNS
+                      for e in kernels if nms_phase(e.key)}
         top = sorted(kernels, key=device_us, reverse=True)[:10]
         row = {
             "wall_ms": wall_ms, "device_busy_ms": busy_ms,
@@ -97,6 +111,8 @@ def main() -> None:
               f"({100 * row['busy_share']:.1f}%), "
               f"{row['kernels_per_batch']:.0f} kernels/batch, by group "
               f"{ {k: round(v, 3) for k, v in by_group.items()} } ({card})")
+        print(f"[profile]   nms by kernel, ms/batch: "
+              f"{ {k: round(v, 4) for k, v in nms_phases.items()} }")
         for t in row["top"]:
             print(f"[profile]   {t['ms']:8.3f} ms  x{t['calls']:.0f}  "
                   f"{t['name']}")

@@ -10,11 +10,14 @@ p -= lr * t (nesterov: p -= lr * (u + m * t)). `torch.optim.SGD` with
 two parameter groups (weight decay wd and 0) computes the same
 arithmetic.
 
-AdamW: `optax.adamw(lr, b1, b2, eps=1e-8, weight_decay=wd, mask)` gives
-p -= lr * (m_hat / (sqrt(v_hat) + eps) + wd * p); `torch.optim.AdamW`
+AdamW: the reference calls `optax.adamw(lr, b1, b2, weight_decay=wd,
+mask)` and passes no eps, so optax's default 1e-8 always holds:
+p -= lr * (m_hat / (sqrt(v_hat) + 1e-8) + wd * p). `torch.optim.AdamW`
 decays first (p *= 1 - lr * wd), then takes the same Adam step: the
-same arithmetic up to rounding. eps and weight_decay are passed
-explicitly (torch's AdamW defaults to weight_decay 1e-2).
+same arithmetic up to rounding. eps (1e-8) and weight_decay are passed
+explicitly (torch's AdamW defaults to weight_decay 1e-2); any other eps
+for "adamw" raises, since the reference would ignore it. "sgd" ignores
+eps.
 
 The mask is by flax name (`_decay_mask`, optimizers.py:29-40): a
 parameter is exempt when its name ends in `bias` or `scale` or contains
@@ -37,6 +40,8 @@ from torch import nn
 from deep_vision_tpu_torch.convert import flax_path
 
 Schedule = Union[float, Callable[[int], float]]
+#: optax.adamw's default eps, the only one the reference's adamw uses
+ADAMW_EPS = 1e-8
 
 
 def decay_mask(names: Iterable[str], decay_bn_bias: bool) -> Dict[str, bool]:
@@ -100,7 +105,6 @@ class OptimizerSpec:
     nesterov: bool = False
     b1: float = 0.9
     b2: float = 0.999
-    eps: float = 1e-8
 
     @property
     def schedule(self) -> Optional[Callable[[int], float]]:
@@ -124,24 +128,30 @@ class OptimizerSpec:
                 self.groups(model), lr=lr, momentum=self.momentum,
                 nesterov=self.nesterov and self.momentum > 0)
         return torch.optim.AdamW(self.groups(model), lr=lr,
-                                 betas=(self.b1, self.b2), eps=self.eps)
+                                 betas=(self.b1, self.b2), eps=ADAMW_EPS)
 
 
 def build_optimizer(name: str, learning_rate: Schedule, *,
                     weight_decay: float = 0.0, decay_bn_bias: bool = False,
                     momentum: float = 0.0, nesterov: bool = False,
                     b1: float = 0.9, b2: float = 0.999,
-                    eps: float = 1e-8) -> OptimizerSpec:
+                    eps: float = ADAMW_EPS) -> OptimizerSpec:
     """The reference's `build_optimizer` for "sgd" (momentum, nesterov)
-    and "adamw" (b1, b2, eps); `learning_rate` a float or a schedule."""
+    and "adamw" (b1, b2); `learning_rate` a float or a schedule. eps
+    exists for the reference's signature: "sgd" ignores it, and "adamw"
+    takes only ADAMW_EPS, the one value the reference uses."""
     if name not in ("sgd", "adamw"):
         raise ValueError(f"optimizer {name!r} is not ported yet (sgd and "
                          f"adamw are)")
+    if name == "adamw" and eps != ADAMW_EPS:
+        raise ValueError(
+            f"adamw eps={eps!r}: the reference's adamw ignores eps and "
+            f"always uses optax's {ADAMW_EPS}; pass no eps")
     if not callable(learning_rate):
         learning_rate = float(learning_rate)
     return OptimizerSpec(name, learning_rate, float(weight_decay),
                          bool(decay_bn_bias), float(momentum), bool(nesterov),
-                         float(b1), float(b2), float(eps))
+                         float(b1), float(b2))
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:

@@ -23,7 +23,6 @@ magnitude); bfloat16 out within 2e-2, bfloat16 dq/dk/dv within
 bf16 for their second products, where the plain versions keep float32).
 lse is float32 in both and held to the float32 tolerance.
 """
-import numpy as np
 import pytest
 import torch
 
@@ -44,7 +43,15 @@ from deep_vision_tpu_torch.ops.cuda.flash_attention import (
     flash_forward,
     flash_fwd_plain,
 )
+from deep_vision_tpu_torch.ops.cuda import nms
 from deep_vision_tpu_torch.ops.cuda.nms import greedy_nms, nms_plain
+from deep_vision_tpu_torch.tools.nms_cases import (
+    detections,
+    edge_cases,
+    large_cases,
+)
+
+NMS_CASES = edge_cases() + large_cases()
 
 
 @pytest.fixture
@@ -55,13 +62,6 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def detections(seed, b, n):
-    rng = np.random.RandomState(seed)
-    xy = rng.rand(b, n, 2).astype(np.float32) * 0.8
-    wh = rng.rand(b, n, 2).astype(np.float32) * 0.25 + 0.02
-    return np.concatenate([xy, xy + wh], -1), rng.rand(b, n).astype(np.float32)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,d", [(1, 10_647, 100), (8, 10_647, 100),
                                    (2, 77, 100), (2, 70_000, 100),
@@ -70,7 +70,7 @@ def test_nms_kernel_matches_plain(cuda_device, b, n, d):
     boxes, scores = detections(b + n, b, n)
     boxes = torch.from_numpy(boxes).to(cuda_device)
     scores = torch.from_numpy(scores).to(cuda_device)
-    for thr in (0.3, 0.5):
+    for thr in (0.0, 0.3, 0.5):
         before = greedy_nms.launches
         got = greedy_nms(boxes, scores, d, 0.5, thr)
         torch.cuda.synchronize()
@@ -78,6 +78,43 @@ def test_nms_kernel_matches_plain(cuda_device, b, n, d):
         want = nms_plain(boxes, scores, d, 0.5, thr)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_pass", [4096, 64])
+@pytest.mark.parametrize("case", range(len(NMS_CASES)),
+                         ids=[c[0] for c in NMS_CASES])
+def test_nms_kernel_edge_cases_match_plain(cuda_device, monkeypatch, case,
+                                           k_pass):
+    # the CPU model's cases (tests/test_torch_nms_tiles.py), on the card,
+    # at the default K and at K = 64, where most cases take several passes
+    label, boxes, scores, d, iou, thr = NMS_CASES[case]
+    monkeypatch.setattr(nms, "PASS_CANDIDATES", k_pass)
+    boxes = torch.from_numpy(boxes).to(cuda_device)
+    scores = torch.from_numpy(scores).to(cuda_device)
+    before = greedy_nms.launches
+    got = greedy_nms(boxes, scores, d, iou, thr)
+    torch.cuda.synchronize()
+    assert greedy_nms.launches == before + 1
+    want = nms_plain(boxes, scores, d, iou, thr)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), label
+
+
+@pytest.mark.cuda
+def test_nms_kernel_enqueues_without_host_sync(cuda_device):
+    boxes, scores = detections(3, 8, 10_647)
+    boxes = torch.from_numpy(boxes).to(cuda_device)
+    scores = torch.from_numpy(scores).to(cuda_device)
+    greedy_nms(boxes, scores, 100, 0.5, 0.5)  # builds and loads first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = greedy_nms(boxes, scores, 100, 0.5, 0.5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = nms_plain(boxes, scores, 100, 0.5, 0.5)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda

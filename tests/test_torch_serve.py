@@ -317,3 +317,23 @@ def test_slo_tracker_report_and_render():
     assert rep["padding_waste_pct"] == pytest.approx(25.0)
     assert rep["slo_violations"] == 1
     assert "occupancy 75.0%" in slo.render()
+
+
+@pytest.mark.parametrize("name,want,phase", [
+    ("(anonymous namespace)::nms_compact(float const*, int, int, float, "
+     "int*, float*, (anonymous namespace)::State*, float*, int*)", "nms",
+     "nms_compact"),
+    ("(anonymous namespace)::nms_select((anonymous namespace)::Args)", "nms",
+     "nms_select"),
+    ("nms_kernel(float4 const*, float const*)", "nms", "nms_kernel"),
+    ("nms_mask_sm90", "nms", "nms_mask_sm90"),  # before the "sm90" marker
+    ("sm90_xmma_fprop_implicit_gemm_f32f32_tf32f32_f32_nhwckrsc_nchw",
+     "conv", None),
+    ("void cudnn::winograd_nonfused::winogradForwardData4x4", "conv", None),
+    ("void at::native::vectorized_elementwise_kernel<4>", "other", None),
+])
+def test_profile_serve_groups_the_nms_kernels_first(name, want, phase):
+    from deep_vision_tpu_torch.tools.profile_serve import group, nms_phase
+
+    assert group(name) == want
+    assert nms_phase(name) == phase

@@ -309,6 +309,30 @@ def test_adamw_matches_optax_with_identical_gradients(decay_bn_bias):
                                    rtol=1e-6, atol=1e-6, err_msg=k)
 
 
+def test_adamw_eps_is_the_references_fixed_one():
+    # the reference's adamw passes no eps to optax.adamw: its eps=1.0 is
+    # the default 1e-8, so the port refuses any other eps for adamw
+    for eps in (1.0, 1e-6):
+        with pytest.raises(ValueError, match="ignores eps"):
+            build_optimizer("adamw", 1e-2, eps=eps)
+    build_optimizer("sgd", 0.1, eps=1.0)  # sgd has no eps to ignore
+    p0 = np.array([1.0, -2.0, 0.5], np.float32)
+    g = np.array([0.1, 0.2, -0.3], np.float32)
+    jtx = jax_build("adamw", 1e-2, eps=1.0)
+    updates, _ = jtx.update(jnp.asarray(g), jtx.init(jnp.asarray(p0)),
+                            jnp.asarray(p0))
+    want = np.asarray(optax.apply_updates(jnp.asarray(p0), updates))
+    p = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+    opt = build_optimizer("adamw", 1e-2)(torch.nn.ParameterList([p]))
+    assert opt.defaults["eps"] == 1e-8
+    p.grad = torch.from_numpy(g)
+    opt.step()
+    np.testing.assert_allclose(p.detach().numpy(), want, rtol=1e-6,
+                               atol=1e-7)
+    # eps=1.0 would have moved it far less: the check can tell them apart
+    assert np.abs(want - p0).min() > 9e-3
+
+
 def test_trainer_steps_match_jax_trainer_with_schedule():
     jm, tm, v, batch = pair(6, batch=4)
     kw = dict(weight_decay=1e-4, decay_bn_bias=True)
