@@ -12,7 +12,7 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            ptxas's registers and spills for each (none allowed in any
            kernel of flash_attention.cu: the Hopper kernels
            flash_fwd_sm90, flash_dq_sm90 and flash_dkv_sm90, and the
-           float32 flash_fwd, flash_dq and flash_dkv);
+           float32 flash_fwd, flash_dq and flash_dkv; nor in norm.cu);
 3. kernels each kernel against its plain PyTorch version on the card:
            NMS, exact equality, over the cases of kernel_cases() (serving
            sizes, the CPU model's edge cases, M > K) and the edge cases
@@ -40,12 +40,14 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            kernel and plain times at B = 8 and the kernel's at B = 1;
 5. train   the flagship step (ResNet-50, s2d stem, bf16, batch 128,
            SGD) through the port's Trainer: warm-up and timed steps,
-           48 + 48 bn_act launches per step, a finite and falling loss;
+           48 + 48 bn_act and 53 + 53 moments launches per step, a finite
+           and falling loss;
            then one float32 step at batch 8 on the card (kernels)
            against the same step on the CPU (plain versions); then
            ViT-S/16 at 512x512 (bf16, batch 64, AdamW + warmup-cosine)
-           through the Trainer: 12 + 12 + 12 flash launches a step, a
-           finite and falling loss; a 224x224 vit_s16 forward that
+           through the Trainer: 12 + 12 + 12 flash and 25 + 25 LayerNorm
+           launches a step, a finite and falling loss; a 224x224
+           vit_s16 forward that
            launches no flash kernel (the dense route); and one float32
            batch-2 ViT step on the card against the CPU: loss, grad norm
            and every parameter's gradient within VIT_CHECK_TOL;
@@ -75,6 +77,26 @@ BN_SUM_TOL = 1e-5
 #: float32 operations per element: forward x*a + b (+ r) and the ReLU;
 #: backward the mask, g'*a, and the two running sums (mul + 2 adds)
 BN_FWD_OPS, BN_BWD_OPS = 4, 5
+
+#: norm kernels against plain versions: the moments' E[x] and E[x^2]
+#: within NORM_SUM_TOL x the mean of |terms| per channel (two float32
+#: summation orders over up to 1.6 M rows), LayerNorm's dscale and dbias
+#: (sums over every row) within NORM_SUM_TOL x k x sum |terms|; LayerNorm's
+#: y, mean, rstd and dx within rtol and atol u + LN_TOL x k (atol relative
+#: to the tensor's largest magnitude), u one bf16 ulp for a bf16 result,
+#: k the worst row's E[x^2] / (var + eps): the fast variance loses k ulps
+#: to cancellation, so two summation orders differ by that much
+NORM_SUM_TOL = 1e-5
+LN_TOL = 2e-6
+BF16_ULP = 2.0 ** -7
+#: float32 operations per element: moments forward (x + s, x * x + q) and
+#: backward (alpha + beta * x); LayerNorm forward (two sums and a square,
+#: then (x - mean) * (rstd * scale) + bias) and backward (E[x^2] again, h,
+#: x^, the two row sums, dx, the two column sums)
+MOMENTS_FWD_OPS, MOMENTS_BWD_OPS, LN_FWD_OPS, LN_BWD_OPS = 3, 2, 7, 15
+#: the one PyTorch call timed beside each moments kernel (never on the path)
+LIBRARY_CALL = {"bn_moments_fwd": "torch.batch_norm_stats",
+                "bn_moments_bwd": "torch.addcmul"}
 
 #: H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet) and the
 #: special-function units' exponential rate: 16 a clock on each of 132
@@ -237,19 +259,22 @@ def check_nms(torch, dev):
     print(f"[kernels] nms: {len(runs)} cases equal to the plain version")
 
 
-def bn_act_calls(torch, model, images):
-    """{(NCHW shape, has residual): calls} of the bn_act calls one
-    forward of `model` makes, read by hooks on its BatchNorms in an eval
-    pass without gradients: the training step's shapes, and no running
-    statistic changes."""
+def batchnorm_calls(torch, model, images):
+    """({(NCHW shape, has residual): calls} of the bn_act calls and
+    {NCHW shape: calls} of the batch moments one training forward of
+    `model` makes (every BatchNorm takes its batch's moments), read by
+    hooks on its BatchNorms in an eval pass without gradients: the
+    training step's shapes, and no running statistic changes."""
     from deep_vision_tpu_torch.nn.layers import BatchNorm
 
-    calls = {}
+    calls, moments = {}, {}
 
     def hook(mod, args, kwargs):
         res = kwargs.get("residual") is not None
+        shape = tuple(args[0].shape)
+        moments[shape] = moments.get(shape, 0) + 1
         if mod.act is not None or res:
-            key = (tuple(args[0].shape), res)
+            key = (shape, res)
             calls[key] = calls.get(key, 0) + 1
 
     handles = [m.register_forward_pre_hook(hook, with_kwargs=True)
@@ -262,7 +287,7 @@ def bn_act_calls(torch, model, images):
         model.train(was_training)
         for h in handles:
             h.remove()
-    return calls
+    return calls, moments
 
 
 def bn_act_cases(torch, dev, calls, card):
@@ -362,12 +387,6 @@ def bn_act_cases(torch, dev, calls, card):
                           f"{times[2]:.4f} ms (plain {times[3]:.4f}); host "
                           f"per call: fwd {host[0]:.1f} us, bwd {host[2]:.1f} "
                           f"us ({card})")
-    def bound(row):
-        bytes_ms = row["bytes"] / HBM_BYTES_PER_S * 1e3
-        ops_ms = row["ops"] / FP32_FLOPS * 1e3
-        return (max(bytes_ms, ops_ms),
-                "bytes" if bytes_ms >= ops_ms else "operations")
-
     rows = {}
     for name, replaces in (("bn_act_fwd", ":78 and :89"),
                            ("bn_act_bwd", ":158")):
@@ -376,11 +395,12 @@ def bn_act_cases(torch, dev, calls, card):
             print(f"[kernels] {name} residual={res}: {part['calls']} calls "
                   f"a step, kernel {part['ms']:.4f} ms, plain "
                   f"{part['plain_ms']:.4f} ms, bound "
-                  f"{bound(part)[0]:.4f} ms ({card})")
+                  f"{bound_of(part['bytes'], part['ops'])[0]:.4f} ms "
+                  f"({card})")
         total = {k: sum(parts[name, res][k] for res in (False, True))
                  for k in ("calls", "ms", "plain_ms", "host_ms", "bytes",
                            "ops")}
-        bound_ms, bound_by = bound(total)
+        bound_ms, bound_by = bound_of(total["bytes"], total["ops"])
         rows[name] = {"replaces": "deep_vision_tpu/ops/pallas/bn_act.py"
                                   + replaces.split()[0],
                       "max_abs_err": max_err[name], "ms": total["ms"],
@@ -402,6 +422,319 @@ def bn_act_cases(torch, dev, calls, card):
     print(f"[kernels] bn_act: {n_checked} cases, forward/dx/dres equal, "
           f"dscale/dbias within {BN_SUM_TOL} x sum|terms|")
     return rows
+
+
+def norm_input(torch, dev, shape, dtype, case, gen):
+    """A seeded input: normal draws; "offset": mean 30, std 1;
+    "constant": every other channel of a 4-D input, every other row
+    otherwise, 0.75 (exact sums, variance 0). 4-D inputs channels_last."""
+    x = torch.randn(shape, generator=gen, device=dev)
+    if case == "offset":
+        x += 30.0
+    elif case == "constant" and len(shape) == 4:
+        x[:, ::2] = 0.75
+    elif case == "constant":
+        x[..., ::2, :] = 0.75
+    x = x.to(dtype)
+    if len(shape) == 4:
+        x = x.contiguous(memory_format=torch.channels_last)
+    return x
+
+
+def bound_of(nbytes, ops):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes at
+    HBM_BYTES_PER_S and the float32 operations at FP32_FLOPS."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOPS * 1e3
+    return ((bytes_ms, "bytes") if bytes_ms >= ops_ms
+            else (ops_ms, "operations"))
+
+
+def moments_cases(torch, dev, calls, card):
+    """Phase 3 for the BatchNorm moments: every shape of `calls` (the
+    flagship step's BatchNorms) in bf16, channels_last, and the first
+    three in f32, then the edge cases. E[x] and E[x^2] within
+    NORM_SUM_TOL x mean |terms| per channel of the plain version, both
+    errors against a float64 sum printed; the backward bit for bit; both
+    bit for bit on a second call. The main path's shapes are timed.
+    Returns the kernels line's fields for bn_moments_fwd and
+    bn_moments_bwd, times summed over one step's calls."""
+    from deep_vision_tpu_torch.ops.cuda.norm import (
+        bn_moments_backward,
+        bn_moments_bwd_coefficients,
+        bn_moments_bwd_plain,
+        bn_moments_forward,
+        bn_moments_plain,
+        moments_rows,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step = sorted(calls.items())
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(shape, bf16, "normal", n) for shape, n in step]
+    cases += [(shape, f32, "normal", 0) for shape, _ in step[:3]]
+    cases += [((16, 64, 56, 56), bf16, "offset", 0),
+              ((16, 64, 56, 56), f32, "offset", 0),
+              ((8, 256, 14, 14), bf16, "constant", 0),
+              ((8, 256, 14, 14), f32, "constant", 0),
+              ((1, 64), bf16, "normal", 0),
+              ((1, 2048, 1, 1), f32, "normal", 0),
+              ((32, 100, 7, 9), bf16, "normal", 0),
+              ((32, 100, 7, 9), f32, "normal", 0),
+              ((4096, 384), bf16, "normal", 0), ((128, 3, 8, 8), f32,
+                                                  "offset", 0)]
+    tot = {name: dict(calls=0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                      host_ms=0.0, bytes=0, ops=0)
+           for name in ("bn_moments_fwd", "bn_moments_bwd")}
+    max_err = {"bn_moments_fwd": 0.0, "bn_moments_bwd": 0.0}
+    worst_f64 = {"kernel": 0.0, "plain": 0.0}
+    for shape, dtype, case, n in cases:
+        x = norm_input(torch, dev, shape, dtype, case, gen)
+        rows, c = moments_rows(x), shape[1]
+        got, again = bn_moments_forward(x), bn_moments_forward(x)
+        want = bn_moments_plain(x)
+        xd = (x.permute(0, 2, 3, 1).reshape(rows, c) if x.dim() == 4
+              else x).double()
+        errs = []
+        for k, (terms, ref) in enumerate((
+                (xd.abs().sum(0), xd.sum(0)),
+                (xd.square().sum(0), xd.square().sum(0)))):
+            label = f"{shape} {dtype} {case} {'E[x]' if k == 0 else 'E[x^2]'}"
+            check(torch.equal(got[k], again[k]),
+                  f"bn_moments forward does not repeat: {label}")
+            e = (got[k].double() - want[k].double()).abs() * rows
+            check(bool((e <= NORM_SUM_TOL * terms).all()),
+                  f"bn_moments beyond {NORM_SUM_TOL} x sum|terms|: {label}")
+            share = {who: float(((v.double() * rows - ref).abs()
+                                 / terms.clamp_min(1e-300)).max())
+                     for who, v in (("kernel", got[k]), ("plain", want[k]))}
+            for who in share:
+                worst_f64[who] = max(worst_f64[who], share[who])
+            errs.append(f"{'E[x]' if k == 0 else 'E[x^2]'}: kernel "
+                        f"{share['kernel']:.2e}, plain {share['plain']:.2e}")
+            if n:
+                max_err["bn_moments_fwd"] = max(
+                    max_err["bn_moments_fwd"],
+                    float((got[k] - want[k]).abs().max()))
+        u = torch.randn(c, generator=gen, device=dev)
+        w = torch.randn(c, generator=gen, device=dev)
+        dx = bn_moments_backward(x, u, w)
+        coef = bn_moments_bwd_coefficients(rows, u, w)
+        check(torch.equal(dx, bn_moments_bwd_plain(x, *coef))
+              and dx.stride() == x.stride()
+              and torch.equal(dx, bn_moments_backward(x, u, w)),
+              f"bn_moments backward differs: {shape} {dtype} {case}")
+        print(f"[kernels] bn_moments {shape} {dtype} {case}: forward within "
+              f"{NORM_SUM_TOL} x sum|terms| of the plain version, error "
+              f"against a float64 sum as a share of sum|terms|: "
+              f"{'; '.join(errs)}; backward equal; both repeat bitwise")
+        if n:
+            # the library's dx = alpha + beta * x: one broadcast addcmul,
+            # f32 by type promotion, written into a tensor like x
+            chan = (1, -1) + (1,) * (x.dim() - 2)
+            alpha, beta = (t.view(chan)
+                           for t in bn_moments_bwd_coefficients(rows, u, w))
+            times, host = zip(*(time_cuda(torch, fn) for fn in (
+                lambda: bn_moments_forward(x),
+                lambda: bn_moments_plain(x),
+                lambda: torch.batch_norm_stats(x, 1e-5),
+                lambda: bn_moments_backward(x, u, w),
+                lambda: bn_moments_bwd_plain(
+                    x, *bn_moments_bwd_coefficients(rows, u, w)),
+                lambda: torch.addcmul(alpha, beta, x,
+                                      out=torch.empty_like(x)))))
+            size = x.numel() * x.element_size()
+            for name, t, us, plain, lib, nbytes, ops in (
+                    ("bn_moments_fwd", times[0], host[0], times[1],
+                     times[2], size + 8 * c, MOMENTS_FWD_OPS * x.numel()),
+                    ("bn_moments_bwd", times[3], host[3], times[4],
+                     times[5], 2 * size + 8 * c,
+                     MOMENTS_BWD_OPS * x.numel())):
+                row = tot[name]
+                row["calls"] += n
+                row["ms"] += n * t
+                row["host_ms"] += n * us / 1e3
+                row["plain_ms"] += n * plain
+                row["library_ms"] += n * lib
+                row["bytes"] += n * nbytes
+                row["ops"] += n * ops
+            print(f"[kernels] bn_moments {shape} x{n}/step: fwd "
+                  f"{times[0]:.4f} ms (plain {times[1]:.4f}, "
+                  f"torch.batch_norm_stats {times[2]:.4f}, bytes bound "
+                  f"{bound_of(size + 8 * c, 0)[0]:.4f}), bwd "
+                  f"{times[3]:.4f} ms (plain {times[4]:.4f}, torch.addcmul "
+                  f"{times[5]:.4f}, bytes bound "
+                  f"{bound_of(2 * size + 8 * c, 0)[0]:.4f}) ({card})")
+        del x, xd, got, again, want, dx
+    fields = {}
+    for name in ("bn_moments_fwd", "bn_moments_bwd"):
+        row = tot[name]
+        bound_ms, bound_by = bound_of(row["bytes"], row["ops"])
+        library = row["library_ms"]
+        fields[name] = {
+            "replaces": "deep_vision_tpu/nn/layers.py:129-137",
+            "max_abs_err": max_err[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library}
+        print(f"[kernels] {name} over one step's {row['calls']} calls "
+              f"(replaces the XLA fusion of nn/layers.py:129-137): kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), "
+              f"{100 * bound_ms / row['ms']:.1f}% of the bound; library "
+              f"{LIBRARY_CALL[name]} {library:.4f} ms; host "
+              f"{1e3 * row['host_ms'] / row['calls']:.1f} us a call (the "
+              f"host clock around each wrapper call) ({card})")
+    print(f"[kernels] bn_moments: {len(cases)} cases; worst error against "
+          f"a float64 sum, as a share of sum|terms|: kernel "
+          f"{worst_f64['kernel']:.3e}, plain {worst_f64['plain']:.3e}")
+    return fields
+
+
+def ln_share(torch, got, want, bf16_result, k):
+    """The worst share of LayerNorm's tolerance: |got - want| <= tol x
+    (|want| + max |want|), tol = (BF16_ULP if bf16_result) + LN_TOL k."""
+    tol = (BF16_ULP if bf16_result else 0.0) + LN_TOL * k
+    got, want = got.double(), want.double()
+    allowed = tol * (want.abs() + want.abs().max())
+    return float(((got - want).abs() / allowed.clamp_min(1e-300)).max())
+
+
+def layer_norm_cases(torch, dev, card):
+    """Phase 3 for LayerNorm: the ViT step's shapes (64 x 1024 rows of
+    384: bf16 in and out for the 24 block LayerNorms, f32 for the final
+    one), then the edge cases. y, mean, rstd and dx within ln_share's
+    tolerance, dscale and dbias within NORM_SUM_TOL x k x sum |terms|,
+    all bit for bit on a second call. The main path's shapes are timed.
+    Returns the kernels line's fields for layer_norm_fwd and
+    layer_norm_bwd, times summed over one step's calls."""
+    import torch.nn.functional as F
+
+    from deep_vision_tpu_torch.ops.cuda.norm import (
+        layer_norm_backward,
+        layer_norm_bwd_plain,
+        layer_norm_forward,
+        layer_norm_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bf16, f32 = torch.bfloat16, torch.float32
+    step = (VIT_BATCH, (VIT_IMAGE // 16) ** 2, 384)
+    cases = [(step, bf16, bf16, "normal", 24), (step, f32, f32, "normal", 1),
+             ((8, 1024, 384), bf16, bf16, "offset", 0),
+             ((8, 1024, 384), f32, f32, "offset", 0),
+             ((8, 1024, 384), bf16, bf16, "constant", 0),
+             ((8, 1024, 384), f32, f32, "constant", 0),
+             ((1, 384), bf16, bf16, "normal", 0),
+             ((1, 384), f32, f32, "normal", 0),
+             ((7, 384), bf16, f32, "normal", 0),
+             ((64, 197, 100), bf16, bf16, "normal", 0),
+             ((64, 197, 100), f32, f32, "normal", 0),
+             ((16, 196, 768), bf16, bf16, "normal", 0)]
+    tot = {name: dict(calls=0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                      host_ms=0.0, bytes=0, ops=0)
+           for name in ("layer_norm_fwd", "layer_norm_bwd")}
+    max_err = {"layer_norm_fwd": 0.0, "layer_norm_bwd": 0.0}
+    for shape, dtype, out, case, n in cases:
+        d = shape[-1]
+        x = norm_input(torch, dev, shape, dtype, case, gen)
+        s = torch.rand(d, generator=gen, device=dev) + 0.5
+        b = torch.randn(d, generator=gen, device=dev)
+        g = torch.randn(shape, generator=gen, device=dev).to(out)
+        xd = x.double()
+        k = float((xd.square().mean(-1) / (xd.var(-1, unbiased=False)
+                                           + 1e-6)).max())
+        label = f"{shape} {dtype} -> {out} {case}"
+        y, mean, rstd = layer_norm_forward(x, s, b, 1e-6, out)
+        wy, wmean, wrstd = layer_norm_plain(x, s, b, 1e-6, out)
+        shares = {"y": ln_share(torch, y, wy, out == bf16, k),
+                  "mean": ln_share(torch, mean, wmean, False, k),
+                  "rstd": ln_share(torch, rstd, wrstd, False, k)}
+        dx, ds, db = layer_norm_backward(x, s, wmean, wrstd, g)
+        wdx, wds, wdb = layer_norm_bwd_plain(x, s, wmean, wrstd, g)
+        shares["dx"] = ln_share(torch, dx, wdx, dtype == bf16, k)
+        xhat = (xd - wmean.double()[..., None]) * wrstd.double()[..., None]
+        rows = tuple(range(x.dim() - 1))
+        for name, got, want, terms in (
+                ("dscale", ds, wds, (g.double() * xhat).abs().sum(rows)),
+                ("dbias", db, wdb, g.double().abs().sum(rows))):
+            bound = NORM_SUM_TOL * k * terms
+            shares[name] = float(((got.double() - want.double()).abs()
+                                  / bound.clamp_min(1e-300)).max())
+        again = (*layer_norm_forward(x, s, b, 1e-6, out),
+                 *layer_norm_backward(x, s, wmean, wrstd, g))
+        check(all(torch.equal(a, w) for a, w in zip(
+            (y, mean, rstd, dx, ds, db), again)),
+              f"layer_norm does not repeat bitwise: {label}")
+        worst = max(shares.values())
+        rounded = {m: float(f"{v:.3g}") for m, v in shares.items()}
+        print(f"[kernels] layer_norm {label} (k {k:.3g}): shares of the "
+              f"tolerance {rounded}; repeats bitwise")
+        check(worst <= 1.0, f"layer_norm beyond tolerance: {label}: "
+              f"{shares}")
+        if n:
+            max_err["layer_norm_fwd"] = max(
+                max_err["layer_norm_fwd"],
+                float((y.float() - wy.float()).abs().max()))
+            max_err["layer_norm_bwd"] = max(
+                max_err["layer_norm_bwd"],
+                float((dx.float() - wdx.float()).abs().max()),
+                float((ds - wds).abs().max()), float((db - wdb).abs().max()))
+            xl = x.detach().requires_grad_()
+            wl = s.to(dtype).requires_grad_()
+            bl = b.to(dtype).requires_grad_()
+            yl = F.layer_norm(xl, (d,), wl, bl, 1e-6)
+            gl = g.to(yl.dtype)
+            times, host = zip(*(time_cuda(torch, fn) for fn in (
+                lambda: layer_norm_forward(x, s, b, 1e-6, out),
+                lambda: layer_norm_plain(x, s, b, 1e-6, out),
+                lambda: F.layer_norm(x, (d,), wl, bl, 1e-6),
+                lambda: layer_norm_backward(x, s, wmean, wrstd, g),
+                lambda: layer_norm_bwd_plain(x, s, wmean, wrstd, g),
+                lambda: torch.autograd.grad(yl, (xl, wl, bl), gl,
+                                            retain_graph=True))))
+            nrows = x.numel() // d
+            xb, yb = x.numel() * x.element_size(), y.numel() * y.element_size()
+            for name, t, us, plain, lib, nbytes, ops in (
+                    ("layer_norm_fwd", times[0], host[0], times[1], times[2],
+                     xb + yb + 8 * d + 8 * nrows, LN_FWD_OPS * x.numel()),
+                    ("layer_norm_bwd", times[3], host[3], times[4], times[5],
+                     2 * xb + yb + 12 * d + 8 * nrows,
+                     LN_BWD_OPS * x.numel())):
+                row = tot[name]
+                row["calls"] += n
+                row["ms"] += n * t
+                row["host_ms"] += n * us / 1e3
+                row["plain_ms"] += n * plain
+                row["library_ms"] += n * lib
+                row["bytes"] += n * nbytes
+                row["ops"] += n * ops
+            print(f"[kernels] layer_norm {label} x{n}/step: fwd "
+                  f"{times[0]:.4f} ms (plain {times[1]:.4f}, F.layer_norm "
+                  f"{times[2]:.4f}), bwd {times[3]:.4f} ms (plain "
+                  f"{times[4]:.4f}, F.layer_norm backward {times[5]:.4f}) "
+                  f"({card})")
+            del xl, wl, bl, yl, gl
+        del x, xd, xhat, g, y, wy, dx, wdx, again
+    fields = {}
+    for name in ("layer_norm_fwd", "layer_norm_bwd"):
+        row = tot[name]
+        bound_ms, bound_by = bound_of(row["bytes"], row["ops"])
+        fields[name] = {
+            "replaces": "deep_vision_tpu/models/vit.py:156",
+            "max_abs_err": max_err[name], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": row["library_ms"]}
+        library = ("forward" if name == "layer_norm_fwd"
+                   else "backward")
+        print(f"[kernels] {name} over one step's {row['calls']} calls "
+              f"(replaces flax's LayerNorm, vit.py:156, :158, :225): kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), "
+              f"{100 * bound_ms / row['ms']:.1f}% of the bound; "
+              f"F.layer_norm {library} {row['library_ms']:.4f} ms; host "
+              f"{1e3 * row['host_ms'] / row['calls']:.1f} us a call ({card})")
+    print(f"[kernels] layer_norm: {len(cases)} cases within tolerance")
+    return fields
 
 
 def flash_case_list():
@@ -588,6 +921,7 @@ def vit_phase(torch, dev, card):
     """Phase 5 for the ViT: the ViT-S/16 512 bf16 batch-64 step through
     the Trainer. Returns the flash launch counts of its run."""
     from deep_vision_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from deep_vision_tpu_torch.ops.cuda.norm import layer_norm
     from deep_vision_tpu_torch.tools.profile_train import make_vit_train_parts
 
     trainer, batch = make_vit_train_parts(VIT_BATCH, VIT_IMAGE, device=dev)
@@ -597,6 +931,8 @@ def vit_phase(torch, dev, card):
     flash_attention.launches = 0  # the ViT training path's run starts here
     flash_attention.dq_launches = 0
     flash_attention.dkv_launches = 0
+    layer_norm.launches = 0
+    layer_norm.backward_launches = 0
     losses, events, lrs = [], [], []
     for i in range(steps):
         if i == WARMUP_STEPS:
@@ -613,7 +949,9 @@ def vit_phase(torch, dev, card):
     wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
     launches = {"flash_fwd": flash_attention.launches,
                 "flash_dq": flash_attention.dq_launches,
-                "flash_dkv": flash_attention.dkv_launches}
+                "flash_dkv": flash_attention.dkv_launches,
+                "layer_norm_fwd": layer_norm.launches,
+                "layer_norm_bwd": layer_norm.backward_launches}
     # ... and ends here
     step_ms = statistics.median(s.elapsed_time(e)
                                 for s, e in events[WARMUP_STEPS:])
@@ -626,11 +964,13 @@ def vit_phase(torch, dev, card):
           f"{VIT_BATCH / step_ms * 1e3:.1f} images/s, max_memory_allocated "
           f"{peak / 2**30:.2f} GiB ({card})")
     print(f"[train] ViT loss by step {[round(v, 4) for v in losses]}; lr by "
-          f"step {[float(f'{v:.3e}') for v in lrs]}; flash launches "
-          f"{launches} over {steps} steps")
+          f"step {[float(f'{v:.3e}') for v in lrs]}; flash and LayerNorm "
+          f"launches {launches} over {steps} steps")
     check(n_params == 22_367_848, f"ViT-S/16 at 512 has {n_params} params")
-    check(launches == {k: 12 * steps for k in launches},
-          f"flash launches {launches}, want 12 + 12 + 12 per step")
+    check(launches == {k: (25 if k.startswith("layer_norm") else 12) * steps
+                       for k in launches},
+          f"launches {launches}, want 12 + 12 + 12 flash and 25 + 25 "
+          f"LayerNorm per step")
     check(all(np.isfinite(losses)), "non-finite ViT loss")
     check(losses[-1] < losses[WARMUP_STEPS],
           "the ViT loss did not fall over the timed steps on a fixed batch")
@@ -673,9 +1013,12 @@ def check_vit_against_cpu(torch, dev):
     from deep_vision_tpu_torch.ops.cuda.flash_attention import flash_attention
     from deep_vision_tpu_torch.tools.profile_train import make_vit_train_parts
 
+    from deep_vision_tpu_torch.ops.cuda.norm import layer_norm
+
     runs = {}
     for where in (dev, torch.device("cpu")):
-        before = flash_attention.launches
+        before = (flash_attention.launches, layer_norm.launches,
+                  layer_norm.backward_launches)
         trainer, batch = make_vit_train_parts(
             VIT_CHECK_BATCH, VIT_IMAGE, device=where, dtype=torch.float32)
         start = {k: v.detach().cpu().clone()
@@ -685,10 +1028,14 @@ def check_vit_against_cpu(torch, dev):
                  for n, p in trainer.model.named_parameters()}
         runs[where.type] = (float(metrics["loss"]),
                             float(metrics["grad_norm"]), start, grads,
-                            flash_attention.launches - before)
+                            (flash_attention.launches - before[0],
+                             layer_norm.launches - before[1],
+                             layer_norm.backward_launches - before[2]))
         del trainer, batch
     (lk, gk, sk, dk, nk), (lp, gp, sp, dp, np_) = runs["cuda"], runs["cpu"]
-    check(nk > 0 and np_ == 0, f"flash launches card {nk}, cpu {np_}")
+    check(min(nk) > 0 and max(np_) == 0,
+          f"flash, LayerNorm and LayerNorm-backward launches card {nk}, cpu "
+          f"{np_}")
     check(all(torch.equal(sk[k], sp[k]) for k in sp),
           "the card and CPU steps did not start from the same weights")
     worst = {"loss": abs(lk - lp) / abs(lp),
@@ -712,12 +1059,15 @@ def train_phase(torch, trainer, batch, card):
     """Phase 5: the flagship step through the Trainer. Returns the
     bn_act launch counts of its run."""
     from deep_vision_tpu_torch.ops.cuda.bn_act import fused_scale_bias_act
+    from deep_vision_tpu_torch.ops.cuda.norm import batch_moments
 
     steps = WARMUP_STEPS + TIMED_STEPS
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     fused_scale_bias_act.launches = 0  # the training path's run starts here
     fused_scale_bias_act.backward_launches = 0
+    batch_moments.launches = 0
+    batch_moments.backward_launches = 0
     losses, events = [], []
     for i in range(steps):
         if i == WARMUP_STEPS:
@@ -732,7 +1082,9 @@ def train_phase(torch, trainer, batch, card):
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
     launches = {"bn_act_fwd": fused_scale_bias_act.launches,
-                "bn_act_bwd": fused_scale_bias_act.backward_launches}
+                "bn_act_bwd": fused_scale_bias_act.backward_launches,
+                "bn_moments_fwd": batch_moments.launches,
+                "bn_moments_bwd": batch_moments.backward_launches}
     # ... and ends here
     step_ms = statistics.median(s.elapsed_time(e)
                                 for s, e in events[WARMUP_STEPS:])
@@ -745,9 +1097,12 @@ def train_phase(torch, trainer, batch, card):
           f"{wall_ms:.3f} ms/step), {TRAIN_BATCH / step_ms * 1e3:.1f} "
           f"images/s, max_memory_allocated {peak / 2**30:.2f} GiB ({card})")
     print(f"[train] loss by step {[round(v, 4) for v in losses]}; bn_act "
-          f"launches {launches} over {steps} steps")
-    check(launches == {"bn_act_fwd": 48 * steps, "bn_act_bwd": 48 * steps},
-          f"bn_act launches {launches}, want 48 + 48 per step")
+          f"and moments launches {launches} over {steps} steps")
+    check(launches == {"bn_act_fwd": 48 * steps, "bn_act_bwd": 48 * steps,
+                       "bn_moments_fwd": 53 * steps,
+                       "bn_moments_bwd": 53 * steps},
+          f"launches {launches}, want 48 + 48 bn_act and 53 + 53 moments "
+          f"per step")
     check(all(np.isfinite(losses)), "non-finite loss")
     check(losses[-1] < losses[WARMUP_STEPS],
           "the loss did not fall over the timed steps on a fixed batch")
@@ -760,11 +1115,13 @@ def check_against_cpu(torch, dev):
     loss, grad norm, every parameter's update and every running
     statistic within CHECK_TOL."""
     from deep_vision_tpu_torch.ops.cuda.bn_act import fused_scale_bias_act
+    from deep_vision_tpu_torch.ops.cuda.norm import batch_moments
     from deep_vision_tpu_torch.tools.profile_train import make_train_parts
 
     runs = {}
     for where in (dev, torch.device("cpu")):
-        before_fwd = fused_scale_bias_act.launches
+        before_fwd = (fused_scale_bias_act.launches, batch_moments.launches,
+                      batch_moments.backward_launches)
         trainer, batch = make_train_parts(CHECK_BATCH, "s2d", device=where,
                                           dtype=torch.float32)
         sd = trainer.model.state_dict()
@@ -773,12 +1130,17 @@ def check_against_cpu(torch, dev):
         after = {k: v.detach().cpu() for k, v in sd.items()}
         runs[where.type] = (float(metrics["loss"]),
                             float(metrics["grad_norm"]), before, after,
-                            fused_scale_bias_act.launches - before_fwd,
+                            (fused_scale_bias_act.launches - before_fwd[0],
+                             batch_moments.launches - before_fwd[1],
+                             batch_moments.backward_launches
+                             - before_fwd[2]),
                             {n for n, _ in trainer.model.named_parameters()})
         del trainer, batch
     (lk, gk, bk, ak, nk, params), (lp, gp, bp, ap, np_, _) = (
         runs["cuda"], runs["cpu"])
-    check(nk > 0 and np_ == 0, f"kernel launches card {nk}, cpu {np_}")
+    check(min(nk) > 0 and max(np_) == 0,
+          f"bn_act, moments and moments-backward launches card {nk}, cpu "
+          f"{np_}")
     check(all(torch.equal(bk[k], bp[k]) for k in bp),
           "the card and CPU steps did not start from the same weights")
     worst = {"loss": abs(lk - lp) / abs(lp),
@@ -826,6 +1188,7 @@ def main():
         nms_plain,
         selection_plan,
     )
+    from deep_vision_tpu_torch.ops.cuda.norm import batch_moments, layer_norm
     from deep_vision_tpu_torch.serve import Engine, Server
     from deep_vision_tpu_torch.tools.profile_train import make_train_parts
 
@@ -858,19 +1221,29 @@ def main():
                   f" spill stores {use['spill_stores']} B, spill loads "
                   f"{use['spill_loads']} B")
             # the Hopper flash kernels hold their tiles' products in
-            # registers, and the float32 ones their accumulators: a spill
-            # there is a design fault, not a detail
-            check(name != "flash_attention" or use["spill_stores"]
-                  + use["spill_loads"] == 0, f"{kernel} spills")
+            # registers, the float32 ones their accumulators, and the
+            # LayerNorm kernels a row a warp: a spill there is a design
+            # fault, not a detail
+            check(name not in ("flash_attention", "norm")
+                  or use["spill_stores"] + use["spill_loads"] == 0,
+                  f"{kernel} spills")
 
     # -- 3. kernels against plain versions -----------------------------------
     check_nms(torch, dev)
 
     trainer, train_batch = make_train_parts(TRAIN_BATCH, "s2d", device=dev)
-    calls = bn_act_calls(torch, trainer.model, train_batch["image"])
+    calls, moment_calls = batchnorm_calls(torch, trainer.model,
+                                          train_batch["image"])
     check(sum(calls.values()) == 48,
           f"the flagship step should make 48 bn_act calls, got {calls}")
+    check(sum(moment_calls.values()) == 53,
+          f"the flagship step should take 53 batch moments, got "
+          f"{moment_calls}")
     bn_rows = bn_act_cases(torch, dev, calls, card)
+    torch.cuda.empty_cache()
+    norm_rows = moments_cases(torch, dev, moment_calls, card)
+    torch.cuda.empty_cache()
+    norm_rows.update(layer_norm_cases(torch, dev, card))
     torch.cuda.empty_cache()
     flash_rows = flash_cases(torch, dev, card)
 
@@ -901,6 +1274,8 @@ def main():
     fused_scale_bias_act.launches = 0
     fused_scale_bias_act.backward_launches = 0
     flash_attention.launches = 0
+    batch_moments.launches = 0
+    layer_norm.launches = 0
     t0 = time.perf_counter()
     rows = []
     for burst in BURSTS:
@@ -910,6 +1285,8 @@ def main():
     launches = greedy_nms.launches  # ... and ends here
     check(fused_scale_bias_act.launches == 0, "YOLOv3 serving ran bn_act")
     check(flash_attention.launches == 0, "YOLOv3 serving ran flash")
+    check(batch_moments.launches == layer_norm.launches == 0,
+          "YOLOv3 serving took batch moments or ran a LayerNorm")
     slo = server.slo.report()["yolov3"]
     print(f"[serve] {len(rows)} requests in {len(BURSTS)} bursts, "
           f"{slo['batches']} batches, {stream_s:.3f} s; nms launches "
@@ -1044,6 +1421,8 @@ def main():
     torch.cuda.empty_cache()
     check_vit_against_cpu(torch, dev)
     for name, n in launches.items():
+        if name not in bn_rows:
+            continue
         row = bn_rows[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -1053,10 +1432,17 @@ def main():
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None})
     for name, n in vit_launches.items():
+        if name in flash_rows:
+            kernels.append({"name": name, "route": "cuda",
+                            "source": "deep_vision_tpu_torch/csrc/"
+                                      "flash_attention.cu",
+                            "launches": n, **flash_rows[name]})
+    for name in ("bn_moments_fwd", "bn_moments_bwd", "layer_norm_fwd",
+                 "layer_norm_bwd"):
+        n = (launches if name.startswith("bn_") else vit_launches)[name]
         kernels.append({"name": name, "route": "cuda",
-                        "source": "deep_vision_tpu_torch/csrc/"
-                                  "flash_attention.cu",
-                        "launches": n, **flash_rows[name]})
+                        "source": "deep_vision_tpu_torch/csrc/norm.cu",
+                        "launches": n, **norm_rows[name]})
 
     # -- 6. report -----------------------------------------------------------
     print(card)

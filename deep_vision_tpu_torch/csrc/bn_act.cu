@@ -47,12 +47,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "column_sum.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kUnroll = 4;
-constexpr int kReduceCols = 32;
-constexpr int kReduceRows = 8;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -207,30 +207,16 @@ bwd_planes(const T* __restrict__ g, const T* __restrict__ x,
   }
 }
 
-// dscale[c], dbias[c] = column sums of the (rows, C) partial matrix. A block
-// of 32 x 8 threads owns 32 channels: thread (tx, ty) sums rows ty, ty + 8,
-// ... of channel tx in order, then thread (tx, 0) adds the 8 in order.
-__global__ void __launch_bounds__(kReduceCols * kReduceRows)
+// dscale[c], dbias[c] = column sums of the (rows, C) partial matrix, in
+// column_sum's fixed order.
+__global__ void __launch_bounds__(kColumnSumCols * kColumnSumGroups)
 reduce_partials(const float2* __restrict__ partial, int64_t rows, int c,
                 float* __restrict__ dscale, float* __restrict__ dbias) {
-  __shared__ float2 sums[kReduceRows][kReduceCols];
-  const int ch = blockIdx.x * kReduceCols + threadIdx.x;
-  float2 s = make_float2(0.0f, 0.0f);
-  if (ch < c) {
-    for (int64_t j = threadIdx.y; j < rows; j += kReduceRows) {
-      const float2 v = partial[j * c + ch];
-      s.x += v.x;
-      s.y += v.y;
-    }
-  }
-  sums[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.y == 0 && ch < c) {
-    float2 t = sums[0][threadIdx.x];
-    for (int k = 1; k < kReduceRows; ++k) {
-      t.x += sums[k][threadIdx.x].x;
-      t.y += sums[k][threadIdx.x].y;
-    }
+  int ch;
+  float2 t;
+  if (column_sum(rows, c,
+                 [=](int64_t j, int k) { return partial[j * c + k]; }, ch,
+                 t)) {
     dscale[ch] = t.x;
     dbias[ch] = t.y;
   }
@@ -367,9 +353,9 @@ extern "C" int dvt_bn_act_bwd(const void* g, const void* x, const void* y,
                         c, hw, planes_layout, blocks, stride, s);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 block(kReduceCols, kReduceRows);
-  const unsigned grid = static_cast<unsigned>((c + kReduceCols - 1) /
-                                              kReduceCols);
+  const dim3 block(kColumnSumCols, kColumnSumGroups);
+  const unsigned grid = static_cast<unsigned>((c + kColumnSumCols - 1) /
+                                              kColumnSumCols);
   reduce_partials<<<grid, block, 0, s>>>(part, partial_rows, c,
                                          static_cast<float*>(dscale),
                                          static_cast<float*>(dbias));

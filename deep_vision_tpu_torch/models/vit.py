@@ -107,8 +107,10 @@ class ViTBlock(nn.Module):
         self.Mlp_0 = Mlp(dim, dim * mlp_ratio, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.Attention_0(self.LayerNorm_0(x).to(x.dtype))
-        return x + self.Mlp_0(self.LayerNorm_1(x).to(x.dtype))
+        # `LayerNorm(dtype=f32)(x).astype(x.dtype)` in the reference: the
+        # f32 result rounded once to x's dtype, by the kernel itself
+        x = x + self.Attention_0(self.LayerNorm_0(x, out_dtype=x.dtype))
+        return x + self.Mlp_0(self.LayerNorm_1(x, out_dtype=x.dtype))
 
 
 class ViT(nn.Module):

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from deep_vision_tpu_torch.ops.cuda.bn_act import fused_scale_bias_act
+from deep_vision_tpu_torch.ops.cuda.norm import batch_moments, layer_norm
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
 #: profiler range around a training BatchNorm's batch statistics
@@ -118,13 +119,12 @@ class BatchNorm(nn.Module):
 
     def _batch_stats(self, x: torch.Tensor):
         """f32 E[x] and max(E[x^2] - E[x]^2, 0) over all axes but C; the
-        running statistics move 10% of the way to them."""
-        dims = (0,) + tuple(range(2, x.dim()))
+        running statistics move 10% of the way to them. E[x] and E[x^2]
+        come from one pass over x (ops/cuda/norm.py `batch_moments`);
+        the rest is (C,)-sized."""
         with torch.profiler.record_function(BN_STATS_RANGE):
-            xf = x.float()
-            mean = xf.mean(dims)
-            var = torch.clamp_min(
-                torch.square(xf).mean(dims) - torch.square(mean), 0.0)
+            mean, mean2 = batch_moments(x)
+            var = torch.clamp_min(mean2 - torch.square(mean), 0.0)
             with torch.no_grad():
                 m = self.MOMENTUM
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -198,8 +198,11 @@ class LayerNorm(nn.Module):
     1e-6 (torch's default is 1e-5); statistics in at least float32 with
     the fast variance `max(E[x^2] - E[x]^2, 0)`; `(x - mean) * (rsqrt(var
     + eps) * scale) + bias` in float32, returned in `dtype` (default: the
-    promotion of x's dtype and float32). `scale` and `bias` keep the flax
-    names. `LAYERNORM_RANGE` marks its work for the profiler."""
+    promotion of x's dtype and float32), or in the call's `out_dtype`,
+    which rounds the float32 result once, as a cast of the `dtype` output
+    would. One pass over x, forward and backward (ops/cuda/norm.py
+    `layer_norm`). `scale` and `bias` keep the flax names.
+    `LAYERNORM_RANGE` marks its work for the profiler."""
 
     def __init__(self, features: int, epsilon: float = 1e-6,
                  dtype: Optional[torch.dtype] = None):
@@ -214,17 +217,12 @@ class LayerNorm(nn.Module):
             self.scale.fill_(1.0)
             self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        dt = out_dtype or self.dtype or torch.promote_types(x.dtype,
+                                                            torch.float32)
         with torch.profiler.record_function(LAYERNORM_RANGE):
-            xf = x.float()
-            mean = xf.mean(-1, keepdim=True)
-            var = torch.clamp_min(
-                torch.square(xf).mean(-1, keepdim=True) - torch.square(mean),
-                0.0)
-            y = (xf - mean) * (torch.rsqrt(var + self.epsilon) * self.scale)
-            y = y + self.bias
-            return y.to(self.dtype or torch.promote_types(x.dtype,
-                                                          torch.float32))
+            return layer_norm(x, self.scale, self.bias, self.epsilon, dt)
 
 
 class DenseGeneral(nn.Module):

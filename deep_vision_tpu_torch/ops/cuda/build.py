@@ -4,17 +4,18 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
 `nvcc` into its own shared library, which is loaded with `ctypes`. Its
 source never includes PyTorch's headers, so a build takes seconds, not
 minutes. Libraries go to `deep_vision_tpu_torch/build/` (git-ignored)
-under a name that carries a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused. `build()` starts
+under a name that carries a hash of the source, of the headers beside it
+(`csrc/*.cuh`, which any source may include) and of the flags, so an
+edited source or header is rebuilt and an unchanged one is reused. `build()` starts
 one `nvcc` per source, all at once, and waits for them together.
 
 Flags (`flags(name)`): `sm_90a` (Hopper), `-O3` and `-Xptxas -v`,
 whose report of registers, shared memory and spills is kept beside the
 library (`ptxas_report`, `ptxas_usage`), for every source; then each
-source's own (`SOURCE_FLAGS`): `--fmad=false` for NMS and bn_act, whose
-kernels must round like their plain versions bit for bit (no fast math
-either). Flash attention is held to tolerances, not bits, so its
-multiply-adds contract into FMAs.
+source's own (`SOURCE_FLAGS`): `--fmad=false` for NMS, bn_act and norm,
+whose kernels must round like their plain versions bit for bit, or in an
+order a CPU model repeats (no fast math either). Flash attention is held
+to tolerances, not bits, so its multiply-adds contract into FMAs.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ NVCC_FLAGS = (
 SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {
     "nms": ("--fmad=false",),
     "bn_act": ("--fmad=false",),
+    "norm": ("--fmad=false",),
     "flash_attention": (),
 }
 _DEFAULT_CUDA_HOME = "/usr/local/cuda"
@@ -72,6 +74,10 @@ def sources() -> Dict[str, Path]:
     return {p.stem: p for p in sorted(CSRC_DIR.glob("*.cu"))}
 
 
+def headers() -> Tuple[Path, ...]:
+    return tuple(sorted(CSRC_DIR.glob("*.cuh")))
+
+
 def flags(name: str) -> Tuple[str, ...]:
     """nvcc's flags for `csrc/<name>.cu`; a source without an entry in
     SOURCE_FLAGS raises, so none is built without a decision on FMA."""
@@ -82,11 +88,13 @@ def flags(name: str) -> Tuple[str, ...]:
 
 
 def library_path(name: str) -> Path:
-    """The library's path: its name carries a hash of the source and of
-    its flags, so a change to either builds anew."""
-    src = sources()[name]
+    """The library's path: its name carries a hash of the source, of
+    every header in csrc/ and of its flags, so a change to any builds
+    anew."""
+    text = sources()[name].read_bytes()
+    text += b"".join(h.read_bytes() for h in headers())
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(flags(name)).encode()).hexdigest()[:16]
+        text + " ".join(flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

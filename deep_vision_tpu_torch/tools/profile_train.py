@@ -23,16 +23,22 @@ steps without the profiler, each ending in a synchronise, then profiles
 5 more with torch.profiler and prints, per step: the wall time, the
 device-busy time (the sum of kernel times, which do not overlap on one
 stream), the busy share of the unprofiled wall time, kernel time by
-group and the top kernels.
+group, each group's largest kernels, and the top kernels; and on the
+host, the time to issue a step onto an idle card (unprofiled) and, from
+the profiled steps' CPU trace, the time spent in each ranged group's
+ranges (forward) and in the autograd nodes of the ops run in them
+(backward), with their calls.
 ResNet-50 groups: `conv` (convolution and matmul kernels, forward and
 backward), `bn_act_fwd` and `bn_act_bwd` (csrc/bn_act.cu), `bn_stats`
-(every kernel launched inside a BatchNorm's batch-statistics range, and
-the backward of those operations, matched by autograd sequence number),
-`optimizer` (the update) and `other`.
+(csrc/norm.cu's moments kernels by name, and every other kernel launched
+inside a BatchNorm's batch-statistics range or in the backward of those
+operations, matched by autograd sequence number), `optimizer` (the
+update) and `other`.
 ViT groups: `flash_fwd`, `flash_dq`, `flash_dkv`
 (csrc/flash_attention.cu), `matmul` (cuBLAS products and the patch
-convolution, forward and backward), `layernorm` (kernels inside a
-LayerNorm's range and their backward), `optimizer` and `other`.
+convolution, forward and backward), `layernorm` (csrc/norm.cu's
+LayerNorm kernels by name, and other kernels inside a LayerNorm's range
+and their backward), `optimizer` and `other`.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ from typing import Dict, Iterable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 from deep_vision_tpu_torch.core.backend import DeviceLike, resolve_device
 from deep_vision_tpu_torch.losses import classification_loss_fn
@@ -66,6 +73,10 @@ BN_ACT_KERNELS = {"bn_act_fwd": ("fwd_rows", "fwd_planes"),
                   "bn_act_bwd": ("bwd_rows", "bwd_planes", "reduce_partials")}
 FLASH_KERNELS = {"flash_fwd": ("flash_fwd",), "flash_dq": ("flash_dq",),
                  "flash_dkv": ("flash_dkv",)}
+#: csrc/norm.cu, under the groups the eager statistics had
+BN_STATS_KERNELS = {"bn_stats": ("bn_moments_fwd", "bn_moments_combine",
+                                 "bn_moments_bwd")}
+LAYERNORM_KERNELS = {"layernorm": ("layer_norm_fwd", "layer_norm_bwd")}
 GROUPS = ("conv", "bn_act_fwd", "bn_act_bwd", "bn_stats", "optimizer",
           "other")
 VIT_GROUPS = ("flash_fwd", "flash_dq", "flash_dkv", "matmul", "layernorm",
@@ -85,10 +96,10 @@ class Grouping(NamedTuple):
     groups: Tuple[str, ...]
 
 
-RESNET_GROUPING = Grouping(BN_ACT_KERNELS, {BN_STATS_RANGE: "bn_stats"},
-                           "conv", GROUPS)
-VIT_GROUPING = Grouping(FLASH_KERNELS, {LAYERNORM_RANGE: "layernorm"},
-                        "matmul", VIT_GROUPS)
+RESNET_GROUPING = Grouping({**BN_ACT_KERNELS, **BN_STATS_KERNELS},
+                           {BN_STATS_RANGE: "bn_stats"}, "conv", GROUPS)
+VIT_GROUPING = Grouping({**FLASH_KERNELS, **LAYERNORM_KERNELS},
+                        {LAYERNORM_RANGE: "layernorm"}, "matmul", VIT_GROUPS)
 STEPS = 5
 
 
@@ -167,20 +178,61 @@ def _range_of(evt, ranged) -> Optional[str]:
     return None
 
 
-def kernel_groups(events: Iterable,
-                  grouping: Grouping = RESNET_GROUPING) -> Dict[str, float]:
-    """Device microseconds by group over the profiler's `events()`."""
-    events = list(events)
-    seq = {}  # autograd sequence number -> group of a ranged forward op
+def _ranged_sequence(events, grouping: Grouping) -> Dict[int, str]:
+    """autograd sequence number -> group, for the ops run inside a range"""
+    seq = {}
     for e in events:
         if e.sequence_nr >= 0:
             g = _range_of(e, grouping.ranged)
             if g is not None:
                 seq[e.sequence_nr] = g
-    out = {g: 0.0 for g in grouping.groups}
+    return seq
+
+
+def kernels_by_group(events: Iterable, grouping: Grouping = RESNET_GROUPING
+                     ) -> Dict[str, Dict[str, float]]:
+    """Device microseconds by group and kernel name over the profiler's
+    `events()`."""
+    events = list(events)
+    seq = _ranged_sequence(events, grouping)
+    out: Dict[str, Dict[str, float]] = {g: {} for g in grouping.groups}
     for e in events:
         for k in e.kernels:
-            out[_group(k.name, e, seq, grouping)] += k.duration
+            names = out[_group(k.name, e, seq, grouping)]
+            names[k.name] = names.get(k.name, 0.0) + k.duration
+    return out
+
+
+def kernel_groups(events: Iterable,
+                  grouping: Grouping = RESNET_GROUPING) -> Dict[str, float]:
+    """Device microseconds by group over the profiler's `events()`."""
+    return {g: sum(names.values())
+            for g, names in kernels_by_group(events, grouping).items()}
+
+
+def host_by_range(events: Iterable, grouping: Grouping = RESNET_GROUPING
+                  ) -> Dict[str, Dict[str, Tuple[float, int]]]:
+    """Host microseconds and calls of each ranged group over the
+    profiler's `events()`: {"forward": the ranges themselves, "backward":
+    the autograd nodes of the ops run in them}. A range's device-side
+    annotation, which the profiler records under the same name, is not a
+    call."""
+    events = list(events)
+    seq = _ranged_sequence(events, grouping)
+    out = {g: {"forward": (0.0, 0), "backward": (0.0, 0)}
+           for g in set(grouping.ranged.values())}
+    for e in events:
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name in grouping.ranged:
+            g, side = grouping.ranged[e.name], "forward"
+        elif (e.name.startswith("autograd::engine::evaluate_function")
+              and e.sequence_nr in seq):
+            g, side = seq[e.sequence_nr], "backward"
+        else:
+            continue
+        us, calls = out[g][side]
+        out[g][side] = (us + e.cpu_time_total, calls + 1)
     return out
 
 
@@ -230,6 +282,13 @@ def main() -> None:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall_ms = statistics.median(walls)
+    enqueue = []  # host time to issue a step onto an idle card
+    for _ in range(STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -238,14 +297,24 @@ def main() -> None:
             trainer.train_step(batch)
         torch.cuda.synchronize()
     events = prof.events()
-    by_group = {g: us / 1e3 / STEPS
-                for g, us in kernel_groups(events, grouping).items()}
+    named = kernels_by_group(events, grouping)
+    by_group = {g: sum(names.values()) / 1e3 / STEPS
+                for g, names in named.items()}
     busy_ms = sum(by_group.values())
     print(f"[profile] {label}: wall "
           f"{wall_ms:.3f} ms/step ({n / wall_ms * 1e3:.1f} "
           f"images/s), device busy {busy_ms:.3f} ms/step "
           f"({100 * busy_ms / wall_ms:.1f}%), by group "
           f"{ {g: round(v, 3) for g, v in by_group.items()} } ({card})")
+    host = host_by_range(events, grouping)
+    print(f"[profile] host: a step issued in "
+          f"{statistics.median(enqueue):.3f} ms (median of {STEPS}, no "
+          f"profiler, from an idle card); in the profiled steps, "
+          + "; ".join(
+              f"{g} {side} {us / 1e3 / STEPS:.3f} ms over {calls // STEPS} "
+              f"calls ({us / max(calls, 1):.1f} us a call)"
+              for g, sides in sorted(host.items())
+              for side, (us, calls) in sides.items()))
     totals: Dict[str, list] = {}
     for e in events:
         for k in e.kernels:
@@ -257,6 +326,10 @@ def main() -> None:
     print(f"[profile] cross-check: kernels named as convolutions or "
           f"matmuls, wherever launched: {conv_by_name / 1e3 / STEPS:.3f} "
           f"ms/step")
+    for g, names in named.items():
+        top = sorted(names.items(), key=lambda kv: -kv[1])[:4]
+        print(f"[profile] {g}: " + "; ".join(
+            f"{us / 1e3 / STEPS:.3f} ms {name[:100]}" for name, us in top))
     for name, (us, calls) in sorted(totals.items(),
                                     key=lambda kv: -kv[1][0])[:15]:
         print(f"[profile]   {us / 1e3 / STEPS:8.3f} ms  "

@@ -1,6 +1,7 @@
 """The CUDA build's per-source flags, on the CPU (no nvcc needed).
 
-NMS and bn_act must round like their plain versions bit for bit, so
+NMS and bn_act must round like their plain versions bit for bit, and
+norm like its plain versions or its CPU model of a summation order, so
 their sources are compiled with `--fmad=false`; flash attention is held
 to tolerances and lets nvcc contract multiply-adds into FMAs. A
 library's name carries a hash of its source and of its own flags, so a
@@ -27,6 +28,7 @@ ptxas info    : Used 168 registers, used 1 barriers, 1080 bytes smem
 
 
 @pytest.mark.parametrize("name,fmad", [("nms", False), ("bn_act", False),
+                                       ("norm", False),
                                        ("flash_attention", True)])
 def test_each_source_has_its_own_flags(name, fmad):
     flags = build.flags(name)
@@ -51,7 +53,20 @@ def test_the_library_hash_covers_each_sources_flags(monkeypatch):
     assert after["flash_attention"] != before["flash_attention"]
     assert after["nms"] == before["nms"]
     assert after["bn_act"] == before["bn_act"]
+    assert after["norm"] == before["norm"]
     assert after["flash_attention"].name.startswith("flash_attention-")
+
+
+def test_the_library_hash_covers_the_shared_headers(monkeypatch, tmp_path):
+    for p in build.CSRC_DIR.iterdir():
+        (tmp_path / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(build, "CSRC_DIR", tmp_path)
+    assert [h.name for h in build.headers()] == ["column_sum.cuh"]
+    before = {n: build.library_path(n) for n in build.sources()}
+    header = tmp_path / "column_sum.cuh"
+    header.write_bytes(header.read_bytes() + b"// edited\n")
+    after = {n: build.library_path(n) for n in build.sources()}
+    assert all(after[n] != before[n] for n in before)
 
 
 def test_build_passes_each_source_its_flags(monkeypatch, tmp_path):

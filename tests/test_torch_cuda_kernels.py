@@ -22,6 +22,17 @@ magnitude); bfloat16 out within 2e-2, bfloat16 dq/dk/dv within
 2e-2 of the tensor's largest magnitude (the kernels round P and dS to
 bf16 for their second products, where the plain versions keep float32).
 lse is float32 in both and held to the float32 tolerance.
+
+The norm kernels (csrc/norm.cu): the moments backward equals its plain
+version bit for bit; the moments forward equals ops/cuda/norm.py's
+`moments_order_model` (the CPU model of its summation order) bit for bit,
+and the plain version within 1e-5 of the sum of |terms| per channel
+(another order); LayerNorm within rtol and atol u + 2e-6 k (atol relative
+to the compared tensor's largest magnitude; u is one bf16 ulp, 2^-7, for
+a bf16 result, else 0; k the worst row's E[x^2] / (var + eps), the
+cancellation the fast variance suffers), and its dscale and dbias, sums
+over every row, within 1e-5 k of the sum of |terms|. Every norm kernel
+repeats bit for bit.
 """
 import pytest
 import torch
@@ -43,8 +54,21 @@ from deep_vision_tpu_torch.ops.cuda.flash_attention import (
     flash_forward,
     flash_fwd_plain,
 )
-from deep_vision_tpu_torch.ops.cuda import nms
+from deep_vision_tpu_torch.ops.cuda import nms, norm
 from deep_vision_tpu_torch.ops.cuda.nms import greedy_nms, nms_plain
+from deep_vision_tpu_torch.ops.cuda.norm import (
+    batch_moments,
+    bn_moments_backward,
+    bn_moments_bwd_coefficients,
+    bn_moments_bwd_plain,
+    bn_moments_forward,
+    bn_moments_plain,
+    layer_norm,
+    layer_norm_backward,
+    layer_norm_bwd_plain,
+    layer_norm_forward,
+    layer_norm_plain,
+)
 from deep_vision_tpu_torch.tools.nms_cases import (
     detections,
     edge_cases,
@@ -352,3 +376,184 @@ def test_flash_refuses_what_the_kernels_do_not_take(cuda_device):
         flash_forward(q, k, k)
     with pytest.raises(ValueError, match="on"):
         flash_forward(k, k.cpu(), k)
+
+
+# -- norm --------------------------------------------------------------------
+
+def norm_input(dev, shape, dtype, case, seed, channels_last=True):
+    """normal draws; "offset": mean 30, std 1; "constant": every other
+    channel (moments) or row (LayerNorm) 0.75."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=dev)
+    if case == "offset":
+        x += 30.0
+    elif case == "constant" and len(shape) == 4 and channels_last:
+        x[:, ::2] = 0.75
+    elif case == "constant":
+        x[..., ::2, :] = 0.75
+    x = x.to(dtype)
+    if len(shape) == 4 and channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    return x
+
+
+def kappa(x):
+    """The worst row's E[x^2] / (var + eps) over the last axis."""
+    xd = x.double()
+    return float((xd.square().mean(-1) / (xd.var(-1, unbiased=False)
+                                          + 1e-6)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (16, 64, 56, 56), (32, 2048, 7, 7), (8, 256, 14, 14), (4, 12, 5, 5),
+    (1, 64, 1, 1), (33, 100), (1, 2048), (3, 3, 17, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["normal", "offset", "constant"])
+def test_bn_moments_kernels_match_plain(cuda_device, shape, dtype, case):
+    x = norm_input(cuda_device, shape, dtype, case, seed=shape[1])
+    c = shape[1]
+    rows = x.numel() // c
+    before = (batch_moments.launches, batch_moments.backward_launches)
+    got = bn_moments_forward(x)
+    want = bn_moments_plain(x)
+    again = bn_moments_forward(x)
+    xr = x.permute(0, 2, 3, 1).reshape(rows, c) if x.dim() == 4 else x
+    plan = norm.moments_plan(rows, c, torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count, x.element_size())
+    model = norm.moments_order_model(xr.float().cpu().numpy(), plan)
+    xd = xr.double()
+    for k, terms in ((0, xd.abs()), (1, xd.square())):
+        assert torch.equal(got[k], again[k])
+        bound = 1e-5 * terms.mean(0).float()
+        assert bool(((got[k] - want[k]).abs() <= bound).all())
+        from_model = torch.from_numpy(model[k]) / torch.tensor(
+            float(rows), dtype=torch.float32)
+        assert torch.equal(got[k].cpu(), from_model)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    u, w = (torch.randn(c, generator=gen, device=cuda_device)
+            for _ in range(2))
+    dx = bn_moments_backward(x, u, w)
+    alpha, beta = bn_moments_bwd_coefficients(rows, u, w)
+    assert dx.stride() == x.stride() and dx.dtype == x.dtype
+    assert torch.equal(dx, bn_moments_bwd_plain(x, alpha, beta))
+    assert torch.equal(dx, bn_moments_backward(x, u, w))
+    torch.cuda.synchronize()
+    assert (batch_moments.launches, batch_moments.backward_launches) == (
+        before[0] + 2, before[1] + 2)
+
+
+def assert_ln_close(got, want, name, bf16, k):
+    tol = (2.0 ** -7 if bf16 else 0.0) + 2e-6 * k
+    want = want.float()
+    torch.testing.assert_close(got.float(), want, rtol=tol,
+                               atol=tol * float(want.abs().max()),
+                               msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 1024, 384), (7, 384), (1, 384),
+                                   (5, 3, 100), (4, 3), (2, 16, 1024),
+                                   (3, 5, 776)])
+@pytest.mark.parametrize("dtype,out", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("case", ["normal", "offset", "constant"])
+def test_layer_norm_kernels_match_plain(cuda_device, shape, dtype, out,
+                                        case):
+    d = shape[-1]
+    x = norm_input(cuda_device, shape, dtype, case, seed=d)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    s = torch.rand(d, generator=gen, device=cuda_device) + 0.5
+    b = torch.randn(d, generator=gen, device=cuda_device)
+    g = torch.randn(shape, generator=gen, device=cuda_device).to(out)
+    k = kappa(x)
+    before = (layer_norm.launches, layer_norm.backward_launches)
+    y, mean, rstd = layer_norm_forward(x, s, b, 1e-6, out)
+    wy, wmean, wrstd = layer_norm_plain(x, s, b, 1e-6, out)
+    assert y.dtype == out
+    assert_ln_close(y, wy, "y", out == torch.bfloat16, k)
+    assert_ln_close(mean, wmean, "mean", False, k)
+    assert_ln_close(rstd, wrstd, "rstd", False, k)
+    dx, ds, db = layer_norm_backward(x, s, wmean, wrstd, g)
+    wdx, wds, wdb = layer_norm_bwd_plain(x, s, wmean, wrstd, g)
+    assert dx.dtype == dtype
+    assert_ln_close(dx, wdx, "dx", dtype == torch.bfloat16, k)
+    xhat = (x.double() - wmean.double()[..., None]) * wrstd.double()[..., None]
+    rows = tuple(range(x.dim() - 1))
+    for got, want, terms, name in (
+            (ds, wds, (g.double() * xhat).abs().sum(rows), "dscale"),
+            (db, wdb, g.double().abs().sum(rows), "dbias")):
+        bound = 1e-5 * k * terms
+        assert bool(((got - want).abs().double() <= bound).all()), name
+    again = (layer_norm_forward(x, s, b, 1e-6, out),
+             layer_norm_backward(x, s, wmean, wrstd, g))
+    for a, w in zip((y, mean, rstd, dx, ds, db), (*again[0], *again[1])):
+        assert torch.equal(a, w)
+    torch.cuda.synchronize()
+    assert (layer_norm.launches, layer_norm.backward_launches) == (
+        before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.cuda
+def test_norm_autograd_launches_the_kernels(cuda_device, monkeypatch):
+    for name in ("bn_moments_plain", "bn_moments_bwd_plain",
+                 "layer_norm_plain", "layer_norm_bwd_plain"):
+        monkeypatch.setattr(norm, name, lambda *a, _n=name: pytest.fail(
+            f"a CUDA tensor reached {_n}"))
+    x = norm_input(cuda_device, (4, 64, 6, 6), torch.bfloat16, "normal",
+                   seed=3).requires_grad_()
+    t = norm_input(cuda_device, (2, 16, 384), torch.bfloat16, "normal",
+                   seed=4).requires_grad_()
+    s = torch.ones(384, device=cuda_device, requires_grad=True)
+    b = torch.zeros(384, device=cuda_device, requires_grad=True)
+    counts = (batch_moments.launches, batch_moments.backward_launches,
+              layer_norm.launches, layer_norm.backward_launches)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        e1, e2 = batch_moments(x)
+        (e1.sum() + e2.sum()).backward()
+        layer_norm(t, s, b, 1e-6, torch.bfloat16).float().sum().backward()
+        torch.cuda.synchronize()
+    assert (batch_moments.launches, batch_moments.backward_launches,
+            layer_norm.launches, layer_norm.backward_launches) == tuple(
+        n + 1 for n in counts)
+    names = " ".join(e.name for e in prof.events())
+    for kernel in ("bn_moments_fwd", "bn_moments_combine", "bn_moments_bwd",
+                   "layer_norm_fwd", "layer_norm_bwd",
+                   "layer_norm_bwd_combine"):
+        assert kernel in names, kernel
+    ones = torch.ones(64, device=cuda_device).view(1, -1, 1, 1)
+    n = x.numel() // 64
+    want = (ones / n + 2 * ones / n * x.detach().float()).to(x.dtype)
+    assert torch.equal(x.grad, want)
+    assert x.grad.stride() == x.stride()
+    assert torch.equal(b.grad, torch.full_like(b, 32.0))
+
+
+@pytest.mark.cuda
+def test_norm_kernels_refuse_what_they_do_not_take(cuda_device):
+    x = torch.zeros(2, 8, 3, 5, device=cuda_device)
+    with pytest.raises(ValueError, match="channels_last"):
+        bn_moments_forward(x)  # contiguous NCHW
+    with pytest.raises(ValueError, match="channels_last"):
+        bn_moments_backward(x, torch.zeros(8, device=cuda_device),
+                            torch.zeros(8, device=cuda_device))
+    flat = torch.zeros(1 + 6 * 8, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        bn_moments_forward(flat[1:].view(6, 8))
+    s = torch.ones(8, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        layer_norm_forward(flat[1:].view(6, 8), s, s, 1e-6, torch.float32)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        layer_norm_forward(torch.zeros(8, 6, device=cuda_device).t(), s, s,
+                           1e-6, torch.float32)
+    with pytest.raises(ValueError, match="scale on"):
+        layer_norm_forward(torch.zeros(6, 8, device=cuda_device), s.cpu(), s,
+                           1e-6, torch.float32)
+    with pytest.raises(ValueError, match="1024 elements"):
+        layer_norm_forward(torch.zeros(2, 1032, device=cuda_device),
+                           torch.ones(1032, device=cuda_device),
+                           torch.ones(1032, device=cuda_device), 1e-6,
+                           torch.float32)

@@ -114,6 +114,7 @@ def test_builder_raises_clearly_without_nvcc(monkeypatch, tmp_path):
 def test_every_kernel_source_is_known_to_the_builder():
     from deep_vision_tpu_torch.ops.cuda import build
 
-    assert sorted(build.sources()) == ["bn_act", "flash_attention", "nms"]
+    assert sorted(build.sources()) == ["bn_act", "flash_attention", "nms",
+                                       "norm"]
     with pytest.raises(KeyError):
         build.build(["no_such_kernel"])
