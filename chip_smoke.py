@@ -51,6 +51,26 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            launches no flash kernel (the dense route); and one float32
            batch-2 ViT step on the card against the CPU: loss, grad norm
            and every parameter's gradient within VIT_CHECK_TOL;
+5b. feed   the flagship step fed from records (after the ResNet steps of
+           phase 5): FEED_IMAGES seeded 256x256 images written as raw
+           pixels in FEED_SHARDS shards by the port's RecordWriter (and
+           as JPEG records in the ImageNet schema where cv2 or PIL
+           imports, whose chain adds the Rescale), read through a
+           RecordDataset, the reference's ImageNet train chain and a
+           DataLoader of batch 128; the host chain's images/s with 8 and
+           16 thread workers and 4 and 8 worker processes; then
+           Trainer(device_prefetch=2).fit over the loader: a checked
+           epoch (48 + 48 bn_act and 53 + 53 moments launches a step, a
+           finite loss, a step for every batch, and each batch as the
+           step consumed it on the card bitwise equal to the host batch
+           the loader yielded, by checksums, while the copy stream is
+           held back before each copy longer than a batch waits in the
+           prefetch queue, and the compute stream kept busy before each
+           read), then a timed epoch in each worker mode:
+           ms/step against phase 5's fixed batch, the host's time in
+           train_step, the feed's starvation counters, host ms a
+           _place_one, pinned-block reuse; and the copy stream's time
+           for one (128, 112, 112, 12) float32 batch;
 6. report  the card line, the kernels line, and the final status line.
 """
 import json
@@ -58,6 +78,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -147,6 +168,19 @@ CHECK_BATCH = 8
 #: max-pool pair within an ulp of a tie can fall the other way, sending
 #: one element's gradient elsewhere (tests/test_torch_train.py)
 CHECK_TOL = {"loss": 1e-4, "grad_norm": 1e-3, "update": 2e-2, "stats": 1e-3}
+#: phase 5b: one epoch of the fed step, 16 batches of 128
+FEED_IMAGES, FEED_SHARDS, FEED_SIZE = 2048, 8, 256
+FEED_DEPTH = 2
+#: the feed's worker modes, measured alone and in the fed step
+HOST_CHAIN_MODES = ({"num_workers": 8, "num_procs": 0},
+                    {"num_workers": 16, "num_procs": 0},
+                    {"num_procs": 4}, {"num_procs": 8})
+#: the checked epoch's spins at the H100's clocks: ~1 s on the copy
+#: stream before each copy, longer than a batch waits in the prefetch
+#: queue (two steps of ~250 ms), so a step that did not wait for its copy
+#: would read the batch before it lands; ~10 ms on the compute stream
+#: before each read
+COPY_HOLD_CYCLES, READ_HOLD_CYCLES = 2_000_000_000, 20_000_000
 
 
 def fail(msg):
@@ -1106,7 +1140,288 @@ def train_phase(torch, trainer, batch, card):
     check(all(np.isfinite(losses)), "non-finite loss")
     check(losses[-1] < losses[WARMUP_STEPS],
           "the loss did not fall over the timed steps on a fixed batch")
-    return launches
+    return launches, step_ms, wall_ms
+
+
+def checksum_weights(n):
+    """Position weights of the placement checksums: 1..65521, cycling."""
+    return np.arange(n, dtype=np.int64) % 65521 + 1
+
+
+def host_checksum(a, weights):
+    """(sum, weighted sum) of a host array's 32-bit words, as int64 with
+    wrap-around: the same for any summation order."""
+    w = a.reshape(-1).view(np.int32).astype(np.int64)
+    return int(w.sum()), int((w * weights[:w.size]).sum())
+
+
+def device_checksum(torch, t, weights):
+    """host_checksum of a card tensor, on the current stream (no sync)."""
+    w = t.reshape(-1).view(torch.int32).to(torch.int64)
+    return torch.stack([w.sum(), (w * weights[:w.numel()]).sum()])
+
+
+def feed_variants():
+    """(variants to run, why): raw always; jpeg where cv2 or PIL imports
+    (the card may have neither)."""
+    have, missing = [], []
+    for name in ("cv2", "PIL"):
+        try:
+            have.append(f"{name} {__import__(name).__version__}")
+        except ImportError as e:
+            missing.append(f"{name}: {e}")
+    if have:
+        return ("raw", "jpeg"), (f"raw always; jpeg because "
+                                 f"{' and '.join(have)} imports")
+    return ("raw",), f"raw always; no jpeg ({'; '.join(missing)})"
+
+
+def host_chain(pattern, encoding, card):
+    """The host chain alone, records -> transforms -> collate, one epoch
+    in each of HOST_CHAIN_MODES: images/s after the first batch."""
+    from deep_vision_tpu_torch.tools.profile_train import make_record_loader
+
+    for mode in HOST_CHAIN_MODES:
+        loader = make_record_loader(pattern, encoding=encoding, **mode)
+        t0 = time.perf_counter()
+        first, n = None, 0
+        for b in loader:
+            n += len(b["image"])
+            if first is None:
+                first, n_first = time.perf_counter(), n
+        t1 = time.perf_counter()
+        check(n == FEED_IMAGES, f"the host chain gave {n} images")
+        print(f"[feed] host chain ({encoding}), {mode_name(mode)}: "
+              f"{(n - n_first) / (t1 - first):.1f} images/s after the first "
+              f"batch ({(t1 - t0):.3f} s for {n} images, first batch "
+              f"{(first - t0) * 1e3:.1f} ms) ({card})")
+
+
+def fed_epochs(torch, dev, pattern, encoding, step_ms, card):
+    """Trainer(device_prefetch=FEED_DEPTH).fit over the record loader: a
+    checked epoch with FEED_WORKERS, then a timed epoch in each worker
+    mode."""
+    from deep_vision_tpu_torch.obs.registry import get_registry
+    from deep_vision_tpu_torch.ops.cuda.bn_act import fused_scale_bias_act
+    from deep_vision_tpu_torch.ops.cuda.norm import batch_moments
+    from deep_vision_tpu_torch.tools.profile_train import (
+        FEED_WORKERS,
+        make_record_loader,
+        make_train_parts,
+    )
+
+    trainer, _ = make_train_parts(TRAIN_BATCH, "s2d", device=dev,
+                                  device_prefetch=FEED_DEPTH)
+    loader = make_record_loader(pattern, encoding=encoding)
+    steps = FEED_IMAGES // TRAIN_BATCH
+    reg = get_registry()
+    counters = {
+        "device_prefetch_starved_total": reg.counter(
+            "device_prefetch_starved_total", labels={"loader": "train"}),
+        "data_prefetch_starved_total": reg.counter(
+            "data_prefetch_starved_total", labels={"loader": "default"}),
+        "data_batches_total": reg.counter(
+            "data_batches_total", labels={"loader": "default"})}
+    place = reg.histogram("device_prefetch_place_ms",
+                          labels={"loader": "train"})
+    print(f"[feed] checked epoch ({encoding}) with {FEED_WORKERS}")
+    weights = torch.from_numpy(checksum_weights(
+        TRAIN_BATCH * 112 * 112 * 12)).to(dev)
+    host_weights = checksum_weights(TRAIN_BATCH * 112 * 112 * 12)
+
+    # -- the checked epoch: the copy stream is held back before each copy,
+    # so a step that did not wait for its batch's event would read it
+    # before it lands; the compute stream is kept busy before each read
+    kept, consumed, losses = [], [], []
+
+    def held_back():
+        for b in loader:
+            kept.append({k: v.copy() for k, v in b.items()})
+            with torch.cuda.stream(trainer.copy_stream):
+                torch.cuda._sleep(COPY_HOLD_CYCLES)
+            yield b
+
+    def read_image(module, args):
+        torch.cuda._sleep(READ_HOLD_CYCLES)
+        consumed.append([device_checksum(torch, args[0], weights)])
+
+    loss_fn = trainer.loss_fn
+
+    def read_label(outputs, batch):
+        consumed[-1].append(device_checksum(torch, batch["label"], weights))
+        loss, metrics = loss_fn(outputs, batch)
+        losses.append(loss.detach())
+        return loss, metrics
+
+    hook = trainer.model.register_forward_pre_hook(read_image)
+    trainer.loss_fn = read_label
+    torch.cuda.synchronize()
+    fused_scale_bias_act.launches = 0  # the fed path's run starts here
+    fused_scale_bias_act.backward_launches = 0
+    batch_moments.launches = 0
+    batch_moments.backward_launches = 0
+    t0 = time.perf_counter()
+    history = trainer.fit(lambda: held_back())
+    torch.cuda.synchronize()
+    checked_s = time.perf_counter() - t0
+    launches = {"bn_act_fwd": fused_scale_bias_act.launches,
+                "bn_act_bwd": fused_scale_bias_act.backward_launches,
+                "bn_moments_fwd": batch_moments.launches,
+                "bn_moments_bwd": batch_moments.backward_launches}
+    # ... and ends here
+    hook.remove()
+    trainer.loss_fn = loss_fn
+    losses = [float(v) for v in losses]
+    print(f"[feed] checked epoch ({encoding}): {len(kept)} batches, "
+          f"{trainer.state.step} steps in {checked_s:.2f} s, loss by step "
+          f"{[round(v, 4) for v in losses]}, history {history}; launches "
+          f"{launches}")
+    check(len(kept) == steps == trainer.state.step == len(consumed),
+          f"{len(kept)} batches, {trainer.state.step} steps, "
+          f"{len(consumed)} consumed: want {steps} each")
+    check(launches == {"bn_act_fwd": 48 * steps, "bn_act_bwd": 48 * steps,
+                       "bn_moments_fwd": 53 * steps,
+                       "bn_moments_bwd": 53 * steps},
+          f"fed launches {launches}, want 48 + 48 bn_act and 53 + 53 "
+          f"moments per step")
+    check(all(np.isfinite(losses))
+          and np.isfinite(history[0]["train"]["loss"]), "non-finite fed loss")
+    for i, (host, dev_sums) in enumerate(zip(kept, consumed)):
+        check(host["image"].shape == (TRAIN_BATCH, 112, 112, 12)
+              and host["image"].dtype == np.float32, "fed batch layout")
+        want = (host_checksum(host["image"], host_weights),
+                host_checksum(host["label"], host_weights))
+        got = tuple(tuple(int(v) for v in d.tolist()) for d in dev_sums)
+        check(got == want, f"batch {i}: the step consumed checksums {got} "
+              f"on the card, the loader yielded {want}")
+    print(f"[feed] placement check ({encoding}): {len(kept)} of "
+          f"{len(kept)} batches bitwise equal on the card to the host "
+          f"batches the loader yielded (image and label checksums), with "
+          f"every copy held back {COPY_HOLD_CYCLES} cycles and every read "
+          f"{READ_HOLD_CYCLES}")
+    del kept, consumed
+
+    rows = {mode_name(mode): timed_epoch(torch, trainer, pattern, encoding,
+                                         mode, counters, place, card)
+            for mode in HOST_CHAIN_MODES}
+    print(f"[feed] fed step ({encoding}) by worker mode, ms/step: "
+          f"{ {k: round(v, 3) for k, v in rows.items()} }; the fixed batch "
+          f"of phase 5: {step_ms[0]:.3f} ms/step (CUDA events), "
+          f"{step_ms[1]:.3f} (wall) ({card})")
+    del trainer, loader
+    torch.cuda.empty_cache()
+
+
+def mode_name(mode):
+    return (f"{mode['num_procs']} processes" if mode.get("num_procs")
+            else f"{mode['num_workers']} threads")
+
+
+def timed_epoch(torch, trainer, pattern, encoding, mode, counters, place,
+                card):
+    """One epoch of Trainer.fit over a loader with `mode`'s workers:
+    returns ms/step from the first step to the last; prints the host's
+    time in each train_step (issue, and the issuing thread's CPU time),
+    the feed's counters, host ms a _place_one and the caching host
+    allocator's pinned blocks."""
+    from deep_vision_tpu_torch.tools.profile_train import make_record_loader
+
+    loader = make_record_loader(pattern, encoding=encoding, **mode)
+    steps = FEED_IMAGES // TRAIN_BATCH
+    before = {k: c.value for k, c in counters.items()}
+    place_before = (place.count, place.mean)
+    allocs_before = torch.cuda.host_memory_stats()["num_host_alloc"]
+    entries, issue, cpu = [], [], []
+    train_step = trainer.train_step
+
+    def timed_step(batch):
+        entries.append(time.perf_counter())
+        c0 = time.thread_time()
+        metrics = train_step(batch)
+        issue.append((time.perf_counter() - entries[-1]) * 1e3)
+        cpu.append((time.thread_time() - c0) * 1e3)
+        return metrics
+
+    trainer.train_step = timed_step
+    torch.cuda.synchronize()
+    history = trainer.fit(lambda: loader)
+    torch.cuda.synchronize()
+    trainer.train_step = train_step
+    check(len(entries) == steps and np.isfinite(history[0]["train"]["loss"]),
+          f"timed epoch: {len(entries)} steps, history {history}")
+    ms = (entries[-1] - entries[0]) * 1e3 / (steps - 1)
+    delta = {k: c.value - before[k] for k, c in counters.items()}
+    n_place = place.count - place_before[0]
+    place_ms = (place.mean * place.count
+                - place_before[1] * place_before[0]) / n_place
+    allocs = torch.cuda.host_memory_stats()["num_host_alloc"]
+    print(f"[feed] fed step ({encoding}, {mode_name(mode)}, device_prefetch "
+          f"{FEED_DEPTH}): {ms:.3f} ms/step from the first step to the last "
+          f"of Trainer.fit ({TRAIN_BATCH / ms * 1e3:.1f} images/s); the host "
+          f"in train_step {statistics.median(issue):.3f} ms a step (median; "
+          f"the issuing thread's CPU time {statistics.median(cpu):.3f}); "
+          f"counters {delta}; _place_one {place_ms:.3f} ms a batch on the "
+          f"host (mean of {n_place}); pinned blocks allocated "
+          f"{allocs - allocs_before} for {2 * steps} pins ({card})")
+    check(delta["data_batches_total"] == steps, f"batches {delta}")
+    check(allocs - allocs_before < 2 * steps,
+          f"the caching host allocator reused no pinned block: "
+          f"{allocs_before} -> {allocs} over {2 * steps} pins")
+    return ms
+
+
+def h2d_time(torch, dev, card):
+    """Host ms to pin one fed image batch and the copy stream's ms to copy
+    it, medians of 10."""
+    stream = torch.cuda.Stream(dev)
+    x = np.random.default_rng(0).random(
+        (TRAIN_BATCH, 112, 112, 12), dtype=np.float32)
+    pins, copies = [], []
+    for _ in range(13):
+        t = time.perf_counter()
+        pinned = torch.from_numpy(x).pin_memory()
+        pins.append((time.perf_counter() - t) * 1e3)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(stream):
+            start.record()
+            y = pinned.to(dev, non_blocking=True)
+            end.record()
+        end.synchronize()
+        copies.append(start.elapsed_time(end))
+        check(torch.equal(y.cpu(), pinned), "h2d copy differs")
+    ms = statistics.median(copies[3:])
+    print(f"[feed] one {tuple(x.shape)} float32 batch ({x.nbytes / 1e6:.1f} "
+          f"MB): pin_memory {statistics.median(pins[3:]):.3f} ms on the "
+          f"host, copy {ms:.3f} ms on the copy stream "
+          f"({x.nbytes / ms / 1e6:.1f} GB/s), medians of 10 ({card})")
+
+
+def feed_phase(torch, dev, step_ms, card):
+    """Phase 5b: the flagship step fed from record shards."""
+    from deep_vision_tpu_torch.data.native_build import library_path
+    from deep_vision_tpu_torch.ops.cuda.build import BUILD_DIR
+    from deep_vision_tpu_torch.tools.synth_records import write_synth_records
+
+    variants, why = feed_variants()
+    print(f"[feed] os.cpu_count() {os.cpu_count()}, usable "
+          f"{len(os.sched_getaffinity(0))}; variants {list(variants)}: {why}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        for encoding in variants:
+            t0 = time.perf_counter()
+            paths = write_synth_records(os.path.join(tmp, encoding),
+                                        FEED_IMAGES, FEED_SIZE, FEED_SHARDS,
+                                        encoding)
+            size = sum(os.path.getsize(p) for p in paths)
+            print(f"[feed] wrote {FEED_IMAGES} {encoding} records, "
+                  f"{size} bytes in {len(paths)} shards, in "
+                  f"{time.perf_counter() - t0:.2f} s (native library "
+                  f"{library_path().name})")
+            pattern = os.path.join(tmp, encoding, "*")
+            host_chain(pattern, encoding, card)
+            fed_epochs(torch, dev, pattern, encoding, step_ms, card)
+    h2d_time(torch, dev, card)
 
 
 def check_against_cpu(torch, dev):
@@ -1412,10 +1727,15 @@ def main():
     torch.cuda.empty_cache()
 
     # -- 5. training ---------------------------------------------------------
-    launches = train_phase(torch, trainer, train_batch, card)
+    launches, step_ms, wall_ms = train_phase(torch, trainer, train_batch,
+                                             card)
     del trainer, train_batch
     torch.cuda.empty_cache()
     check_against_cpu(torch, dev)
+
+    # -- 5b. feed ------------------------------------------------------------
+    feed_phase(torch, dev, (step_ms, wall_ms), card)
+    torch.cuda.empty_cache()
     vit_launches = vit_phase(torch, dev, card)
     check_vit_dense_route(torch, dev)
     torch.cuda.empty_cache()

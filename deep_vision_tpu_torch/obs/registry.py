@@ -95,6 +95,10 @@ class Histogram:
             self._count += 1
 
     @property
+    def count(self) -> int:
+        return self._count
+
+    @property
     def mean(self) -> float:
         return self._sum / self._count if self._count else 0.0
 

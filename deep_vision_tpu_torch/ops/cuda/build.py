@@ -20,19 +20,21 @@ to tolerances, not bits, so its multiply-adds contract into FMAs.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import re
 import shutil
-import subprocess
-import threading
-import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Tuple
 
-PACKAGE_DIR = Path(__file__).resolve().parents[2]
+from deep_vision_tpu_torch.core.build import (
+    BUILD_DIR,
+    PACKAGE_DIR,
+    compile_all,
+    hashed_path,
+    load_shared,
+)
+
 CSRC_DIR = PACKAGE_DIR / "csrc"
-BUILD_DIR = PACKAGE_DIR / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -45,9 +47,6 @@ SOURCE_FLAGS: Dict[str, Tuple[str, ...]] = {
     "flash_attention": (),
 }
 _DEFAULT_CUDA_HOME = "/usr/local/cuda"
-
-_loaded: Dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -91,11 +90,8 @@ def library_path(name: str) -> Path:
     """The library's path: its name carries a hash of the source, of
     every header in csrc/ and of its flags, so a change to any builds
     anew."""
-    text = sources()[name].read_bytes()
-    text += b"".join(h.read_bytes() for h in headers())
-    digest = hashlib.sha256(
-        text + " ".join(flags(name)).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    return hashed_path(BUILD_DIR, name, (sources()[name], *headers()),
+                       flags(name))
 
 
 def ptxas_report(name: str) -> str:
@@ -147,36 +143,14 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     if not todo:
         return {n: 0.0 for n in names}
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    procs = {}
-    for n in todo:
-        tmp = library_path(n).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *flags(n), "-o", str(tmp), str(srcs[n])]
-        procs[n] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    seconds, failed = {n: 0.0 for n in names}, {}
-    for n, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        seconds[n] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed[n] = out
-            tmp.unlink(missing_ok=True)
-            continue
-        library_path(n).with_suffix(".log").write_text(out)
-        os.replace(tmp, library_path(n))
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(
-            f"--- {n} ---\n{out[-4000:]}" for n, out in failed.items()))
+    seconds = {n: 0.0 for n in names}
+    seconds.update(compile_all({
+        n: ([nvcc, *flags(n)], [str(srcs[n])], library_path(n))
+        for n in todo}))
     return seconds
 
 
 def load(name: str) -> ctypes.CDLL:
     """The shared library built from `csrc/<name>.cu`, built on first use."""
-    with _lock:
-        lib = _loaded.get(name)
-        if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
-            _loaded[name] = lib
-        return lib
+    return load_shared(name, lambda: library_path(name),
+                       lambda: build([name]))

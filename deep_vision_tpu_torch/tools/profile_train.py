@@ -2,6 +2,7 @@
 the card.
 
     python -m deep_vision_tpu_torch.tools.profile_train [--model resnet50|vit_s16]
+        [--records DIR]
 
 `make_train_parts` is the port of bench.py:432-498: ResNet-50 with the
 space-to-depth stem, 1000 classes, bf16 convolutions, softmax cross
@@ -18,8 +19,16 @@ every parameter (decay_bn_bias=True), warmup + cosine to 0, with the
 horizon cut to chip_smoke's 13 steps (warmup 3); softmax cross entropy
 on one fixed `RandomState(0)` batch.
 
+`make_record_loader` is the fed ResNet step's input: record shards
+(tools/synth_records.py) through a `RecordDataset`, the reference's
+ImageNet train chain for the s2d stem (`imagenet_train_transform`,
+train_cli.py:208-222) and a shuffling `DataLoader` of batch 128 with
+`FEED_WORKERS`, whose batches `Trainer(device_prefetch=2)` places on the
+card.
+
 Run as a module (one CUDA card), it takes 3 warm-up steps, times 5
-steps without the profiler, each ending in a synchronise, then profiles
+steps queued back to back (one synchronise at the end), times 5 steps
+without the profiler, each ending in a synchronise, then profiles
 5 more with torch.profiler and prints, per step: the wall time, the
 device-busy time (the sum of kernel times, which do not overlap on one
 stream), the busy share of the unprofiled wall time, kernel time by
@@ -27,7 +36,15 @@ group, each group's largest kernels, and the top kernels; and on the
 host, the time to issue a step onto an idle card (unprofiled) and, from
 the profiled steps' CPU trace, the time spent in each ranged group's
 ranges (forward) and in the autograd nodes of the ops run in them
-(backward), with their calls.
+(backward), with their calls. With `--records DIR` the ResNet step is
+fed from the shards in DIR through `make_record_loader` and the
+Trainer's device prefetch, cycling over epochs: every step is timed
+from when its placed batch is in hand, so the feed's threads count in
+no step's issue time (the wait for a batch is printed apart, with the
+feed's starvation counters and the main thread's CPU time a step), and
+the copy stream's host-to-device copies are read from the raw trace
+(the prefetcher's thread issues them outside any profiled op) and
+printed apart from the device busy time, which they overlap.
 ResNet-50 groups: `conv` (convolution and matmul kernels, forward and
 backward), `bn_act_fwd` and `bn_act_bwd` (csrc/bn_act.cu), `bn_stats`
 (csrc/norm.cu's moments kernels by name, and every other kernel launched
@@ -43,21 +60,27 @@ and their backward), `optimizer` and `other`.
 from __future__ import annotations
 
 import argparse
+import os
 import statistics
 import subprocess
 import time
-from typing import Dict, Iterable, NamedTuple, Optional, Tuple
+from typing import Dict, Iterable, Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
 
 from deep_vision_tpu_torch.core.backend import DeviceLike, resolve_device
+from deep_vision_tpu_torch.data import DataLoader, RecordDataset
+from deep_vision_tpu_torch.data import transforms as T
+from deep_vision_tpu_torch.data.pipeline import Compose
 from deep_vision_tpu_torch.losses import classification_loss_fn
+from deep_vision_tpu_torch.obs.registry import get_registry
 from deep_vision_tpu_torch.models import get_model
 from deep_vision_tpu_torch.nn.layers import BN_STATS_RANGE, LAYERNORM_RANGE
 from deep_vision_tpu_torch.train import Trainer, build_optimizer
 from deep_vision_tpu_torch.train.optimizers import make_schedule
+from deep_vision_tpu_torch.tools.synth_records import raw_schema
 
 BATCH_PER_CHIP = 128
 IMAGE_SIZE = 224
@@ -73,6 +96,12 @@ BN_ACT_KERNELS = {"bn_act_fwd": ("fwd_rows", "fwd_planes"),
                   "bn_act_bwd": ("bwd_rows", "bwd_planes", "reduce_partials")}
 FLASH_KERNELS = {"flash_fwd": ("flash_fwd",), "flash_dq": ("flash_dq",),
                  "flash_dkv": ("flash_dkv",)}
+#: the fed step's host workers: 4 spawned worker processes, the lowest
+#: mean ms/step over chip_smoke's readings of every mode on the H100's
+#: 8-core host, and the fastest on JPEG records in every reading (see
+#: PERF.md, the fed step); `num_workers` is the thread count where a
+#: caller sets num_procs 0
+FEED_WORKERS = {"num_workers": 8, "num_procs": 4}
 #: csrc/norm.cu, under the groups the eager statistics had
 BN_STATS_KERNELS = {"bn_stats": ("bn_moments_fwd", "bn_moments_combine",
                                  "bn_moments_bwd")}
@@ -113,12 +142,14 @@ def input_shape(stem: str) -> Tuple[int, ...]:
 
 def make_train_parts(batch_per_chip: int = BATCH_PER_CHIP, stem: str = "s2d",
                      device: DeviceLike = None,
-                     dtype: torch.dtype = torch.bfloat16):
+                     dtype: torch.dtype = torch.bfloat16,
+                     device_prefetch: int = 0):
     """(trainer, batch): a Trainer over the seeded flagship model and one
     batch on its device. The batch is the reference's: `RandomState(0)`
     `rand` images cast to the compute dtype (bf16), then
     `randint(0, 1000)` labels. `dtype` exists for the float32 check
-    against the plain path at a small batch."""
+    against the plain path at a small batch; `device_prefetch` is the
+    Trainer's, for the fed step."""
     dev = resolve_device(device)
     model = get_model("resnet50", num_classes=NUM_CLASSES, dtype=dtype,
                       stem=stem, device=dev, seed=0, train=True)
@@ -126,7 +157,8 @@ def make_train_parts(batch_per_chip: int = BATCH_PER_CHIP, stem: str = "s2d",
                          weight_decay=1e-4)
     shape = input_shape(stem)
     sample = torch.ones((1, *shape), dtype=torch.float32)
-    trainer = Trainer(model, tx, classification_loss_fn, sample, device=dev)
+    trainer = Trainer(model, tx, classification_loss_fn, sample, device=dev,
+                      device_prefetch=device_prefetch)
     rng = np.random.RandomState(0)
     images = rng.rand(batch_per_chip, *shape).astype(np.float32)
     labels = rng.randint(0, NUM_CLASSES, size=(batch_per_chip,))
@@ -135,6 +167,38 @@ def make_train_parts(batch_per_chip: int = BATCH_PER_CHIP, stem: str = "s2d",
         "label": torch.from_numpy(labels.astype(np.int32)).to(dev),
     }
     return trainer, batch
+
+
+def imagenet_train_transform(rescale: Optional[int] = 256) -> Compose:
+    """The reference's ImageNet train chain for the s2d stem
+    (train_cli.py:208-222): Rescale(rescale), RandomHorizontalFlip,
+    RandomCrop(224), ColorJitter(0.4, 0.4, 0.4),
+    ToFloatNormalize(expand_gray_to_rgb=True), SpaceToDepth. `rescale`
+    None leaves the Rescale out, for images whose shorter side is already
+    256 (the raw synthetic records)."""
+    chain = [] if rescale is None else [T.Rescale(rescale)]
+    return Compose(chain + [
+        T.RandomHorizontalFlip(), T.RandomCrop(IMAGE_SIZE),
+        T.ColorJitter(0.4, 0.4, 0.4),
+        T.ToFloatNormalize(expand_gray_to_rgb=True), T.SpaceToDepth()])
+
+
+def make_record_loader(pattern, encoding: str = "raw",
+                       **workers) -> DataLoader:
+    """A shuffling, remainder-dropping DataLoader of BATCH_PER_CHIP over
+    the record shards of `pattern` (tools/synth_records.py's, in
+    `encoding`: raw pixels through `raw_schema` without the Rescale, or
+    JPEG through the `imagenet` schema with it) and the ImageNet train
+    chain. `workers`: DataLoader's num_workers and num_procs,
+    FEED_WORKERS by default."""
+    raw = encoding == "raw"
+    dataset = RecordDataset(pattern, raw_schema if raw else "imagenet",
+                            shuffle_shards=True)
+    return DataLoader(dataset, BATCH_PER_CHIP,
+                      transform=imagenet_train_transform(None if raw
+                                                         else 256),
+                      shuffle=True, drop_remainder=True,
+                      **{**FEED_WORKERS, **workers})
 
 
 def make_vit_train_parts(batch_per_chip: int = VIT_BATCH_PER_CHIP,
@@ -236,6 +300,15 @@ def host_by_range(events: Iterable, grouping: Grouping = RESNET_GROUPING
     return out
 
 
+def h2d_ms(prof) -> float:
+    """Device ms of every host-to-device copy in a finished profile, from
+    its raw trace: the copies a prefetcher's thread issues belong to no
+    profiled CPU op, so `events()` does not show them."""
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and e.name().startswith("Memcpy HtoD")) / 1e6
+
+
 def _group(name: str, evt, seq, grouping: Grouping) -> str:
     for g, markers in grouping.named.items():
         if any(m in name for m in markers):
@@ -254,47 +327,83 @@ def _group(name: str, evt, seq, grouping: Grouping) -> str:
     return "other"
 
 
+def _epochs(loader: DataLoader) -> Iterator[dict]:
+    """The loader's batches, epoch after epoch, without end."""
+    while True:
+        yield from loader
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--model", choices=("resnet50", "vit_s16"),
                         default="resnet50")
+    parser.add_argument("--records", metavar="DIR",
+                        help="feed the ResNet step from the record shards "
+                             "in DIR (tools/synth_records.py, raw)")
     args = parser.parse_args()
     if args.model == "vit_s16":
         trainer, batch = make_vit_train_parts()
         grouping = VIT_GROUPING
         label = f"ViT-S/16 {VIT_IMAGE_SIZE} bf16 batch {VIT_BATCH_PER_CHIP}"
     else:
-        trainer, batch = make_train_parts()
+        trainer, batch = make_train_parts(
+            device_prefetch=2 if args.records else 0)
         grouping = RESNET_GROUPING
         label = f"ResNet-50 s2d bf16 batch {BATCH_PER_CHIP}"
     n = len(batch["image"])
+    if args.records:
+        if args.model != "resnet50":
+            parser.error("--records feeds the ResNet step")
+        loader = make_record_loader(os.path.join(args.records, "*"))
+        placed = trainer.prefetcher(_epochs(loader))
+        label += (f", fed from {args.records} ({FEED_WORKERS}, "
+                  f"device_prefetch 2)")
+        waits = []  # the consumer's wait for each placed batch
+
+        def next_batch():
+            t0 = time.perf_counter()
+            item = next(placed)
+            waits.append((time.perf_counter() - t0) * 1e3)
+            return item
+    else:
+        def next_batch():
+            return batch
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     for _ in range(3):
-        trainer.train_step(batch)
+        trainer.train_step(next_batch())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        trainer.train_step(next_batch())
+    torch.cuda.synchronize()
+    queued_ms = (time.perf_counter() - t0) * 1e3 / STEPS
     walls = []
     for _ in range(STEPS):
+        item = next_batch()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        trainer.train_step(batch)
+        trainer.train_step(item)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall_ms = statistics.median(walls)
-    enqueue = []  # host time to issue a step onto an idle card
+    enqueue, cpu = [], []  # host time to issue a step onto an idle card
     for _ in range(STEPS):
+        item = next_batch()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer.train_step(batch)
+        t0, c0 = time.perf_counter(), time.thread_time()
+        trainer.train_step(item)
         enqueue.append((time.perf_counter() - t0) * 1e3)
+        cpu.append((time.thread_time() - c0) * 1e3)
     torch.cuda.synchronize()
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(STEPS):
-            trainer.train_step(batch)
+            trainer.train_step(next_batch())
         torch.cuda.synchronize()
     events = prof.events()
     named = kernels_by_group(events, grouping)
@@ -303,18 +412,35 @@ def main() -> None:
     busy_ms = sum(by_group.values())
     print(f"[profile] {label}: wall "
           f"{wall_ms:.3f} ms/step ({n / wall_ms * 1e3:.1f} "
-          f"images/s), device busy {busy_ms:.3f} ms/step "
+          f"images/s), queued back to back {queued_ms:.3f} ms/step, "
+          f"device busy {busy_ms:.3f} ms/step "
           f"({100 * busy_ms / wall_ms:.1f}%), by group "
           f"{ {g: round(v, 3) for g, v in by_group.items()} } ({card})")
     host = host_by_range(events, grouping)
     print(f"[profile] host: a step issued in "
           f"{statistics.median(enqueue):.3f} ms (median of {STEPS}, no "
-          f"profiler, from an idle card); in the profiled steps, "
+          f"profiler, from an idle card; the issuing thread's CPU time "
+          f"{statistics.median(cpu):.3f} ms); in the profiled steps, "
           + "; ".join(
               f"{g} {side} {us / 1e3 / STEPS:.3f} ms over {calls // STEPS} "
               f"calls ({us / max(calls, 1):.1f} us a call)"
               for g, sides in sorted(host.items())
               for side, (us, calls) in sides.items()))
+    if args.records:
+        reg = get_registry()
+        placed_starved = reg.counter("device_prefetch_starved_total",
+                                     labels={"loader": "train"}).value
+        host_starved = reg.counter("data_prefetch_starved_total",
+                                   labels={"loader": "default"}).value
+        place = reg.histogram("device_prefetch_place_ms",
+                              labels={"loader": "train"})
+        print(f"[profile] feed: wait for a placed batch median "
+              f"{statistics.median(waits):.3f} ms, max {max(waits):.3f} ms "
+              f"over {len(waits)} steps; device_prefetch_starved_total "
+              f"{placed_starved:.0f}, data_prefetch_starved_total "
+              f"{host_starved:.0f}; _place_one {place.mean:.3f} ms a batch "
+              f"on the host (mean of {place.count}); host-to-device copies "
+              f"{h2d_ms(prof) / STEPS:.3f} ms/step on the card")
     totals: Dict[str, list] = {}
     for e in events:
         for k in e.kernels:
