@@ -71,10 +71,29 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            train_step, the feed's starvation counters, host ms a
            _place_one, pinned-block reuse; and the copy stream's time
            for one (128, 112, 112, 12) float32 batch;
-6. report  the card line, the kernels line, and the final status line.
+6. cli     the training CLI as a user runs it, in subprocesses:
+           `python -m deep_vision_tpu_torch.train_cli -m resnet50` (float32,
+           batch 256, s2d stem) on CLI_TRAIN_IMAGES seeded 256x256 JPEG
+           records in tfrecord_train/ and CLI_VAL_IMAGES in
+           tfrecord_val/, with --data-snapshot, a journal and the
+           skip_step policy: run T trains 2 epochs (ms/step, images/s,
+           peak memory, save and restore times, LR and val top1 by
+           epoch, from its journal); under DVT_DETERMINISTIC=1, run A
+           trains 2 epochs and run B 1 epoch, then `-c` to 2 in a fresh
+           process: B's second epoch must read A's batches (checksums
+           from a sitecustomize hook) and its final checkpoint must equal
+           A's bitwise; run S gets SIGTERM mid-epoch, must exit 0 after a
+           preempt save, and its `-c` resume must finish every step; then
+           in this process the CLI's route (build_dataloaders,
+           build_trainer) on the first batch: its step loss against run
+           A's first step, every float32 bn_act and moments call of the
+           step against its plain version with times and bounds, and the
+           step timed with the skip_step policy off and on;
+7. report  the card line, the kernels line, and the final status line.
 """
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -83,6 +102,7 @@ import time
 
 import numpy as np
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 #: H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and
 #: float32 (non-tensor-core) FLOP/s, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
@@ -1482,12 +1502,470 @@ def check_against_cpu(torch, dev):
               f"{CHECK_TOL[kind]} ({where.get(kind, kind)})")
 
 
+
+#: phase 6: the training CLI's config, data and runs
+CLI_CONFIG = "resnet50"
+CLI_TRAIN_IMAGES, CLI_VAL_IMAGES, CLI_SIZE = 2048, 512, 256
+CLI_TRAIN_SHARDS, CLI_VAL_SHARDS = 8, 2
+CLI_EPOCHS = 2
+#: seconds a CLI run may take (process start, native build, 2 epochs)
+CLI_TIMEOUT = 420
+#: the SIGTERM run is signalled after this many steps of its first epoch
+CLI_SIGTERM_AFTER = 3
+#: the first step's loss, CLI subprocess against the in-process Trainer
+#: on the same batch (both TF32 convolutions, other cuDNN algorithms)
+CLI_LOSS_RTOL = 1e-3
+#: timed fixed-batch steps, with the skip policy off and on
+CLI_POLICY_STEPS = 5
+#: phase 6's hook, imported by the CLI runs as sitecustomize: checksums
+#: of every batch Trainer.train_step reads (label and image sums weighted
+#: by row, in float64 on the card, read at exit) and the kernel wrappers'
+#: launch counts over the run, set to 0 before the CLI starts, written as
+#: JSON at exit
+BATCH_HOOK = """
+import atexit, json, os
+_path = os.environ.get("SMOKE_BATCH_LOG")
+if _path:
+    import torch
+    from deep_vision_tpu_torch.ops.cuda.bn_act import fused_scale_bias_act
+    from deep_vision_tpu_torch.ops.cuda.norm import batch_moments
+    from deep_vision_tpu_torch.train import trainer as _trainer
+    fused_scale_bias_act.launches = 0
+    fused_scale_bias_act.backward_launches = 0
+    batch_moments.launches = 0
+    batch_moments.backward_launches = 0
+    _rows = []
+    _train_step = _trainer.Trainer.train_step
+
+    def _logged(self, batch):
+        data = self._on_device(batch)
+        n = data["label"].shape[0]
+        w = torch.arange(1, n + 1, dtype=torch.float64,
+                         device=data["label"].device)
+        img = data[self.input_key].double().reshape(n, -1).sum(1)
+        _rows.append((self.state.step, (data["label"].double() * w).sum(),
+                      (img * w).sum()))
+        return _train_step(self, data)
+
+    _trainer.Trainer.train_step = _logged
+
+    def _dump():
+        launches = {
+            "bn_act_fwd": fused_scale_bias_act.launches,
+            "bn_act_bwd": fused_scale_bias_act.backward_launches,
+            "bn_moments_fwd": batch_moments.launches,
+            "bn_moments_bwd": batch_moments.backward_launches}
+        with open(_path, "w") as f:
+            json.dump({"batches": [[s, float(a), float(b)]
+                                   for s, a, b in _rows],
+                       "launches": launches}, f)
+
+    atexit.register(_dump)
+"""
+
+
+def cli_command(data, ckpt, journal, epochs, *extra):
+    return [sys.executable, "-m", "deep_vision_tpu_torch.train_cli", "-m",
+            CLI_CONFIG, "--data-dir", data, "--ckpt-dir", ckpt, "--epochs",
+            str(epochs), "--data-snapshot", "--journal", journal,
+            "--health-policy", "skip_step", *extra]
+
+
+def run_cli(cmd, env, log, label):
+    """Run one CLI process to its end; fail with its output's tail."""
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, stdout=out,
+                              stderr=subprocess.STDOUT, timeout=CLI_TIMEOUT)
+    secs = time.perf_counter() - t0
+    tail = open(log).read()[-3000:]
+    check(proc.returncode == 0,
+          f"CLI run {label} exited {proc.returncode}:\n{tail}")
+    print(f"[cli] run {label}: exit 0 in {secs:.1f} s")
+    return secs
+
+
+def cli_report(rows, label, card):
+    """Print a CLI run's numbers from its journal: ms/step (the step
+    events' host timestamps within an epoch of one process, each epoch's
+    first step left out), images/s,
+    peak memory, save and restore times, LR and val top1 by epoch."""
+    steps = [r for r in rows if r["event"] == "step"]
+    runs = list(dict.fromkeys(r["run_id"] for r in steps))
+    timed = [((b["ts"] - a["ts"]) * 1e3, b["step"], runs.index(b["run_id"]))
+             for a, b in zip(steps, steps[1:])
+             if a["epoch"] == b["epoch"] and a["run_id"] == b["run_id"]]
+    gaps = [g for g, _, _ in timed]
+    evals = {r["epoch"]: r["summary"] for r in rows if r["event"] == "eval"}
+    lr = {}
+    for r in steps:
+        lr.setdefault(r["epoch"], r["lr"])
+    saves = [r["save_ms"] for r in rows if r["event"] == "checkpoint"]
+    written = [r for r in rows if r.get("note") == "checkpoint_written"]
+    restores = [r["restore_ms"] for r in rows if r.get("note") == "resumed"]
+    peak = [r["bytes"] for r in rows if r.get("note") == "peak_memory"]
+    batch = steps[0]["examples"] if steps else 0
+    ms = statistics.median(gaps) if gaps else float("nan")
+    print(f"[cli] {label}: {len(steps)} steps of {batch}, "
+          f"{ms:.3f} ms/step median ({min(gaps or [0]):.3f}-"
+          f"{max(gaps or [0]):.3f}; the journal's step timestamps, host "
+          f"clock), {batch / ms * 1e3:.1f} images/s; peak device memory "
+          f"{peak[0] / 2**30 if peak else float('nan'):.2f} GiB; save "
+          f"blocking {saves} ms, written "
+          f"{[round(r['write_ms'], 1) for r in written]} ms "
+          f"({[r['bytes'] for r in written]} bytes); restore {restores} ms; "
+          f"lr by epoch {lr}; val top1 by epoch "
+          f"{ {e: round(v['top1'], 5) for e, v in evals.items()} } ({card})")
+    if timed:
+        g, step, proc = max(timed)
+        print(f"[cli] {label}: the longest step gap, {g:.3f} ms, ends at "
+              f"step {step}, in process {proc + 1} of {len(runs)} (steps a "
+              f"process: {[sum(r['run_id'] == k for r in steps) for k in runs]}"
+              f")")
+    return steps
+
+
+def f32_step_kernels(torch, dev, model, images, card):
+    """The CLI path's float32 kernel instances at its batch: every bn_act
+    and moments call of one step against its plain version (forward, dx
+    and the moments backward bitwise; dscale, dbias and the moments
+    within BN_SUM_TOL / NORM_SUM_TOL x sum|terms|), with kernel, plain
+    and bound times summed over the step's calls, and the library calls
+    beside the moments (LIBRARY_CALL)."""
+    from deep_vision_tpu_torch.ops.cuda.bn_act import (
+        bn_act_backward,
+        bn_act_bwd_plain,
+        bn_act_forward,
+        bn_act_plain,
+    )
+    from deep_vision_tpu_torch.ops.cuda.norm import (
+        bn_moments_backward,
+        bn_moments_bwd_coefficients,
+        bn_moments_bwd_plain,
+        bn_moments_forward,
+        bn_moments_plain,
+        moments_rows,
+    )
+
+    calls, moments = batchnorm_calls(torch, model, images)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    tot = {k: dict(calls=0, ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0,
+                   ops=0)
+           for k in ("bn_act_fwd", "bn_act_bwd", "bn_moments_fwd",
+                     "bn_moments_bwd")}
+
+    def add(name, n, t, t_plain, nbytes, ops, t_library=0.0):
+        row = tot[name]
+        row["calls"] += n
+        row["ms"] += n * t
+        row["plain_ms"] += n * t_plain
+        row["library_ms"] += n * t_library
+        row["bytes"] += n * nbytes
+        row["ops"] += n * ops
+
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device=dev).contiguous(
+            memory_format=torch.channels_last)
+
+    for (shape, res), n in sorted(calls.items()):
+        c = shape[1]
+        x, g = draw(shape), draw(shape)
+        r = draw(shape) if res else None
+        a = torch.rand(c, generator=gen, device=dev) + 0.5
+        b = torch.randn(c, generator=gen, device=dev)
+        y, yp = bn_act_forward(x, a, b, r, "relu"), bn_act_plain(
+            x, a, b, r, "relu")
+        check(torch.equal(y, yp), f"f32 bn_act forward differs: {shape}")
+        got = bn_act_backward(x, a, yp, g, "relu", res)
+        want = bn_act_bwd_plain(x, a, yp, g, "relu", res)
+        check(torch.equal(got[0], want[0])
+              and (not res or torch.equal(got[3], want[3])),
+              f"f32 bn_act dx/dres differ: {shape}")
+        gf = torch.where(yp > 0, g, 0.0)
+        for k, terms in ((1, (gf * x).abs().sum((0, 2, 3))),
+                         (2, gf.abs().sum((0, 2, 3)))):
+            check(bool(((got[k] - want[k]).abs()
+                        <= BN_SUM_TOL * terms).all()),
+                  f"f32 bn_act dscale/dbias beyond tolerance: {shape}")
+        times = [time_cuda(torch, fn, runs=10)[0] for fn in (
+            lambda: bn_act_forward(x, a, b, r, "relu"),
+            lambda: bn_act_plain(x, a, b, r, "relu"),
+            lambda: bn_act_backward(x, a, yp, g, "relu", res),
+            lambda: bn_act_bwd_plain(x, a, yp, g, "relu", res))]
+        size, vec = x.numel() * 4, 4 * c
+        add("bn_act_fwd", n, times[0], times[1], (2 + res) * size + 2 * vec,
+            BN_FWD_OPS * x.numel())
+        add("bn_act_bwd", n, times[2], times[3], (4 + res) * size + 3 * vec,
+            BN_BWD_OPS * x.numel())
+        del x, g, r, y, yp, got, want, gf
+    for shape, n in sorted(moments.items()):
+        x = draw(shape)
+        rows, c = moments_rows(x), shape[1]
+        got, want = bn_moments_forward(x), bn_moments_plain(x)
+        xd = x.permute(0, 2, 3, 1).reshape(rows, c).double()
+        for k, terms in ((0, xd.abs().sum(0)), (1, xd.square().sum(0))):
+            e = (got[k].double() - want[k].double()).abs() * rows
+            check(bool((e <= NORM_SUM_TOL * terms).all()),
+                  f"f32 moments beyond tolerance: {shape}")
+        u = torch.randn(c, generator=gen, device=dev)
+        w = torch.randn(c, generator=gen, device=dev)
+        coef = bn_moments_bwd_coefficients(rows, u, w)
+        check(torch.equal(bn_moments_backward(x, u, w),
+                          bn_moments_bwd_plain(x, *coef)),
+              f"f32 moments backward differs: {shape}")
+        alpha, beta = (t.view(1, -1, 1, 1) for t in coef)
+        times = [time_cuda(torch, fn, runs=10)[0] for fn in (
+            lambda: bn_moments_forward(x), lambda: bn_moments_plain(x),
+            lambda: bn_moments_backward(x, u, w),
+            lambda: bn_moments_bwd_plain(x, *coef),
+            lambda: torch.batch_norm_stats(x, 1e-5),
+            lambda: torch.addcmul(alpha, beta, x, out=torch.empty_like(x)))]
+        size = x.numel() * 4
+        add("bn_moments_fwd", n, times[0], times[1], size + 8 * c,
+            MOMENTS_FWD_OPS * x.numel(), times[4])
+        add("bn_moments_bwd", n, times[2], times[3], 2 * size + 8 * c,
+            MOMENTS_BWD_OPS * x.numel(), times[5])
+        del x, xd, got, want
+    for name, row in tot.items():
+        bound_ms, bound_by = bound_of(row["bytes"], row["ops"])
+        library = (f"{LIBRARY_CALL[name]} {row['library_ms']:.4f} ms"
+                   if name in LIBRARY_CALL else "none")
+        print(f"[cli] float32 batch {images.shape[0]}: {name} over one "
+              f"step's {row['calls']} calls: kernel {row['ms']:.4f} ms, "
+              f"plain {row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), {100 * bound_ms / row['ms']:.1f}% of the "
+              f"bound; library {library} ({card})")
+    check(tot["bn_act_fwd"]["calls"] == 48
+          and tot["bn_moments_fwd"]["calls"] == 53,
+          f"the CLI's ResNet-50 step should make 48 bn_act and 53 moments "
+          f"calls, got {tot['bn_act_fwd']['calls']} and "
+          f"{tot['bn_moments_fwd']['calls']}")
+
+
+def cli_inprocess(torch, dev, data, first_loss, card):
+    """The CLI's route in this process (build_dataloaders, build_trainer):
+    its first batch's step loss against the CLI run's first step, the
+    float32 kernel instances at the batch's shapes, and the step timed
+    with the skip_step policy off and on (a fixed batch, CUDA events)."""
+    from deep_vision_tpu_torch.configs import get_config
+    from deep_vision_tpu_torch.obs.health import HealthMonitor
+    from deep_vision_tpu_torch.train_cli import (
+        build_dataloaders,
+        build_trainer,
+    )
+
+    cfg = get_config(CLI_CONFIG)
+    train_fn, _ = build_dataloaders(cfg, data, False, 0, 8)
+    batch = next(iter(train_fn()))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # the CLI keeps the default
+    try:
+        step_ms = {}
+        for policy in (None, "skip_step"):
+            health = HealthMonitor(policy) if policy else None
+            trainer = build_trainer(cfg, train_fn, None, health=health,
+                                    steps_per_epoch=1, device=dev)
+            placed = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+            if policy is None:
+                loss = float(trainer.train_step(placed)["loss"])
+                err = abs(loss - first_loss) / abs(first_loss)
+                print(f"[cli] first step's loss: CLI subprocess "
+                      f"{first_loss:.6f}, in-process Trainer "
+                      f"{loss:.6f}, relative difference {err:.2e} "
+                      f"(tolerance {CLI_LOSS_RTOL})")
+                check(err <= CLI_LOSS_RTOL, "the CLI's first step loss "
+                      "differs from the in-process Trainer's")
+                f32_step_kernels(torch, dev, trainer.model, placed["image"],
+                                 card)
+            events = []
+            for i in range(2 + CLI_POLICY_STEPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                trainer.train_step(placed)
+                end.record()
+                events.append((start, end))
+            torch.cuda.synchronize()
+            step_ms[policy or "off"] = statistics.median(
+                s.elapsed_time(e) for s, e in events[2:])
+            del trainer, placed
+            torch.cuda.empty_cache()
+        print(f"[cli] fixed-batch float32 step of {cfg.batch_size}: skip "
+              f"policy off {step_ms['off']:.3f} ms, skip_step "
+              f"{step_ms['skip_step']:.3f} ms (median of "
+              f"{CLI_POLICY_STEPS}, CUDA events) ({card})")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def cli_phase(torch, dev, card):
+    """Phase 6: the training CLI in subprocesses, as a user runs it."""
+    from deep_vision_tpu_torch.obs.journal import read_journal
+    from deep_vision_tpu_torch.ops.cuda.build import BUILD_DIR
+    from deep_vision_tpu_torch.tools.synth_records import write_synth_records
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        data = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        write_synth_records(os.path.join(data, "tfrecord_train"),
+                            CLI_TRAIN_IMAGES, CLI_SIZE, CLI_TRAIN_SHARDS,
+                            "jpeg", seed=0)
+        write_synth_records(os.path.join(data, "tfrecord_val"),
+                            CLI_VAL_IMAGES, CLI_SIZE, CLI_VAL_SHARDS,
+                            "jpeg", seed=1)
+        print(f"[cli] wrote {CLI_TRAIN_IMAGES} + {CLI_VAL_IMAGES} seeded "
+              f"{CLI_SIZE}x{CLI_SIZE} JPEG records in "
+              f"{time.perf_counter() - t0:.1f} s")
+        hook = os.path.join(tmp, "hook")
+        os.makedirs(hook)
+        with open(os.path.join(hook, "sitecustomize.py"), "w") as f:
+            f.write(BATCH_HOOK)
+        env = dict(os.environ, PYTHONPATH=hook + os.pathsep + ROOT)
+        det = dict(env, DVT_DETERMINISTIC="1",
+                   CUBLAS_WORKSPACE_CONFIG=":4096:8")
+
+        def path(name):
+            return os.path.join(tmp, name)
+
+        # the user's run: two epochs, timed
+        run_cli(cli_command(data, path("ck_t"), path("t.jsonl"), CLI_EPOCHS),
+                dict(env, SMOKE_BATCH_LOG=path("t_batches.json")),
+                path("t.log"), "T (2 epochs)")
+        t_rows = read_journal(path("t.jsonl"))
+        steps = cli_report(t_rows, "run T", card)
+        n_steps = CLI_EPOCHS * CLI_TRAIN_IMAGES // 256
+        check(len(steps) == n_steps, f"run T took {len(steps)} steps, want "
+              f"{n_steps}")
+        # the kernels of the path, counted in the CLI process: every
+        # BatchNorm of a train step takes its moments, and every fused one
+        # runs bn_act in the train steps, the eval batches and the
+        # Trainer's one sample forward at construction
+        evals = CLI_EPOCHS * CLI_VAL_IMAGES // 256
+        launches = json.load(open(path("t_batches.json")))["launches"]
+        want = {"bn_act_fwd": 48 * (n_steps + evals + 1),
+                "bn_act_bwd": 48 * n_steps,
+                "bn_moments_fwd": 53 * n_steps,
+                "bn_moments_bwd": 53 * n_steps}
+        print(f"[cli] run T's kernel launches {launches} over {n_steps} "
+              f"steps and {evals} eval batches")
+        check(launches == want, f"run T's launches {launches}, want {want}")
+        check(all(np.isfinite(r["loss"]) for r in steps), "non-finite loss")
+        check(t_rows[-1]["event"] == "exit", "run T's journal has no exit")
+        for line in open(path("t.log")).read().splitlines():
+            if line.startswith(("precision:", "model ", "peak device")):
+                print(f"[cli] run T says: {line}")
+
+        # the resume check: A straight, B in two processes, deterministic
+        a_log, b_log = path("a_batches.json"), path("b_batches.json")
+        run_cli(cli_command(data, path("ck_a"), path("a.jsonl"), CLI_EPOCHS),
+                dict(det, SMOKE_BATCH_LOG=a_log), path("a.log"),
+                "A (2 epochs, deterministic)")
+        run_cli(cli_command(data, path("ck_b"), path("b.jsonl"), 1),
+                dict(det, SMOKE_BATCH_LOG=path("b1_batches.json")),
+                path("b1.log"), "B1 (1 epoch, deterministic)")
+        run_cli(cli_command(data, path("ck_b"), path("b.jsonl"), CLI_EPOCHS,
+                            "-c", path("ck_b")),
+                dict(det, SMOKE_BATCH_LOG=b_log), path("b2.log"),
+                "B2 (-c, to epoch 2, deterministic)")
+        a_rows, b_rows = read_journal(path("a.jsonl")), read_journal(
+            path("b.jsonl"))
+        cli_report(a_rows, "run A", card)
+        cli_report(b_rows, "runs B1 + B2", card)
+        resumes = [r for r in b_rows if r["event"] == "data_resume"]
+        check([r["verdict"] for r in resumes] == ["restored"],
+              f"B2's data_resume events {resumes}")
+        batches_a = json.load(open(a_log))["batches"]
+        batches_b = json.load(open(b_log))["batches"]
+        per_epoch = CLI_TRAIN_IMAGES // 256
+        check([r[0] for r in batches_b] == list(range(per_epoch, n_steps)),
+              f"B2 read batches at steps {[r[0] for r in batches_b]}")
+        check(batches_a[per_epoch:] == batches_b,
+              "B2's second epoch did not read A's batches (label and image "
+              "checksums)")
+        print(f"[cli] resume: B2 read the same {len(batches_b)} batches as "
+              f"A's second epoch (label and image checksums equal)")
+        sd = {}
+        for run in ("a", "b"):
+            step_dir = os.path.join(path(f"ck_{run}"), str(n_steps))
+            check(os.path.isdir(step_dir), f"run {run} has no checkpoint at "
+                  f"step {n_steps}")
+            sd[run] = torch.load(os.path.join(step_dir, "state.pt"),
+                                 map_location="cpu", weights_only=True)
+        check(sd["a"]["step"] == sd["b"]["step"] == n_steps,
+              f"steps {sd['a']['step']} and {sd['b']['step']}")
+        diff = {k: float((v.double() - sd["b"]["model"][k].double()).abs()
+                         .max()) for k, v in sd["a"]["model"].items()}
+        mom = {}
+        for k, st in sd["a"]["optimizer"]["state"].items():
+            for name, v in st.items():
+                if torch.is_tensor(v):
+                    w = sd["b"]["optimizer"]["state"][k][name]
+                    mom[f"{k}.{name}"] = float((v.double() - w.double())
+                                               .abs().max())
+        worst = max(list(diff.values()) + list(mom.values()))
+        print(f"[cli] final state A vs B: {len(diff)} model tensors, "
+              f"{len(mom)} optimizer tensors, largest difference {worst}")
+        largest = sorted(((v, k) for k, v in {**diff, **mom}.items()),
+                         reverse=True)[:5]
+        check(worst == 0.0 and sd["a"]["optimizer"]["param_groups"]
+              == sd["b"]["optimizer"]["param_groups"],
+              f"the resumed run is not bitwise equal to the straight one: "
+              f"{largest}")
+        first_loss = next(r["loss"] for r in a_rows if r["event"] == "step")
+
+        # SIGTERM mid-epoch, then a resume that completes
+        s_journal = path("s.jsonl")
+        with open(path("s.log"), "w") as out:
+            proc = subprocess.Popen(
+                cli_command(data, path("ck_s"), s_journal, CLI_EPOCHS),
+                cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), stdout=out,
+                stderr=subprocess.STDOUT)
+            try:
+                deadline = time.time() + CLI_TIMEOUT
+                while time.time() < deadline and proc.poll() is None:
+                    if os.path.exists(s_journal) and sum(
+                            r["event"] == "step"
+                            for r in read_journal(s_journal)) \
+                            >= CLI_SIGTERM_AFTER:
+                        break
+                    time.sleep(0.2)
+                check(proc.poll() is None, "run S ended before its SIGTERM")
+                proc.send_signal(signal.SIGTERM)
+                t_term = time.perf_counter()
+                rc = proc.wait(timeout=CLI_TIMEOUT)
+                t_term = time.perf_counter() - t_term
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+        s_rows = read_journal(s_journal)
+        pre = [r for r in s_rows if r["event"] == "preempt_checkpoint"]
+        check(rc == 0 and len(pre) == 1 and pre[0]["saved"],
+              f"SIGTERM run: exit {rc}, preempt events {pre}:\n"
+              f"{open(path('s.log')).read()[-3000:]}")
+        print(f"[cli] run S: SIGTERM after {CLI_SIGTERM_AFTER} steps; exit "
+              f"0 after a preempt save at step {pre[0]['step']}, "
+              f"{t_term:.1f} s after the signal")
+        run_cli(cli_command(data, path("ck_s"), s_journal, CLI_EPOCHS, "-c",
+                            path("ck_s")), dict(os.environ, PYTHONPATH=ROOT),
+                path("s2.log"), "S2 (-c after SIGTERM)")
+        s_rows = read_journal(s_journal)
+        cli_report(s_rows, "runs S + S2", card)
+        s_steps = [r["step"] for r in s_rows if r["event"] == "step"]
+        check(s_steps == list(range(1, n_steps + 1)),
+              f"the SIGTERM run and its resume took steps {s_steps}")
+        check(os.path.isdir(os.path.join(path("ck_s"), str(n_steps))),
+              "the resumed SIGTERM run saved no final checkpoint")
+        torch.cuda.empty_cache()
+        cli_inprocess(torch, dev, data, first_loss, card)
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, ROOT)
     from deep_vision_tpu_torch.inference import (
         yolo_decode_outputs,
         yolo_predict_fn,
@@ -1740,6 +2218,10 @@ def main():
     check_vit_dense_route(torch, dev)
     torch.cuda.empty_cache()
     check_vit_against_cpu(torch, dev)
+
+    # -- 6. the training CLI -------------------------------------------------
+    torch.cuda.empty_cache()
+    cli_phase(torch, dev, card)
     for name, n in launches.items():
         if name not in bn_rows:
             continue
@@ -1764,7 +2246,7 @@ def main():
                         "source": "deep_vision_tpu_torch/csrc/norm.cu",
                         "launches": n, **norm_rows[name]})
 
-    # -- 6. report -----------------------------------------------------------
+    # -- 7. report -----------------------------------------------------------
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,8 @@ hand-written CUDA kernel for Hopper under `csrc/`, built at first use
 by `ops/cuda/build.py`.
 
 Entry points (`models.get_model`, `serve.Engine`,
-`inference.make_yolo_detector`) run on `cuda` unless the caller passes
-`device="cpu"`; asking for `cuda` on a machine without a card raises.
+`inference.make_yolo_detector`, `train.Trainer`, and the training CLI
+`python -m deep_vision_tpu_torch.train_cli`) run on `cuda` unless the
+caller passes `device="cpu"` (`--device cpu`); asking for `cuda` on a
+machine without a card raises.
 """

@@ -98,3 +98,16 @@ def pool_records_native(
                               int(verify))
     yield from _drain(handle, lib.dv_pool_next, lib.dv_pool_close,
                       f"pool of {len(paths)} shards")
+
+
+#: TFRecord's crc mask: masked = rotr32(crc, 15) + MASK_DELTA (mod 2**32)
+MASK_DELTA = 0xA282EAD8
+
+
+def crc32c(data: bytes) -> int:
+    """The plain crc32c of `data`, the value `google_crc32c.value` gives:
+    the native masked crc with TFRecord's mask undone (subtract the
+    delta, then rotate right by 17, the inverse of the mask's rotate
+    right by 15)."""
+    rot = (masked_crc32c(data) - MASK_DELTA) & 0xFFFFFFFF
+    return ((rot >> 17) | (rot << 15)) & 0xFFFFFFFF
