@@ -89,7 +89,22 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            A's first step, every float32 bn_act and moments call of the
            step against its plain version with times and bounds, and the
            step timed with the skip_step policy off and on;
-7. report  the card line, the kernels line, and the final status line.
+7. zoo     the rest of the classifier zoo (ZOO_BN: lenet5,
+           alexnet1/2, vgg16/19, inception1/3, resnet50v2, mobilenet1,
+           shufflenet1), each as registered (width, input, batch,
+           float32, its optimizer and schedule) through the CLI's
+           `build_trainer` on the CLI's seeded fake batch: warm-up and
+           timed steps (ms/step, images/s, peak memory), the bn_act and
+           moments launches a step against ZOO_BN's counts, a finite
+           loss; mobilenet1's and shufflenet1's every bn_act and moments
+           call of a step against its plain version with times and
+           bounds; each model's float32 step at a small batch on the card
+           against the CPU, the CPU taking the card's ReLU and max-pool
+           decisions (ZOO_CHECK_TOL); then in subprocesses `train_cli -m
+           mobilenet1` on phase 6's records under DVT_DETERMINISTIC=1, 2
+           epochs straight and 1 + `-c auto`, ending bitwise equal, and
+           `train_cli -m lenet5` one epoch on seeded MNIST idx files;
+8. report  the card line, the kernels line, and the final status line.
 """
 import json
 import os
@@ -1564,11 +1579,15 @@ if _path:
 """
 
 
-def cli_command(data, ckpt, journal, epochs, *extra):
+def cli_command(data, ckpt, journal, epochs, *extra, config=CLI_CONFIG):
+    """Phase 6's CLI runs; another `config` runs as a user would, without
+    the skip_step policy."""
+    policy = (["--health-policy", "skip_step"] if config == CLI_CONFIG
+              else [])
     return [sys.executable, "-m", "deep_vision_tpu_torch.train_cli", "-m",
-            CLI_CONFIG, "--data-dir", data, "--ckpt-dir", ckpt, "--epochs",
-            str(epochs), "--data-snapshot", "--journal", journal,
-            "--health-policy", "skip_step", *extra]
+            config, "--data-dir", data, "--ckpt-dir", ckpt, "--epochs",
+            str(epochs), "--data-snapshot", "--journal", journal, *policy,
+            *extra]
 
 
 def run_cli(cmd, env, log, label):
@@ -1585,7 +1604,7 @@ def run_cli(cmd, env, log, label):
     return secs
 
 
-def cli_report(rows, label, card):
+def cli_report(rows, label, card, tag="[cli]"):
     """Print a CLI run's numbers from its journal: ms/step (the step
     events' host timestamps within an epoch of one process, each epoch's
     first step left out), images/s,
@@ -1606,7 +1625,7 @@ def cli_report(rows, label, card):
     peak = [r["bytes"] for r in rows if r.get("note") == "peak_memory"]
     batch = steps[0]["examples"] if steps else 0
     ms = statistics.median(gaps) if gaps else float("nan")
-    print(f"[cli] {label}: {len(steps)} steps of {batch}, "
+    print(f"{tag} {label}: {len(steps)} steps of {batch}, "
           f"{ms:.3f} ms/step median ({min(gaps or [0]):.3f}-"
           f"{max(gaps or [0]):.3f}; the journal's step timestamps, host "
           f"clock), {batch / ms * 1e3:.1f} images/s; peak device memory "
@@ -1618,20 +1637,22 @@ def cli_report(rows, label, card):
           f"{ {e: round(v['top1'], 5) for e, v in evals.items()} } ({card})")
     if timed:
         g, step, proc = max(timed)
-        print(f"[cli] {label}: the longest step gap, {g:.3f} ms, ends at "
+        print(f"{tag} {label}: the longest step gap, {g:.3f} ms, ends at "
               f"step {step}, in process {proc + 1} of {len(runs)} (steps a "
               f"process: {[sum(r['run_id'] == k for r in steps) for k in runs]}"
               f")")
-    return steps
+    return steps, ms
 
 
-def f32_step_kernels(torch, dev, model, images, card):
-    """The CLI path's float32 kernel instances at its batch: every bn_act
-    and moments call of one step against its plain version (forward, dx
-    and the moments backward bitwise; dscale, dbias and the moments
-    within BN_SUM_TOL / NORM_SUM_TOL x sum|terms|), with kernel, plain
-    and bound times summed over the step's calls, and the library calls
-    beside the moments (LIBRARY_CALL)."""
+def f32_step_kernels(torch, dev, model, images, card, counts=(48, 53),
+                     tag="[cli]"):
+    """A float32 step's kernel instances at its batch: every bn_act and
+    moments call of one step of `model` on `images` against its plain
+    version (forward, dx and the moments backward bitwise; dscale, dbias
+    and the moments within BN_SUM_TOL / NORM_SUM_TOL x sum|terms|), with
+    kernel, plain and bound times summed over the step's calls, and the
+    library calls beside the moments (LIBRARY_CALL). `counts`: the
+    step's (bn_act, moments) call counts. Returns the per-kernel sums."""
     from deep_vision_tpu_torch.ops.cuda.bn_act import (
         bn_act_backward,
         bn_act_bwd_plain,
@@ -1727,19 +1748,23 @@ def f32_step_kernels(torch, dev, model, images, card):
             MOMENTS_BWD_OPS * x.numel(), times[5])
         del x, xd, got, want
     for name, row in tot.items():
+        if not row["calls"]:
+            continue
         bound_ms, bound_by = bound_of(row["bytes"], row["ops"])
+        row["bound_ms"] = bound_ms
         library = (f"{LIBRARY_CALL[name]} {row['library_ms']:.4f} ms"
                    if name in LIBRARY_CALL else "none")
-        print(f"[cli] float32 batch {images.shape[0]}: {name} over one "
+        print(f"{tag} float32 batch {images.shape[0]}: {name} over one "
               f"step's {row['calls']} calls: kernel {row['ms']:.4f} ms, "
               f"plain {row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), {100 * bound_ms / row['ms']:.1f}% of the "
               f"bound; library {library} ({card})")
-    check(tot["bn_act_fwd"]["calls"] == 48
-          and tot["bn_moments_fwd"]["calls"] == 53,
-          f"the CLI's ResNet-50 step should make 48 bn_act and 53 moments "
-          f"calls, got {tot['bn_act_fwd']['calls']} and "
+    check((tot["bn_act_fwd"]["calls"], tot["bn_moments_fwd"]["calls"])
+          == tuple(counts),
+          f"{tag} the step should make {counts[0]} bn_act and {counts[1]} "
+          f"moments calls, got {tot['bn_act_fwd']['calls']} and "
           f"{tot['bn_moments_fwd']['calls']}")
+    return tot
 
 
 def cli_inprocess(torch, dev, data, first_loss, card):
@@ -1798,166 +1823,607 @@ def cli_inprocess(torch, dev, data, first_loss, card):
         torch.backends.cudnn.allow_tf32 = tf32
 
 
-def cli_phase(torch, dev, card):
-    """Phase 6: the training CLI in subprocesses, as a user runs it."""
-    from deep_vision_tpu_torch.obs.journal import read_journal
-    from deep_vision_tpu_torch.ops.cuda.build import BUILD_DIR
+def cli_records(tmp):
+    """Phases 6 and 7's seeded JPEG records under `tmp`/data, and the
+    batch hook as sitecustomize under `tmp`/hook. -> (data dir, the
+    environment of a hooked run, of a deterministic one)."""
     from deep_vision_tpu_torch.tools.synth_records import write_synth_records
 
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        data = os.path.join(tmp, "data")
-        t0 = time.perf_counter()
-        write_synth_records(os.path.join(data, "tfrecord_train"),
-                            CLI_TRAIN_IMAGES, CLI_SIZE, CLI_TRAIN_SHARDS,
-                            "jpeg", seed=0)
-        write_synth_records(os.path.join(data, "tfrecord_val"),
-                            CLI_VAL_IMAGES, CLI_SIZE, CLI_VAL_SHARDS,
-                            "jpeg", seed=1)
-        print(f"[cli] wrote {CLI_TRAIN_IMAGES} + {CLI_VAL_IMAGES} seeded "
-              f"{CLI_SIZE}x{CLI_SIZE} JPEG records in "
-              f"{time.perf_counter() - t0:.1f} s")
-        hook = os.path.join(tmp, "hook")
-        os.makedirs(hook)
-        with open(os.path.join(hook, "sitecustomize.py"), "w") as f:
-            f.write(BATCH_HOOK)
-        env = dict(os.environ, PYTHONPATH=hook + os.pathsep + ROOT)
-        det = dict(env, DVT_DETERMINISTIC="1",
-                   CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    data = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    write_synth_records(os.path.join(data, "tfrecord_train"),
+                        CLI_TRAIN_IMAGES, CLI_SIZE, CLI_TRAIN_SHARDS,
+                        "jpeg", seed=0)
+    write_synth_records(os.path.join(data, "tfrecord_val"),
+                        CLI_VAL_IMAGES, CLI_SIZE, CLI_VAL_SHARDS,
+                        "jpeg", seed=1)
+    print(f"[cli] wrote {CLI_TRAIN_IMAGES} + {CLI_VAL_IMAGES} seeded "
+          f"{CLI_SIZE}x{CLI_SIZE} JPEG records in "
+          f"{time.perf_counter() - t0:.1f} s")
+    hook = os.path.join(tmp, "hook")
+    os.makedirs(hook)
+    with open(os.path.join(hook, "sitecustomize.py"), "w") as f:
+        f.write(BATCH_HOOK)
+    env = dict(os.environ, PYTHONPATH=hook + os.pathsep + ROOT)
+    det = dict(env, DVT_DETERMINISTIC="1", CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    return data, env, det
 
-        def path(name):
-            return os.path.join(tmp, name)
 
-        # the user's run: two epochs, timed
-        run_cli(cli_command(data, path("ck_t"), path("t.jsonl"), CLI_EPOCHS),
-                dict(env, SMOKE_BATCH_LOG=path("t_batches.json")),
-                path("t.log"), "T (2 epochs)")
-        t_rows = read_journal(path("t.jsonl"))
-        steps = cli_report(t_rows, "run T", card)
-        n_steps = CLI_EPOCHS * CLI_TRAIN_IMAGES // 256
-        check(len(steps) == n_steps, f"run T took {len(steps)} steps, want "
-              f"{n_steps}")
-        # the kernels of the path, counted in the CLI process: every
-        # BatchNorm of a train step takes its moments, and every fused one
-        # runs bn_act in the train steps, the eval batches and the
-        # Trainer's one sample forward at construction
-        evals = CLI_EPOCHS * CLI_VAL_IMAGES // 256
-        launches = json.load(open(path("t_batches.json")))["launches"]
-        want = {"bn_act_fwd": 48 * (n_steps + evals + 1),
-                "bn_act_bwd": 48 * n_steps,
-                "bn_moments_fwd": 53 * n_steps,
-                "bn_moments_bwd": 53 * n_steps}
-        print(f"[cli] run T's kernel launches {launches} over {n_steps} "
-              f"steps and {evals} eval batches")
-        check(launches == want, f"run T's launches {launches}, want {want}")
-        check(all(np.isfinite(r["loss"]) for r in steps), "non-finite loss")
-        check(t_rows[-1]["event"] == "exit", "run T's journal has no exit")
-        for line in open(path("t.log")).read().splitlines():
-            if line.startswith(("precision:", "model ", "peak device")):
-                print(f"[cli] run T says: {line}")
+def cli_phase(torch, dev, card, tmp, data, env, det):
+    """Phase 6: the training CLI in subprocesses, as a user runs it, on
+    `cli_records`' data under `tmp`."""
+    from deep_vision_tpu_torch.obs.journal import read_journal
 
-        # the resume check: A straight, B in two processes, deterministic
-        a_log, b_log = path("a_batches.json"), path("b_batches.json")
-        run_cli(cli_command(data, path("ck_a"), path("a.jsonl"), CLI_EPOCHS),
-                dict(det, SMOKE_BATCH_LOG=a_log), path("a.log"),
-                "A (2 epochs, deterministic)")
-        run_cli(cli_command(data, path("ck_b"), path("b.jsonl"), 1),
-                dict(det, SMOKE_BATCH_LOG=path("b1_batches.json")),
-                path("b1.log"), "B1 (1 epoch, deterministic)")
-        run_cli(cli_command(data, path("ck_b"), path("b.jsonl"), CLI_EPOCHS,
-                            "-c", path("ck_b")),
-                dict(det, SMOKE_BATCH_LOG=b_log), path("b2.log"),
-                "B2 (-c, to epoch 2, deterministic)")
-        a_rows, b_rows = read_journal(path("a.jsonl")), read_journal(
-            path("b.jsonl"))
-        cli_report(a_rows, "run A", card)
-        cli_report(b_rows, "runs B1 + B2", card)
-        resumes = [r for r in b_rows if r["event"] == "data_resume"]
-        check([r["verdict"] for r in resumes] == ["restored"],
-              f"B2's data_resume events {resumes}")
-        batches_a = json.load(open(a_log))["batches"]
-        batches_b = json.load(open(b_log))["batches"]
-        per_epoch = CLI_TRAIN_IMAGES // 256
-        check([r[0] for r in batches_b] == list(range(per_epoch, n_steps)),
-              f"B2 read batches at steps {[r[0] for r in batches_b]}")
-        check(batches_a[per_epoch:] == batches_b,
-              "B2's second epoch did not read A's batches (label and image "
-              "checksums)")
-        print(f"[cli] resume: B2 read the same {len(batches_b)} batches as "
-              f"A's second epoch (label and image checksums equal)")
-        sd = {}
-        for run in ("a", "b"):
-            step_dir = os.path.join(path(f"ck_{run}"), str(n_steps))
-            check(os.path.isdir(step_dir), f"run {run} has no checkpoint at "
-                  f"step {n_steps}")
-            sd[run] = torch.load(os.path.join(step_dir, "state.pt"),
-                                 map_location="cpu", weights_only=True)
-        check(sd["a"]["step"] == sd["b"]["step"] == n_steps,
-              f"steps {sd['a']['step']} and {sd['b']['step']}")
-        diff = {k: float((v.double() - sd["b"]["model"][k].double()).abs()
-                         .max()) for k, v in sd["a"]["model"].items()}
-        mom = {}
-        for k, st in sd["a"]["optimizer"]["state"].items():
-            for name, v in st.items():
-                if torch.is_tensor(v):
-                    w = sd["b"]["optimizer"]["state"][k][name]
-                    mom[f"{k}.{name}"] = float((v.double() - w.double())
-                                               .abs().max())
-        worst = max(list(diff.values()) + list(mom.values()))
-        print(f"[cli] final state A vs B: {len(diff)} model tensors, "
-              f"{len(mom)} optimizer tensors, largest difference {worst}")
-        largest = sorted(((v, k) for k, v in {**diff, **mom}.items()),
-                         reverse=True)[:5]
-        check(worst == 0.0 and sd["a"]["optimizer"]["param_groups"]
-              == sd["b"]["optimizer"]["param_groups"],
-              f"the resumed run is not bitwise equal to the straight one: "
-              f"{largest}")
-        first_loss = next(r["loss"] for r in a_rows if r["event"] == "step")
+    def path(name):
+        return os.path.join(tmp, name)
 
-        # SIGTERM mid-epoch, then a resume that completes
-        s_journal = path("s.jsonl")
-        with open(path("s.log"), "w") as out:
-            proc = subprocess.Popen(
-                cli_command(data, path("ck_s"), s_journal, CLI_EPOCHS),
-                cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), stdout=out,
-                stderr=subprocess.STDOUT)
-            try:
-                deadline = time.time() + CLI_TIMEOUT
-                while time.time() < deadline and proc.poll() is None:
-                    if os.path.exists(s_journal) and sum(
-                            r["event"] == "step"
-                            for r in read_journal(s_journal)) \
-                            >= CLI_SIGTERM_AFTER:
-                        break
-                    time.sleep(0.2)
-                check(proc.poll() is None, "run S ended before its SIGTERM")
-                proc.send_signal(signal.SIGTERM)
-                t_term = time.perf_counter()
-                rc = proc.wait(timeout=CLI_TIMEOUT)
-                t_term = time.perf_counter() - t_term
-            finally:
-                if proc.poll() is None:
-                    proc.kill()
-        s_rows = read_journal(s_journal)
-        pre = [r for r in s_rows if r["event"] == "preempt_checkpoint"]
-        check(rc == 0 and len(pre) == 1 and pre[0]["saved"],
-              f"SIGTERM run: exit {rc}, preempt events {pre}:\n"
-              f"{open(path('s.log')).read()[-3000:]}")
-        print(f"[cli] run S: SIGTERM after {CLI_SIGTERM_AFTER} steps; exit "
-              f"0 after a preempt save at step {pre[0]['step']}, "
-              f"{t_term:.1f} s after the signal")
-        run_cli(cli_command(data, path("ck_s"), s_journal, CLI_EPOCHS, "-c",
-                            path("ck_s")), dict(os.environ, PYTHONPATH=ROOT),
-                path("s2.log"), "S2 (-c after SIGTERM)")
-        s_rows = read_journal(s_journal)
-        cli_report(s_rows, "runs S + S2", card)
-        s_steps = [r["step"] for r in s_rows if r["event"] == "step"]
-        check(s_steps == list(range(1, n_steps + 1)),
-              f"the SIGTERM run and its resume took steps {s_steps}")
-        check(os.path.isdir(os.path.join(path("ck_s"), str(n_steps))),
-              "the resumed SIGTERM run saved no final checkpoint")
+    # the user's run: two epochs, timed
+    run_cli(cli_command(data, path("ck_t"), path("t.jsonl"), CLI_EPOCHS),
+            dict(env, SMOKE_BATCH_LOG=path("t_batches.json")),
+            path("t.log"), "T (2 epochs)")
+    t_rows = read_journal(path("t.jsonl"))
+    steps, _ = cli_report(t_rows, "run T", card)
+    n_steps = CLI_EPOCHS * CLI_TRAIN_IMAGES // 256
+    check(len(steps) == n_steps, f"run T took {len(steps)} steps, want "
+          f"{n_steps}")
+    # the kernels of the path, counted in the CLI process: every
+    # BatchNorm of a train step takes its moments, and every fused one
+    # runs bn_act in the train steps, the eval batches and the
+    # Trainer's one sample forward at construction
+    evals = CLI_EPOCHS * CLI_VAL_IMAGES // 256
+    launches = json.load(open(path("t_batches.json")))["launches"]
+    want = {"bn_act_fwd": 48 * (n_steps + evals + 1),
+            "bn_act_bwd": 48 * n_steps,
+            "bn_moments_fwd": 53 * n_steps,
+            "bn_moments_bwd": 53 * n_steps}
+    print(f"[cli] run T's kernel launches {launches} over {n_steps} "
+          f"steps and {evals} eval batches")
+    check(launches == want, f"run T's launches {launches}, want {want}")
+    check(all(np.isfinite(r["loss"]) for r in steps), "non-finite loss")
+    check(t_rows[-1]["event"] == "exit", "run T's journal has no exit")
+    for line in open(path("t.log")).read().splitlines():
+        if line.startswith(("precision:", "model ", "peak device")):
+            print(f"[cli] run T says: {line}")
+
+    # the resume check: A straight, B in two processes, deterministic
+    a_log, b_log = path("a_batches.json"), path("b_batches.json")
+    run_cli(cli_command(data, path("ck_a"), path("a.jsonl"), CLI_EPOCHS),
+            dict(det, SMOKE_BATCH_LOG=a_log), path("a.log"),
+            "A (2 epochs, deterministic)")
+    run_cli(cli_command(data, path("ck_b"), path("b.jsonl"), 1),
+            dict(det, SMOKE_BATCH_LOG=path("b1_batches.json")),
+            path("b1.log"), "B1 (1 epoch, deterministic)")
+    run_cli(cli_command(data, path("ck_b"), path("b.jsonl"), CLI_EPOCHS,
+                        "-c", path("ck_b")),
+            dict(det, SMOKE_BATCH_LOG=b_log), path("b2.log"),
+            "B2 (-c, to epoch 2, deterministic)")
+    a_rows, b_rows = read_journal(path("a.jsonl")), read_journal(
+        path("b.jsonl"))
+    cli_report(a_rows, "run A", card)
+    cli_report(b_rows, "runs B1 + B2", card)
+    resumes = [r for r in b_rows if r["event"] == "data_resume"]
+    check([r["verdict"] for r in resumes] == ["restored"],
+          f"B2's data_resume events {resumes}")
+    batches_a = json.load(open(a_log))["batches"]
+    batches_b = json.load(open(b_log))["batches"]
+    per_epoch = CLI_TRAIN_IMAGES // 256
+    check([r[0] for r in batches_b] == list(range(per_epoch, n_steps)),
+          f"B2 read batches at steps {[r[0] for r in batches_b]}")
+    check(batches_a[per_epoch:] == batches_b,
+          "B2's second epoch did not read A's batches (label and image "
+          "checksums)")
+    print(f"[cli] resume: B2 read the same {len(batches_b)} batches as "
+          f"A's second epoch (label and image checksums equal)")
+    sd = {}
+    for run in ("a", "b"):
+        step_dir = os.path.join(path(f"ck_{run}"), str(n_steps))
+        check(os.path.isdir(step_dir), f"run {run} has no checkpoint at "
+              f"step {n_steps}")
+        sd[run] = torch.load(os.path.join(step_dir, "state.pt"),
+                             map_location="cpu", weights_only=True)
+    check(sd["a"]["step"] == sd["b"]["step"] == n_steps,
+          f"steps {sd['a']['step']} and {sd['b']['step']}")
+    diff = {k: float((v.double() - sd["b"]["model"][k].double()).abs()
+                     .max()) for k, v in sd["a"]["model"].items()}
+    mom = {}
+    for k, st in sd["a"]["optimizer"]["state"].items():
+        for name, v in st.items():
+            if torch.is_tensor(v):
+                w = sd["b"]["optimizer"]["state"][k][name]
+                mom[f"{k}.{name}"] = float((v.double() - w.double())
+                                           .abs().max())
+    worst = max(list(diff.values()) + list(mom.values()))
+    print(f"[cli] final state A vs B: {len(diff)} model tensors, "
+          f"{len(mom)} optimizer tensors, largest difference {worst}")
+    largest = sorted(((v, k) for k, v in {**diff, **mom}.items()),
+                     reverse=True)[:5]
+    check(worst == 0.0 and sd["a"]["optimizer"]["param_groups"]
+          == sd["b"]["optimizer"]["param_groups"],
+          f"the resumed run is not bitwise equal to the straight one: "
+          f"{largest}")
+    first_loss = next(r["loss"] for r in a_rows if r["event"] == "step")
+
+    # SIGTERM mid-epoch, then a resume that completes
+    s_journal = path("s.jsonl")
+    with open(path("s.log"), "w") as out:
+        proc = subprocess.Popen(
+            cli_command(data, path("ck_s"), s_journal, CLI_EPOCHS),
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), stdout=out,
+            stderr=subprocess.STDOUT)
+        try:
+            deadline = time.time() + CLI_TIMEOUT
+            while time.time() < deadline and proc.poll() is None:
+                if os.path.exists(s_journal) and sum(
+                        r["event"] == "step"
+                        for r in read_journal(s_journal)) \
+                        >= CLI_SIGTERM_AFTER:
+                    break
+                time.sleep(0.2)
+            check(proc.poll() is None, "run S ended before its SIGTERM")
+            proc.send_signal(signal.SIGTERM)
+            t_term = time.perf_counter()
+            rc = proc.wait(timeout=CLI_TIMEOUT)
+            t_term = time.perf_counter() - t_term
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+    s_rows = read_journal(s_journal)
+    pre = [r for r in s_rows if r["event"] == "preempt_checkpoint"]
+    check(rc == 0 and len(pre) == 1 and pre[0]["saved"],
+          f"SIGTERM run: exit {rc}, preempt events {pre}:\n"
+          f"{open(path('s.log')).read()[-3000:]}")
+    print(f"[cli] run S: SIGTERM after {CLI_SIGTERM_AFTER} steps; exit "
+          f"0 after a preempt save at step {pre[0]['step']}, "
+          f"{t_term:.1f} s after the signal")
+    run_cli(cli_command(data, path("ck_s"), s_journal, CLI_EPOCHS, "-c",
+                        path("ck_s")), dict(os.environ, PYTHONPATH=ROOT),
+            path("s2.log"), "S2 (-c after SIGTERM)")
+    s_rows = read_journal(s_journal)
+    cli_report(s_rows, "runs S + S2", card)
+    s_steps = [r["step"] for r in s_rows if r["event"] == "step"]
+    check(s_steps == list(range(1, n_steps + 1)),
+          f"the SIGTERM run and its resume took steps {s_steps}")
+    check(os.path.isdir(os.path.join(path("ck_s"), str(n_steps))),
+          "the resumed SIGTERM run saved no final checkpoint")
+    torch.cuda.empty_cache()
+    cli_inprocess(torch, dev, data, first_loss, card)
+
+
+#: phase 7: the classifier zoo, each config as registered (float32), and
+#: its (fused, training) BatchNorms a training step: bn_act forward and
+#: backward launches, moments forward and backward launches
+#: (tests/test_torch_zoo_models.py counts them on the CPU)
+ZOO_BN = {"lenet5": (0, 0), "alexnet1": (0, 0), "alexnet2": (0, 0),
+          "vgg16": (0, 0), "vgg19": (0, 0), "inception1": (0, 59),
+          "inception3": (0, 96), "resnet50v2": (16, 49),
+          "mobilenet1": (27, 27), "shufflenet1": (17, 49)}
+ZOO_WARMUP, ZOO_STEPS = 2, 5
+#: the card-against-CPU step's batch: 8 where BatchNorms take batch
+#: statistics (their deviation over fewer rows magnifies the two sides'
+#: summation differences), else 2
+ZOO_CHECK_BATCH = 8
+#: that step's tolerances, CHECK_TOL's rules: the loss relative; each
+#: parameter's gradient and each running statistic relative to its
+#: tensor's largest magnitude. The CPU step takes the card step's ReLU
+#: and max-pool decisions (BranchReplay): at full width a step has ~1e7
+#: ReLU inputs and ~1e6 pool windows, and the few within the two sides'
+#: rounding of a tie otherwise fall the other way on one side, each
+#: moving one element's gradient by its whole size (VGG-19, no
+#: BatchNorm: 7.0e-2 of ConvBN_11's largest gradient; with the ReLUs
+#: replayed, 5.5e-2 of ConvBN_15's; on the H100). A fused BatchNorm's
+#: scale and bias gradients come from the bn_act backward's sums
+#: da = sum g'x and db = sum g' as dscale = (da - mean db) rsqrt(var +
+#: eps) and dbias = db, so they may also differ by BN_SUM_TOL x the sums
+#: of |terms| carried through that: rsqrt(var + eps) (sum|g'x| + |mean|
+#: sum|g'|) and sum|g'| (`fused_sum_bounds`); the subtraction cancels
+#: where |mean| >> std (MobileNet's stem: 9.7e-2 of its largest scale
+#: gradient; on the H100)
+ZOO_CHECK_TOL = {"loss": 1e-4, "grad": 2e-2, "stats": 1e-3}
+#: A running mean is held against the larger of its largest magnitude and
+#: a tenth of its batch's deviation, the step's own scale for it: where
+#: the batch mean is zero in exact arithmetic (ShuffleNet's 1x1 group
+#: conv after a zero-mean BatchNorm output) it is rounding noise.
+#: Gradients that are zero in exact arithmetic, each held at the grad
+#: tolerance of another gradient of its layer: ShuffleNet's depthwise
+#: BatchNorm shift, which a 1x1 conv carries into the next training
+#: BatchNorm (tests/test_torch_zoo_models.py's CANCELLED)
+ZOO_CANCELLED = {"shufflenet1": ("ConvBN_1.BatchNorm_0.bias",
+                                 "ConvBN_1.BatchNorm_0.scale")}
+#: the zoo's CLI runs: mobilenet1 on phase 6's records, lenet5 on seeded
+#: MNIST idx files (train, test images)
+ZOO_CLI_CONFIG, ZOO_CLI_EPOCHS = "mobilenet1", 2
+ZOO_MNIST = (6000, 1000)
+
+
+def zoo_launches(torch, fused_scale_bias_act, batch_moments):
+    return {"bn_act_fwd": fused_scale_bias_act.launches,
+            "bn_act_bwd": fused_scale_bias_act.backward_launches,
+            "bn_moments_fwd": batch_moments.launches,
+            "bn_moments_bwd": batch_moments.backward_launches}
+
+
+def zoo_steps(torch, dev, card):
+    """Phase 7a and 7c: each zoo config through the CLI's route
+    (profile_train's `make_zoo_parts`: `build_trainer` with the
+    registered model, optimizer and schedule, at its width, input size,
+    batch and float32, on the CLI's seeded fake batch), with the CLI's
+    precision (cuDNN TF32 on, matmuls float32):
+    warm-up, then timed steps with the kernels counted; for mobilenet1
+    and shufflenet1 every bn_act and moments call of a step against its
+    plain version. Returns {config: (ms/step, images/s, peak GiB)}."""
+    from deep_vision_tpu_torch.configs import get_config
+    from deep_vision_tpu_torch.ops.cuda.bn_act import fused_scale_bias_act
+    from deep_vision_tpu_torch.ops.cuda.norm import batch_moments
+    from deep_vision_tpu_torch.tools.profile_train import make_zoo_parts
+
+    out = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # the CLI keeps the default
+    try:
+        for name in ZOO_BN:
+            cfg = get_config(name)
+            base = torch.cuda.memory_allocated()  # what earlier phases hold
+            t0 = time.perf_counter()
+            trainer, placed = make_zoo_parts(name, device=dev)
+            build_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(ZOO_WARMUP):
+                trainer.train_step(placed)
+            torch.cuda.synchronize()
+            fused_scale_bias_act.launches = 0  # the zoo step's run starts
+            fused_scale_bias_act.backward_launches = 0
+            batch_moments.launches = 0
+            batch_moments.backward_launches = 0
+            events, losses = [], []
+            for _ in range(ZOO_STEPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                losses.append(trainer.train_step(placed)["loss"])
+                end.record()
+                events.append((start, end))
+            torch.cuda.synchronize()
+            launches = zoo_launches(torch, fused_scale_bias_act,
+                                    batch_moments)  # ... and ends here
+            ms = statistics.median(a.elapsed_time(b) for a, b in events)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            losses = [float(v) for v in losses]
+            fused, stats = ZOO_BN[name]
+            want = {"bn_act_fwd": fused * ZOO_STEPS,
+                    "bn_act_bwd": fused * ZOO_STEPS,
+                    "bn_moments_fwd": stats * ZOO_STEPS,
+                    "bn_moments_bwd": stats * ZOO_STEPS}
+            n_params = sum(p.numel() for p in trainer.model.parameters())
+            ips = cfg.batch_size / ms * 1e3
+            print(f"[zoo] {name} ({n_params} parameters, "
+                  f"{'x'.join(map(str, cfg.input_shape))}, float32 batch "
+                  f"{cfg.batch_size}, {cfg.optimizer['name']}): {ms:.3f} "
+                  f"ms/step median of {ZOO_STEPS} (CUDA events), {ips:.1f} "
+                  f"images/s, peak memory {peak:.2f} GiB "
+                  f"(max_memory_allocated over what was held before); loss "
+                  f"{[round(v, 4) for v in losses]}; launches {launches} "
+                  f"over {ZOO_STEPS} steps; built in {build_s:.1f} s "
+                  f"({card})")
+            check(launches == want, f"{name}: launches {launches}, want "
+                  f"{want} ({fused} fused and {stats} training BatchNorms "
+                  f"a step)")
+            check(all(np.isfinite(losses)), f"{name}: non-finite loss")
+            out[name] = (ms, ips, peak)
+            if name in ("mobilenet1", "shufflenet1"):
+                f32_step_kernels(torch, dev, trainer.model, placed["image"],
+                                 card, counts=(fused, stats),
+                                 tag=f"[zoo] {name}")
+            del trainer, placed
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return out
+
+
+class BranchReplay:
+    """Record every ReLU decision (`F.relu`, a ConvBN's unfused ReLU, the
+    ReLU inside bn_act) and every max pool's choice (`F.max_pool2d`) of
+    one forward, and impose them, in call order, on a second forward of
+    the same model: there each ReLU keeps its input where the first
+    run's input was positive, and each pool takes the element the first
+    run's pool took. The second run's gradients then flow where the
+    first run's did."""
+
+    def __init__(self, torch):
+        import deep_vision_tpu_torch.nn.layers as layers
+
+        self.torch, self.layers, self.f = torch, layers, torch.nn.functional
+        self.relu0, self.pool0 = self.f.relu, self.f.max_pool2d
+        self.fused0 = layers.fused_scale_bias_act
+        self.taken, self.replay, self.i = [], False, 0
+
+    def _take(self, choice):
+        if not self.replay:
+            self.taken.append(choice.cpu())
+            return None
+        self.i += 1
+        return self.taken[self.i - 1]
+
+    def relu(self, x, inplace=False):
+        m = self._take(x > 0)
+        if m is None:
+            return self.relu0(x)
+        return self.torch.where(m.to(x.device), x, 0.0)
+
+    def fused(self, x, a, b, residual=None, act=None):
+        if act != "relu":
+            return self.fused0(x, a, b, residual=residual, act=act)
+        if not self.replay:
+            y = self.fused0(x, a, b, residual=residual, act=act)
+            self._take(y > 0)
+            return y
+        z = self.fused0(x, a, b, residual=residual, act=None)
+        return self.torch.where(self._take(None).to(z.device), z, 0.0)
+
+    def max_pool2d(self, x, *args, **kw):
+        if not self.replay:
+            y, idx = self.pool0(x, *args, **kw, return_indices=True)
+            self._take(idx)
+            return y
+        idx = self._take(None).to(x.device)
+        n, c = idx.shape[:2]
+        flat = x.reshape(n, c, -1).gather(2, idx.reshape(n, c, -1))
+        fmt = (self.torch.channels_last if x.is_contiguous(
+            memory_format=self.torch.channels_last)
+            else self.torch.contiguous_format)
+        return flat.reshape(idx.shape).contiguous(memory_format=fmt)
+
+    def run(self, model, fn, replay):
+        """fn() with the ReLUs and max pools of `model` routed here."""
+        from deep_vision_tpu_torch.nn.layers import ConvBN
+
+        self.replay, self.i = replay, 0
+        convbns = [m for m in model.modules()
+                   if isinstance(m, ConvBN) and m.act is self.relu0]
+        self.f.relu, self.f.max_pool2d = self.relu, self.max_pool2d
+        self.layers.fused_scale_bias_act = self.fused
+        for m in convbns:
+            m.act = self.relu
+        try:
+            return fn()
+        finally:
+            self.f.relu, self.f.max_pool2d = self.relu0, self.pool0
+            self.layers.fused_scale_bias_act = self.fused0
+            for m in convbns:
+                m.act = self.relu0
+
+
+def fused_sum_bounds(torch, model):
+    """Hooks on `model`'s fused BatchNorms that record, over one training
+    step, the sums of |terms| behind each one's scale and bias gradient
+    (see ZOO_CHECK_TOL). -> ({parameter name: per-channel bound}, the
+    hook handles)."""
+    from deep_vision_tpu_torch.nn.layers import BatchNorm
+
+    bounds, handles = {}, []
+    for name, m in model.named_modules():
+        if not (isinstance(m, BatchNorm) and m.act is not None):
+            continue
+
+        def forward(mod, args, out, name=name):
+            x = args[0].detach().double()
+            dims = (0, 2, 3)
+            mean = x.mean(dims)
+            r = (x.square().mean(dims) - mean.square()).clamp_min(0.0).add(
+                mod.epsilon).rsqrt()
+
+            def grad(g):
+                gp = torch.where(out > 0, g, 0.0).double()
+                a = (gp * x).abs().sum(dims)
+                b = gp.abs().sum(dims)
+                bounds[f"{name}.scale"] = (r * (a + mean.abs() * b)).cpu()
+                bounds[f"{name}.bias"] = b.cpu()
+
+            out.register_hook(grad)
+
+        handles.append(m.register_forward_hook(forward))
+    return bounds, handles
+
+
+def zoo_against_cpu(torch, dev):
+    """Phase 7b: each zoo config's model at its registered width and
+    input, one float32 training step (TF32 off) at a small batch on the
+    card (kernels) and on the CPU (plain versions) from the same seeded
+    weights and batch, dropout off on both (the two devices' generators
+    draw different masks), the CPU taking the card's ReLU and max-pool
+    decisions (BranchReplay): the loss, every parameter's gradient and
+    every running statistic within ZOO_CHECK_TOL."""
+    import copy
+
+    from deep_vision_tpu_torch.configs import get_config
+    from deep_vision_tpu_torch.losses import classification_loss_fn
+    from deep_vision_tpu_torch.models import get_model
+    from deep_vision_tpu_torch.nn.layers import Dropout
+    from deep_vision_tpu_torch.ops.cuda.bn_act import fused_scale_bias_act
+    from deep_vision_tpu_torch.ops.cuda.norm import batch_moments
+
+    for name in ZOO_BN:
+        cfg = get_config(name)
+        n = ZOO_CHECK_BATCH if ZOO_BN[name][1] else 2
+        rng = np.random.RandomState(7)
+        x = rng.rand(n, *cfg.input_shape).astype(np.float32)
+        y = rng.randint(0, cfg.num_classes, n).astype(np.int32)
+        cpu = get_model(cfg.model, device="cpu", seed=0, train=True,
+                        num_classes=cfg.num_classes, **cfg.model_kwargs)
+        for m in cpu.modules():
+            if isinstance(m, Dropout):
+                m.rate = 0.0
+        card_model = copy.deepcopy(cpu).to(dev)
+        runs, branches = [], BranchReplay(torch)
+        bounds, handles = fused_sum_bounds(torch, card_model)
+        for model in (card_model, cpu):
+            where = next(model.parameters()).device
+            before = zoo_launches(torch, fused_scale_bias_act, batch_moments)
+            batch = {"image": torch.from_numpy(x).to(where),
+                     "label": torch.from_numpy(y).to(where)}
+            loss, _ = branches.run(model, lambda: classification_loss_fn(
+                model(batch["image"]), batch), replay=model is cpu)
+            loss.backward()
+            after = zoo_launches(torch, fused_scale_bias_act, batch_moments)
+            runs.append((
+                loss.item(),
+                {k: p.grad.detach().cpu() for k, p in
+                 model.named_parameters()},
+                {k: b.detach().cpu() for k, b in model.named_buffers()},
+                {k: after[k] - before[k] for k in after}))
+        for h in handles:
+            h.remove()
+        (lk, gk, sk, nk), (lp, gp, sp, np_) = runs
+        fused, stats = ZOO_BN[name]
+        check(nk == {"bn_act_fwd": fused, "bn_act_bwd": fused,
+                     "bn_moments_fwd": stats, "bn_moments_bwd": stats}
+              and not any(np_.values()),
+              f"{name}: card launches {nk}, cpu {np_}")
+        check(branches.i == len(branches.taken),
+              f"{name}: the CPU step made {branches.i} ReLU and pool calls, "
+              f"the card step {len(branches.taken)}")
+        check(set(bounds) == {f"{k}.{p}" for k, m in
+                              card_model.named_modules()
+                              if getattr(m, "act", None) == "relu"
+                              for p in ("scale", "bias")},
+              f"{name}: sums recorded for {len(bounds)} fused parameters")
+        tol = ZOO_CHECK_TOL
+        # each error as a share of what its tolerance allows
+        share = {"loss": abs(lk - lp) / abs(lp) / tol["loss"], "grad": 0.0,
+                 "stats": 0.0}
+        where = {}
+        for kind, got, want in (("grad", gk, gp), ("stats", sk, sp)):
+            for k in want:
+                scale = float(want[k].abs().max())
+                cancelled = ZOO_CANCELLED.get(name)
+                if kind == "grad" and cancelled and k.endswith(cancelled[0]):
+                    scale = float(want[k[:-len(cancelled[0])]
+                                       + cancelled[1]].abs().max())
+                allowed = tol[kind] * max(scale, 1e-30)
+                if kind == "grad" and k in bounds:
+                    allowed = allowed + BN_SUM_TOL * bounds[k]
+                if kind == "stats" and k.endswith(".mean"):
+                    # the step moved it by 0.1 x the batch mean, from 0;
+                    # the batch's own spread moved var from 1
+                    var = want[k[:-4] + "var"]
+                    spread = 0.1 * float(((var - 0.9) / 0.1).clamp_min(0.0)
+                                         .sqrt().max())
+                    allowed = tol[kind] * max(scale, spread, 1e-30)
+                e = float(((got[k] - want[k]).abs() / allowed).max())
+                if e > share[kind]:
+                    share[kind], where[kind] = e, k
+        print(f"[zoo] {name} float32 batch {n}, card vs CPU "
+              f"({len(branches.taken)} ReLU and max-pool calls replayed, "
+              f"{len(bounds) // 2} fused BatchNorms): loss {lk:.6f} vs "
+              f"{lp:.6f}; the worst error as a share of its tolerance "
+              f"{ {k: float(f'{v:.3e}') for k, v in share.items()} } at "
+              f"{where}; tolerances {tol} (+ BN_SUM_TOL x the fused "
+              f"BatchNorms' sums of |terms|)")
+        for kind, e in share.items():
+            check(e <= 1.0, f"{name}: card vs CPU {kind} error {e:.3f} of "
+                  f"its tolerance ({where.get(kind, kind)})")
+        del cpu, card_model, runs
         torch.cuda.empty_cache()
-        cli_inprocess(torch, dev, data, first_loss, card)
+
+
+def zoo_cli(torch, card, tmp, data, env, det):
+    """Phase 7d and 7e: `train_cli -m mobilenet1` as a user runs it on
+    phase 6's records under DVT_DETERMINISTIC=1: run A 2 epochs, run B 1
+    epoch then `-c auto` to 2 in a fresh process; B's second epoch must
+    read A's batches and end bitwise equal to A (the dropout stream
+    included), and A must launch 27 + 27 bn_act and 27 + 27 moments a
+    step (bn_act also in eval and the Trainer's sample forward). Then
+    `train_cli -m lenet5` one epoch on seeded MNIST idx files. Returns
+    mobilenet1's ms/step from A's journal."""
+    from deep_vision_tpu_torch.obs.journal import read_journal
+    from deep_vision_tpu_torch.tools.synth_mnist import write_synth_mnist
+
+    def path(name):
+        return os.path.join(tmp, "zoo_" + name)
+
+    def command(ckpt, journal, epochs, *extra, config=ZOO_CLI_CONFIG,
+                data=data):
+        return cli_command(data, path(ckpt), path(journal), epochs, *extra,
+                           config=config)
+
+    a_log, b_log = path("a_batches.json"), path("b_batches.json")
+    run_cli(command("ck_a", "a.jsonl", ZOO_CLI_EPOCHS),
+            dict(det, SMOKE_BATCH_LOG=a_log), path("a.log"),
+            f"{ZOO_CLI_CONFIG} A ({ZOO_CLI_EPOCHS} epochs, deterministic)")
+    run_cli(command("ck_b", "b.jsonl", 1), det, path("b1.log"),
+            f"{ZOO_CLI_CONFIG} B1 (1 epoch, deterministic)")
+    run_cli(command("ck_b", "b.jsonl", ZOO_CLI_EPOCHS, "-c", "auto"),
+            dict(det, SMOKE_BATCH_LOG=b_log), path("b2.log"),
+            f"{ZOO_CLI_CONFIG} B2 (-c auto, deterministic)")
+    a_rows = read_journal(path("a.jsonl"))
+    a_steps, ms = cli_report(a_rows, f"{ZOO_CLI_CONFIG} run A", card,
+                             tag="[zoo]")
+    cli_report(read_journal(path("b.jsonl")),
+               f"{ZOO_CLI_CONFIG} runs B1 + B2", card, tag="[zoo]")
+    batch = 128
+    per_epoch = CLI_TRAIN_IMAGES // batch
+    n_steps, evals = ZOO_CLI_EPOCHS * per_epoch, ZOO_CLI_EPOCHS * (
+        CLI_VAL_IMAGES // batch)
+    check(len(a_steps) == n_steps, f"run A took {len(a_steps)} steps")
+    check(all(np.isfinite(r["loss"]) for r in a_steps), "non-finite loss")
+    fused, stats = ZOO_BN[ZOO_CLI_CONFIG]
+    launches = json.load(open(a_log))["launches"]
+    want = {"bn_act_fwd": fused * (n_steps + evals + 1),
+            "bn_act_bwd": fused * n_steps,
+            "bn_moments_fwd": stats * n_steps,
+            "bn_moments_bwd": stats * n_steps}
+    print(f"[zoo] {ZOO_CLI_CONFIG} run A's kernel launches {launches} over "
+          f"{n_steps} steps and {evals} eval batches")
+    check(launches == want, f"run A's launches {launches}, want {want}")
+    batches_a = json.load(open(a_log))["batches"]
+    batches_b = json.load(open(b_log))["batches"]
+    check(batches_a[per_epoch:] == batches_b,
+          "B2's epoch did not read A's second-epoch batches")
+    sd = {run: torch.load(os.path.join(path(f"ck_{run}"), str(n_steps),
+                                       "state.pt"), map_location="cpu",
+                          weights_only=True) for run in ("a", "b")}
+    diffs = [float((v.double() - sd["b"]["model"][k].double()).abs().max())
+             for k, v in sd["a"]["model"].items()]
+    for k, st in sd["a"]["optimizer"]["state"].items():
+        for name, v in st.items():
+            if torch.is_tensor(v):
+                w = sd["b"]["optimizer"]["state"][k][name]
+                diffs.append(float((v.double() - w.double()).abs().max()))
+    print(f"[zoo] {ZOO_CLI_CONFIG} resume: B2 read A's {len(batches_b)} "
+          f"second-epoch batches; final state A vs B: {len(diffs)} "
+          f"tensors, largest difference {max(diffs)}")
+    check(max(diffs) == 0.0 and sd["a"]["step"] == sd["b"]["step"]
+          == n_steps, "the resumed mobilenet1 run is not bitwise equal to "
+          "the straight one")
+
+    mnist = path("mnist")
+    write_synth_mnist(mnist, *ZOO_MNIST, seed=0)
+    run_cli(command("ck_lenet", "lenet.jsonl", 1, config="lenet5",
+                    data=mnist), env, path("lenet.log"), "lenet5 (1 epoch)")
+    rows = read_journal(path("lenet.jsonl"))
+    steps, _ = cli_report(rows, "lenet5", card, tag="[zoo]")
+    evals = [r["summary"] for r in rows if r["event"] == "eval"]
+    check(len(steps) == -(-ZOO_MNIST[0] // 64) and evals
+          and all(np.isfinite(r["loss"]) for r in steps),
+          f"lenet5: {len(steps)} steps, eval {evals}")
+    print(f"[zoo] lenet5: val top1 {evals[0]['top1']:.4f} after one epoch "
+          f"of {ZOO_MNIST[0]} seeded idx images (labels set by a bright "
+          f"square's place; chance 0.1)")
+    return ms
+
+
+def zoo_phase(torch, dev, card, tmp, data, env, det):
+    """Phase 7: the classifier zoo."""
+    t0 = time.perf_counter()
+    timed = zoo_steps(torch, dev, card)
+    torch.cuda.empty_cache()
+    zoo_against_cpu(torch, dev)
+    cli_ms = zoo_cli(torch, card, tmp, data, env, det)
+    print(f"[zoo] {len(timed)} configs stepped, held against the CPU, and "
+          f"{ZOO_CLI_CONFIG} and lenet5 trained through the CLI in "
+          f"{time.perf_counter() - t0:.1f} s; {ZOO_CLI_CONFIG} fed CLI "
+          f"{cli_ms:.3f} ms/step ({card})")
 
 
 def main():
@@ -2219,9 +2685,14 @@ def main():
     torch.cuda.empty_cache()
     check_vit_against_cpu(torch, dev)
 
-    # -- 6. the training CLI -------------------------------------------------
+    # -- 6. the training CLI, 7. the classifier zoo ---------------------------
     torch.cuda.empty_cache()
-    cli_phase(torch, dev, card)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        data, env, det = cli_records(tmp)
+        cli_phase(torch, dev, card, tmp, data, env, det)
+        torch.cuda.empty_cache()
+        zoo_phase(torch, dev, card, tmp, data, env, det)
     for name, n in launches.items():
         if name not in bn_rows:
             continue
@@ -2246,7 +2717,7 @@ def main():
                         "source": "deep_vision_tpu_torch/csrc/norm.cu",
                         "launches": n, **norm_rows[name]})
 
-    # -- 7. report -----------------------------------------------------------
+    # -- 8. report -----------------------------------------------------------
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

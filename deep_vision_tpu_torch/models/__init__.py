@@ -1,8 +1,10 @@
 """Model registry, the port of deep_vision_tpu/models/__init__.py.
 
 Only the models of the ported slices are registered: `yolov3` and its
-backbone `darknet53`, `resnet34`, `resnet50`, `resnet152`, and the dense
-ViTs `vit_s16` and `vit_b16`. Each registers with its own initialiser,
+backbone `darknet53`; the classifiers `lenet5`, `alexnet1`, `alexnet2`,
+`vgg16`, `vgg19`, `inception1`, `inception3`, `resnet34`, `resnet50`,
+`resnet152`, `resnet50v2`, `mobilenet1` and `shufflenet1`; and the
+dense ViTs `vit_s16` and `vit_b16`. Each registers with its own initialiser,
 which draws the weights as flax draws them from a `torch.Generator`
 seeded with `seed` (the draws differ from JAX's; load the reference's
 numbers through convert.py where they must agree). `get_model` returns
@@ -44,4 +46,14 @@ def get_model(name: str, *, device: DeviceLike = None, seed: int = 0,
 
 
 # importing the modules populates the registry
-from deep_vision_tpu_torch.models import resnet, vit, yolov3  # noqa: E402,F401
+from deep_vision_tpu_torch.models import (  # noqa: E402,F401
+    alexnet,
+    inception,
+    lenet,
+    mobilenet,
+    resnet,
+    shufflenet,
+    vgg,
+    vit,
+    yolov3,
+)

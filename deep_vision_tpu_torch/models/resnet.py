@@ -1,4 +1,5 @@
-"""ResNet-34/50/152, the port of deep_vision_tpu/models/resnet.py.
+"""ResNet-34/50/152 and ResNet-50 V2 (pre-activation), the port of
+deep_vision_tpu/models/resnet.py.
 
 Public layout matches the JAX model: NHWC images in (`(B, H, W, 3)` for
 the conv7 stem, space-to-depth `(B, H/2, W/2, 12)` for the s2d stem),
@@ -13,8 +14,11 @@ Submodules carry the flax auto-names (`SpaceToDepthStem_0`,
 (convert.py). Every BatchNorm with a ReLU or a residual (two ConvBNs and
 the tail of each bottleneck) runs through the bn_act kernel; the s2d
 stem's BatchNorm and the projection ConvBNs have no act and stay unfused,
-as in the reference. `resnet50v2` (pre-activation blocks) is not ported
-yet.
+as in the reference. `resnet50v2` (`preact`, reference :77-99 and
+:159-181) runs BatchNorm-ReLU-conv blocks: a plain 7x7/2 conv stem, each
+block's pre-activation and middle BatchNorms unfused with a separate
+ReLU (as the reference applies them), its 3x3 ConvBN through bn_act (16
+a step), the skip a plain add, and a final BatchNorm and ReLU.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from torch import nn
 from deep_vision_tpu_torch.models import register_model
 from deep_vision_tpu_torch.nn.layers import (
     BatchNorm,
+    Conv,
     ConvBN,
     conv2d,
     flax_cast,
@@ -41,7 +46,8 @@ def reset_parameters(model: nn.Module,
     `generator`: ConvBN convs and the stem he-normal, the bottleneck's bare
     1x1 conv and the Dense kernel lecun-normal (flax's Conv/Dense default),
     Dense bias 0, BatchNorm scale at its init (0 for a bottleneck's tail)
-    and bias 0, running stats 0 / 1. Then the 4-D weights go to
+    and bias 0, running stats 0 / 1; the pre-activation blocks' and the
+    preact stem's bare convs lecun-normal. Then the 4-D weights go to
     channels_last memory."""
     for m in model.modules():
         if isinstance(m, ConvBN):
@@ -54,7 +60,13 @@ def reset_parameters(model: nn.Module,
         elif isinstance(m, BottleneckBlock):
             with torch.no_grad():
                 trunc_normal_fan_in_(m.Conv_0.weight, 1.0, generator)
+        elif isinstance(m, PreActBottleneckBlock):
+            for conv in m.children():
+                if isinstance(conv, Conv):
+                    conv.reset_parameters(generator)
         elif isinstance(m, ResNet):
+            if hasattr(m, "Conv_0"):  # the preact conv7 stem
+                m.Conv_0.reset_parameters(generator)
             with torch.no_grad():
                 trunc_normal_fan_in_(m.Dense_0.weight, 1.0, generator)
                 m.Dense_0.bias.zero_()
@@ -108,6 +120,36 @@ class BottleneckBlock(nn.Module):
         return self.BatchNorm_0(y, residual=residual)
 
 
+class PreActBottleneckBlock(nn.Module):
+    """BatchNorm-ReLU, then 1x1 -> 3x3 (strided ConvBN) -> BatchNorm-ReLU
+    -> 1x1 at 4x width, plus the skip: x, or a strided 1x1 conv of the
+    pre-activation. The flax names follow construction order: the
+    projection, when there is one, is Conv_0."""
+
+    def __init__(self, in_features: int, features: int, strides: int = 1,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.BatchNorm_0 = BatchNorm(in_features)
+        self.needs_proj = in_features != features * 4 or strides != 1
+        convs = [(in_features, features, 1, 1)]
+        if self.needs_proj:
+            convs.insert(0, (in_features, features * 4, 1, strides))
+        convs.append((features, features * 4, 1, 1))
+        for k, (cin, cout, kernel, s) in enumerate(convs):
+            setattr(self, f"Conv_{k}", Conv(cin, cout, kernel, s,
+                                            use_bias=False, dtype=dtype))
+        self.ConvBN_0 = ConvBN(features, features, 3, strides, dtype=dtype)
+        self.BatchNorm_1 = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pre = F.relu(self.BatchNorm_0(x))
+        k = int(self.needs_proj)
+        residual = self.Conv_0(pre) if self.needs_proj else x
+        y = self.ConvBN_0(getattr(self, f"Conv_{k}")(pre))
+        y = getattr(self, f"Conv_{k + 1}")(F.relu(self.BatchNorm_1(y)))
+        return y + residual
+
+
 class SpaceToDepthStem(nn.Module):
     """The 7x7/s2 stem conv on space-to-depth input, as a 4x4/s1 conv over
     12 channels. The parameter keeps the canonical 7x7 shape, OIHW
@@ -137,25 +179,32 @@ class SpaceToDepthStem(nn.Module):
 class ResNet(nn.Module):
     """NHWC images -> logits. `stem`: "conv7" (7x7/s2 ConvBN on (H, W, 3))
     or "s2d" (SpaceToDepthStem on (H/2, W/2, 12), then an unfused BN and
-    a ReLU). `dtype` is the convolutions' compute dtype; the classifier
-    runs in f32 over the pooled features."""
+    a ReLU). With `preact` the conv7 stem is a plain conv, the s2d stem
+    has no BatchNorm, and a BatchNorm and a ReLU follow the last block.
+    `dtype` is the convolutions' compute dtype; the classifier runs in
+    f32 over the pooled features."""
 
     def __init__(self, stage_sizes: Sequence[int],
                  block: type = BottleneckBlock,
                  num_classes: int = 1000, width: int = 64, stem: str = "conv7",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, preact: bool = False):
         super().__init__()
         if stem not in ("conv7", "s2d"):
             raise ValueError(f"unknown stem {stem!r} (conv7 or s2d)")
         self.stem = stem
+        self.preact = preact
         self.stage_sizes = tuple(stage_sizes)
         if stem == "s2d":
             self.SpaceToDepthStem_0 = SpaceToDepthStem(64, dtype=dtype)
-            self.BatchNorm_0 = BatchNorm(64)
+            if not preact:
+                self.BatchNorm_0 = BatchNorm(64)
+        elif preact:
+            self.Conv_0 = Conv(3, 64, 7, 2, [(3, 3), (3, 3)], use_bias=False,
+                               dtype=dtype)
         else:
             self.ConvBN_0 = ConvBN(3, 64, 7, 2, padding=[(3, 3), (3, 3)],
                                    dtype=dtype)
-        expansion = 4 if block is BottleneckBlock else 1
+        expansion = 1 if block is BasicBlock else 4
         prev, k = 64, 0
         for i, n_blocks in enumerate(self.stage_sizes):
             features = width * 2 ** i
@@ -166,17 +215,25 @@ class ResNet(nn.Module):
                 prev, k = features * expansion, k + 1
         self.num_blocks = k
         self.block_name = block.__name__
+        if preact:
+            self.BatchNorm_0 = BatchNorm(prev)
         self.Dense_0 = nn.Linear(prev, num_classes)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         x = images.permute(0, 3, 1, 2)
         if self.stem == "s2d":
-            x = F.relu(self.BatchNorm_0(self.SpaceToDepthStem_0(x)))
+            x = self.SpaceToDepthStem_0(x)
+            if not self.preact:
+                x = F.relu(self.BatchNorm_0(x))
+        elif self.preact:
+            x = self.Conv_0(x)
         else:
             x = self.ConvBN_0(x)
         x = F.max_pool2d(x, 3, stride=2, padding=1)  # -inf padding
         for k in range(self.num_blocks):
             x = getattr(self, f"{self.block_name}_{k}")(x)
+        if self.preact:
+            x = F.relu(self.BatchNorm_0(x))
         x, w = flax_cast(global_avg_pool(x), self.Dense_0.weight,
                          torch.float32)
         return F.linear(x, w, self.Dense_0.bias)
@@ -198,3 +255,11 @@ def resnet50(num_classes: int = 1000, dtype=None, stem: str = "conv7", **_):
 def resnet152(num_classes: int = 1000, dtype=None, stem: str = "conv7", **_):
     return ResNet(stage_sizes=(3, 8, 36, 3), block=BottleneckBlock,
                   num_classes=num_classes, stem=stem, dtype=dtype)
+
+
+@register_model("resnet50v2", init=reset_parameters)
+def resnet50v2(num_classes: int = 1000, dtype=None, stem: str = "conv7",
+               **_):
+    return ResNet(stage_sizes=(3, 4, 6, 3), block=PreActBottleneckBlock,
+                  num_classes=num_classes, stem=stem, dtype=dtype,
+                  preact=True)

@@ -1,5 +1,7 @@
-"""ConvBN and BatchNorm, the port of deep_vision_tpu/nn/layers.py, and
-the flax layers the ViT uses (LayerNorm, Dense, DenseGeneral).
+"""The port of deep_vision_tpu/nn/layers.py (ConvBN, BatchNorm,
+DepthwiseSeparableConv, LocalResponseNorm, channel_shuffle) and the flax
+layers the models use beside them: Conv, Dense/DenseGeneral, LayerNorm,
+Dropout, and max/avg pooling with flax's padding.
 
 Layout: modules take and return NCHW-indexed tensors (PyTorch's
 convolution layout), in whatever memory format they are given; the
@@ -20,13 +22,23 @@ Where the port must not follow PyTorch's habits:
   (ops/cuda/bn_act.py); otherwise the unfused `(x - mean) * inv + bias`.
 - `padding="SAME"` follows XLA's rule, which pads the high side more
   when the total is odd; PyTorch's symmetric `padding=` cannot express
-  that, so asymmetric pads go through `F.pad`.
+  that, so asymmetric pads go through `F.pad`: zeros for convolutions
+  and `avg_pool` (which, as flax's, counts the padded zeros), -inf for
+  `max_pool`.
+- Weights are drawn as flax draws them (`variance_scaling_`): a normal
+  truncated at two standard deviations, with variance scale / fan, where
+  a grouped kernel's fan_in is kh * kw * C_in / groups.
+- `Dropout` draws its mask from the `torch.Generator` the caller sets as
+  its `generator` (the Trainer derives one a step), as flax's draws from
+  an explicit `dropout` rng. It computes flax's
+  `where(uniform < keep, x / keep, 0)`.
 - `dtype` follows flax's `Conv`: input and kernel are cast to `dtype`
   (default: the promotion of the two), so f32 master weights get their
   gradients through the cast. No autocast.
 
-The convolution itself stays `F.conv2d`: the JAX package leaves
-convolutions to XLA, not to a Pallas kernel.
+The convolution itself stays `F.conv2d`, grouped and depthwise ones
+included (`groups=`): the JAX package leaves convolutions to XLA, not to
+a Pallas kernel.
 """
 from __future__ import annotations
 
@@ -55,16 +67,54 @@ def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def trunc_normal_fan_in_(w: torch.Tensor, scale: float,
-                         generator: Optional[torch.Generator]) -> torch.Tensor:
-    """flax `variance_scaling(scale, "fan_in", "truncated_normal")` for an
-    OIHW conv weight or an (out, in) dense weight: a normal cut at two
-    standard deviations, widened so the cut distribution keeps variance
-    scale / fan_in."""
+def pair(v: Union[int, Sequence[int]]) -> Tuple[int, int]:
+    """An int or an (h, w) pair -> (h, w)."""
+    if isinstance(v, int):
+        return v, v
+    h, w = v
+    return int(h), int(w)
+
+
+def window_pads(x: torch.Tensor, kernel: Tuple[int, int],
+                strides: Tuple[int, int], padding: Padding
+                ) -> Tuple[Tuple[int, int], ...]:
+    """flax's padding of an NCHW-indexed input: "SAME" (XLA's rule per
+    spatial dim), "VALID", or explicit `[(lo, hi), (lo, hi)]`."""
+    if padding == "SAME":
+        return tuple(same_padding(s, k, st) for s, k, st in
+                     zip(x.shape[2:], kernel, strides))
+    if padding == "VALID":
+        return (0, 0), (0, 0)
+    return tuple(tuple(p) for p in padding)
+
+
+#: flax initializers by name: (scale, fan mode) of variance_scaling with a
+#: truncated normal
+INITIALIZERS = {"he_normal": (2.0, "fan_in"),
+                "lecun_normal": (1.0, "fan_in"),
+                "xavier_normal": (1.0, "fan_avg")}
+
+
+def variance_scaling_(w: torch.Tensor, scale: float, mode: str,
+                      generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `variance_scaling(scale, mode, "truncated_normal")` for an
+    OIHW conv weight (O, I / groups, kh, kw) or an (out, in) dense weight:
+    a normal cut at two standard deviations, widened so the cut
+    distribution keeps variance scale / fan. fan_in = I / groups * kh *
+    kw (in), fan_out = O * kh * kw (out), fan_avg their mean."""
     fan_in = w[0].numel()
-    std = math.sqrt(scale / fan_in) / 0.87962566103423978
+    fan_out = w.shape[0] * w[0, 0].numel()
+    fan = {"fan_in": fan_in, "fan_out": fan_out,
+           "fan_avg": (fan_in + fan_out) / 2}[mode]
+    std = math.sqrt(scale / fan) / 0.87962566103423978
     return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                                  generator=generator)
+
+
+def trunc_normal_fan_in_(w: torch.Tensor, scale: float,
+                         generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `variance_scaling(scale, "fan_in", "truncated_normal")`."""
+    return variance_scaling_(w, scale, "fan_in", generator)
 
 
 def flax_cast(x: torch.Tensor, w: torch.Tensor,
@@ -75,13 +125,158 @@ def flax_cast(x: torch.Tensor, w: torch.Tensor,
     return x.to(dt), w.to(dt)
 
 
-def conv2d(x: torch.Tensor, w: torch.Tensor, strides: int,
-           pads: Sequence[Tuple[int, int]]) -> torch.Tensor:
+def conv2d(x: torch.Tensor, w: torch.Tensor,
+           strides: Union[int, Tuple[int, int]],
+           pads: Sequence[Tuple[int, int]], groups: int = 1) -> torch.Tensor:
     """`F.conv2d` with per-side (H, W) pads; asymmetric ones via F.pad."""
     (h_lo, h_hi), (w_lo, w_hi) = pads
     if h_lo == h_hi and w_lo == w_hi:
-        return F.conv2d(x, w, stride=strides, padding=(h_lo, w_lo))
-    return F.conv2d(F.pad(x, (w_lo, w_hi, h_lo, h_hi)), w, stride=strides)
+        return F.conv2d(x, w, stride=strides, padding=(h_lo, w_lo),
+                        groups=groups)
+    return F.conv2d(F.pad(x, (w_lo, w_hi, h_lo, h_hi)), w, stride=strides,
+                    groups=groups)
+
+
+def _pool(x: torch.Tensor, window, strides, padding: Padding, fill: float,
+          pool: Callable, implicit: bool) -> torch.Tensor:
+    """`pool` over x with flax's padding: the pool's own symmetric
+    padding where `implicit` allows and the pads are symmetric, else
+    F.pad with `fill`."""
+    window = pair(window)
+    strides = pair(strides) if strides is not None else (1, 1)
+    (h_lo, h_hi), (w_lo, w_hi) = window_pads(x, window, strides, padding)
+    if (implicit and h_lo == h_hi and w_lo == w_hi
+            and 2 * h_lo <= window[0] and 2 * w_lo <= window[1]):
+        return pool(x, window, strides, padding=(h_lo, w_lo))
+    if h_lo or h_hi or w_lo or w_hi:
+        x = F.pad(x, (w_lo, w_hi, h_lo, h_hi), value=fill)
+    return pool(x, window, strides)
+
+
+def max_pool(x: torch.Tensor, window, strides=None,
+             padding: Padding = "VALID") -> torch.Tensor:
+    """flax `nn.max_pool` over NCHW-indexed x: strides default to 1, the
+    padding (`window_pads`) holds -inf."""
+    return _pool(x, window, strides, padding, float("-inf"), F.max_pool2d,
+                 implicit=True)
+
+
+def avg_pool(x: torch.Tensor, window, strides=None,
+             padding: Padding = "VALID") -> torch.Tensor:
+    """flax `nn.avg_pool` over NCHW-indexed x: the window's sum over its
+    size, padded zeros included (flax's `count_include_pad`). The zeros
+    are always padded with F.pad, never by `F.avg_pool2d(padding=)`: on
+    the card (torch 2.11+cu128) that pool's backward gives wrong input
+    gradients for a channels_last input with padding (3x3/1, pad 1:
+    errors of the gradients' own size; tests/test_torch_cuda_kernels.py
+    holds the port's pool there)."""
+    return _pool(x, window, strides, padding, 0.0, F.avg_pool2d,
+                 implicit=False)
+
+
+def flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) -> (B, H * W * C) in the reference's NHWC order, so a
+    bridged Dense kernel (H * W * C, out) keeps its row order."""
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+
+def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """ShuffleNet's channel shuffle (reference layers.py:41-52) on an
+    NCHW-indexed tensor: channel `i * (C / g) + j` moves to `j * g + i`.
+    Done on the NHWC view, so the result is channels_last."""
+    b, c, h, w = x.shape
+    if c % groups:
+        raise ValueError(f"channels {c} not divisible by groups {groups}")
+    y = (x.permute(0, 2, 3, 1).reshape(b, h, w, groups, c // groups)
+         .transpose(3, 4).reshape(b, h, w, c))
+    return y.permute(0, 3, 1, 2)
+
+
+class LocalResponseNorm(nn.Module):
+    """AlexNet V1's LRN (reference layers.py:54-73): `x / (k + alpha *
+    sum_window x^2)^beta` over `size` neighbouring channels, zeros past
+    the ends. Unlike `torch.nn.LocalResponseNorm`, alpha is not divided
+    by the window size."""
+
+    def __init__(self, size: int = 5, alpha: float = 1e-4,
+                 beta: float = 0.75, k: float = 2.0):
+        super().__init__()
+        self.size, self.alpha, self.beta, self.k = size, alpha, beta, k
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        half, c = self.size // 2, x.shape[1]
+        padded = F.pad(torch.square(x), (0, 0, 0, 0, half, half))
+        window = sum(padded[:, i:i + c] for i in range(self.size))
+        return x / torch.pow(self.k + self.alpha * window, self.beta)
+
+
+class Dropout(nn.Module):
+    """flax `nn.Dropout`: in training mode, each element is kept with
+    probability 1 - rate and scaled by 1 / (1 - rate), else zeroed; the
+    mask is `uniform < 1 - rate`, drawn from `self.generator` (None: torch's
+    default generator of x's device). Identity in eval mode."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate == 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, 0.0)
+
+
+class Conv(nn.Module):
+    """flax `nn.Conv` over NCHW-indexed input: `weight` (features,
+    in_features / groups, kh, kw) and, with `use_bias`, `bias`
+    (features,), added after the convolution in its dtype. `kernel` and
+    `strides` are ints or (h, w) pairs; `padding` as `window_pads`;
+    `groups` is flax's feature_group_count; `kernel_init` names an
+    INITIALIZERS entry (flax's default: lecun_normal); `dtype` as
+    `flax_cast`."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel: Union[int, Tuple[int, int]] = 3,
+                 strides: Union[int, Tuple[int, int]] = 1,
+                 padding: Padding = "SAME", groups: int = 1,
+                 use_bias: bool = True, kernel_init: str = "lecun_normal",
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if in_features % groups or features % groups:
+            raise ValueError(f"{in_features} -> {features} channels do not "
+                             f"split into {groups} groups")
+        self.kernel = pair(kernel)
+        self.strides = pair(strides)
+        self.padding = padding
+        self.groups = groups
+        self.kernel_init = kernel_init
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(
+            features, in_features // groups, *self.kernel))
+        self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
+                     else None)
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        with torch.no_grad():
+            variance_scaling_(self.weight, *INITIALIZERS[self.kernel_init],
+                              generator)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w = flax_cast(x, self.weight, self.dtype)
+        y = conv2d(x, w, self.strides,
+                   window_pads(x, self.kernel, self.strides, self.padding),
+                   self.groups)
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype).view(1, -1, 1, 1)
+        return y
 
 
 class BatchNorm(nn.Module):
@@ -148,49 +343,70 @@ class BatchNorm(nn.Module):
 
 
 class ConvBN(nn.Module):
-    """Conv (no bias) + BatchNorm + activation, NCHW.
+    """Conv + BatchNorm + activation, NCHW (reference layers.py:173-217).
 
-    `kernel`/`strides` are square ints; `padding` is "SAME" (XLA's rule,
-    computed per call from the input size) or explicit
-    `[(lo, hi), (lo, hi)]` for (H, W). `act=F.relu` folds into the
+    `kernel`/`strides` are ints or (h, w) pairs; `padding` is "SAME"
+    (XLA's rule, computed per call from the input size), "VALID" or
+    explicit `[(lo, hi), (lo, hi)]` for (H, W); `groups` is flax's
+    feature_group_count. With `use_bn`, `act=F.relu` folds into the
     BatchNorm (the bn_act kernel), with the `residual` call argument if
-    one is given; any other `act` runs after it. `dtype` is the conv's
+    one is given, and any other `act` runs after it. Without it the conv
+    carries a bias (flax's `use_bias or not use_bn`), and the residual
+    and `act` follow it. `kernel_init` names the conv's INITIALIZERS
+    entry (he_normal, the reference's default). `dtype` is the conv's
     (flax semantics, see `flax_cast`); the BatchNorm keeps the conv
     output's dtype."""
 
-    def __init__(self, in_features: int, features: int, kernel: int = 3,
-                 strides: int = 1, padding: Padding = "SAME",
+    def __init__(self, in_features: int, features: int,
+                 kernel: Union[int, Tuple[int, int]] = 3,
+                 strides: Union[int, Tuple[int, int]] = 1,
+                 padding: Padding = "SAME", groups: int = 1,
+                 use_bn: bool = True, use_bias: bool = False,
                  act: Optional[Callable] = F.relu,
+                 kernel_init: str = "he_normal",
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.kernel = int(kernel)
-        self.strides = int(strides)
-        self.padding = padding
-        fuse_relu = act is F.relu
+        self.use_bn = use_bn
+        fuse_relu = use_bn and act is F.relu
         self.act = None if fuse_relu else act
-        self.dtype = dtype
-        self.Conv_0 = nn.Conv2d(in_features, features, self.kernel,
-                                stride=self.strides, bias=False)
-        self.BatchNorm_0 = BatchNorm(features,
-                                     act="relu" if fuse_relu else None)
+        self.Conv_0 = Conv(in_features, features, kernel, strides, padding,
+                           groups, use_bias=use_bias or not use_bn,
+                           kernel_init=kernel_init, dtype=dtype)
+        if use_bn:
+            self.BatchNorm_0 = BatchNorm(features,
+                                         act="relu" if fuse_relu else None)
 
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
-        with torch.no_grad():  # he_normal, the ConvBN default
-            trunc_normal_fan_in_(self.Conv_0.weight, 2.0, generator)
-        self.BatchNorm_0.reset_parameters()
-
-    def _pads(self, x: torch.Tensor) -> Tuple[Tuple[int, int], ...]:
-        if self.padding == "SAME":
-            return tuple(same_padding(s, self.kernel, self.strides)
-                         for s in x.shape[2:])
-        return tuple(tuple(p) for p in self.padding)
+        self.Conv_0.reset_parameters(generator)
+        if self.use_bn:
+            self.BatchNorm_0.reset_parameters()
 
     def forward(self, x: torch.Tensor,
                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x, w = flax_cast(x, self.Conv_0.weight, self.dtype)
-        x = self.BatchNorm_0(conv2d(x, w, self.strides, self._pads(x)),
-                             residual=residual)
+        x = self.Conv_0(x)
+        if self.use_bn:
+            x = self.BatchNorm_0(x, residual=residual)
+        elif residual is not None:
+            x = x + residual
         return self.act(x) if self.act is not None else x
+
+
+class DepthwiseSeparableConv(nn.Module):
+    """MobileNet's depthwise 3x3 ConvBN (groups = in_features) and
+    pointwise 1x1 ConvBN (reference layers.py:220-245)."""
+
+    def __init__(self, in_features: int, features: int,
+                 strides: Union[int, Tuple[int, int]] = 1,
+                 act: Optional[Callable] = F.relu,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.ConvBN_0 = ConvBN(in_features, in_features, 3, strides,
+                               groups=in_features, act=act, dtype=dtype)
+        self.ConvBN_1 = ConvBN(in_features, features, 1, act=act,
+                               dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.ConvBN_1(self.ConvBN_0(x))
 
 
 class LayerNorm(nn.Module):
@@ -233,12 +449,15 @@ class DenseGeneral(nn.Module):
     and the bias as (prod(features),). As `flax_cast` does, input and
     kernel are cast to `dtype` (default: their promotion), and the bias
     is added after the product, in the product's dtype, as flax adds
-    it."""
+    it. `kernel_init` names an INITIALIZERS entry (flax's default:
+    lecun_normal), over the flattened fans."""
 
     def __init__(self, in_shape: Union[int, Sequence[int]],
                  features: Union[int, Sequence[int]],
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 kernel_init: str = "lecun_normal"):
         super().__init__()
+        self.kernel_init = kernel_init
         self.in_shape = ((in_shape,) if isinstance(in_shape, int)
                          else tuple(in_shape))
         self.features = ((features,) if isinstance(features, int)
@@ -249,10 +468,10 @@ class DenseGeneral(nn.Module):
         self.bias = nn.Parameter(torch.zeros(math.prod(self.features)))
 
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
-        """lecun_normal over the flattened fan-in, zero bias (flax's
-        defaults)."""
+        """`kernel_init` over the flattened fans, zero bias."""
         with torch.no_grad():
-            trunc_normal_fan_in_(self.weight, 1.0, generator)
+            variance_scaling_(self.weight, *INITIALIZERS[self.kernel_init],
+                              generator)
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -263,9 +482,11 @@ class DenseGeneral(nn.Module):
 
 
 def Dense(in_features: int, features: int,
-          dtype: Optional[torch.dtype] = None) -> DenseGeneral:
+          dtype: Optional[torch.dtype] = None,
+          kernel_init: str = "lecun_normal") -> DenseGeneral:
     """flax `nn.Dense`: a DenseGeneral over the last axis."""
-    return DenseGeneral(in_features, features, dtype=dtype)
+    return DenseGeneral(in_features, features, dtype=dtype,
+                        kernel_init=kernel_init)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
@@ -293,3 +514,18 @@ def calibrate_batch_stats(model: nn.Module, images: torch.Tensor) -> None:
     finally:
         for h in handles:
             h.remove()
+
+
+def reset_flax_parameters(model: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Draw every weight of `model` as flax initializes it, in module
+    order from `generator`: each Conv and Dense by its `kernel_init`
+    with a zero bias, each BatchNorm at its init (running statistics 0 /
+    1). Then the 4-D weights go to channels_last memory, so cuDNN's NHWC
+    convolutions keep the activations channels_last end to end."""
+    for m in model.modules():
+        if isinstance(m, (Conv, DenseGeneral)):
+            m.reset_parameters(generator)
+        elif isinstance(m, BatchNorm):
+            m.reset_parameters()
+    model.to(memory_format=torch.channels_last)

@@ -1,8 +1,9 @@
 """The training steps chip_smoke.py drives, and where their time goes on
 the card.
 
-    python -m deep_vision_tpu_torch.tools.profile_train [--model resnet50|vit_s16]
-        [--records DIR]
+    python -m deep_vision_tpu_torch.tools.profile_train [--model resnet50|vit_s16|
+        lenet5|alexnet1|alexnet2|vgg16|vgg19|inception1|inception3|
+        resnet50v2|mobilenet1|shufflenet1] [--records DIR]
 
 `make_train_parts` is the port of bench.py:432-498: ResNet-50 with the
 space-to-depth stem, 1000 classes, bf16 convolutions, softmax cross
@@ -18,6 +19,12 @@ as train_cli.py:364-372 builds it: AdamW lr 1e-3, weight decay 1e-4 on
 every parameter (decay_bn_bias=True), warmup + cosine to 0, with the
 horizon cut to chip_smoke's 13 steps (warmup 3); softmax cross entropy
 on one fixed `RandomState(0)` batch.
+
+`make_zoo_parts` is any other classifier of the zoo as `train_cli`
+builds it: the registered config's model, width, input, batch, float32,
+optimizer and schedule (`build_trainer`), on the CLI's seeded fake
+batch, under the CLI's precision (PyTorch's defaults: cuDNN TF32 on,
+matmuls float32). Its groups are ResNet-50's.
 
 `make_record_loader` is the fed ResNet step's input: record shards
 (tools/synth_records.py) through a `RecordDataset`, the reference's
@@ -167,6 +174,29 @@ def make_train_parts(batch_per_chip: int = BATCH_PER_CHIP, stem: str = "s2d",
         "label": torch.from_numpy(labels.astype(np.int32)).to(dev),
     }
     return trainer, batch
+
+
+#: the zoo's other classifiers, each trained as its registered config
+ZOO_MODELS = ("lenet5", "alexnet1", "alexnet2", "vgg16", "vgg19",
+              "inception1", "inception3", "resnet50v2", "mobilenet1",
+              "shufflenet1")
+
+
+def make_zoo_parts(name: str, device: DeviceLike = None):
+    """(trainer, batch): the registered config `name` through
+    train_cli's `build_trainer`, and its first seeded fake batch on the
+    trainer's device."""
+    from deep_vision_tpu_torch.configs import get_config
+    from deep_vision_tpu_torch.train_cli import (
+        _fake_classification,
+        build_trainer,
+    )
+
+    dev = resolve_device(device)
+    cfg = get_config(name)
+    host = _fake_classification(cfg, 1)[0]
+    trainer = build_trainer(cfg, lambda: [host], None, device=dev)
+    return trainer, {k: torch.as_tensor(v).to(dev) for k, v in host.items()}
 
 
 def imagenet_train_transform(rescale: Optional[int] = 256) -> Compose:
@@ -335,8 +365,8 @@ def _epochs(loader: DataLoader) -> Iterator[dict]:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--model", choices=("resnet50", "vit_s16"),
-                        default="resnet50")
+    parser.add_argument("--model", default="resnet50",
+                        choices=("resnet50", "vit_s16") + ZOO_MODELS)
     parser.add_argument("--records", metavar="DIR",
                         help="feed the ResNet step from the record shards "
                              "in DIR (tools/synth_records.py, raw)")
@@ -345,6 +375,11 @@ def main() -> None:
         trainer, batch = make_vit_train_parts()
         grouping = VIT_GROUPING
         label = f"ViT-S/16 {VIT_IMAGE_SIZE} bf16 batch {VIT_BATCH_PER_CHIP}"
+    elif args.model in ZOO_MODELS:
+        trainer, batch = make_zoo_parts(args.model)
+        grouping = RESNET_GROUPING
+        label = (f"{args.model} float32 batch {len(batch['image'])} (the "
+                 f"registered config)")
     else:
         trainer, batch = make_train_parts(
             device_prefetch=2 if args.records else 0)

@@ -10,6 +10,14 @@ gradients. As on one device in the reference (`_pad_and_mask`), every
 batch gets a `_mask` of ones unless it has one, so the loss takes its
 weighted path.
 
+Dropout draws a step's masks from a generator on the device seeded from
+the Trainer's checkpointed generator and the step
+(`dropout_step_seed(state.generator.initial_seed(), step)`), as the
+reference draws them from `fold_in(state.rng, state.step)`
+(trainer.py:590-602): a resumed run draws the same masks as a straight
+one, and a skipped step's retry the same as the skip. Evaluation (the
+EMA's `functional_call` included) runs in eval mode, without dropout.
+
 A learning-rate schedule (`lr_schedule`, by default the optimizer
 spec's own when `build_optimizer` was given one) sets every parameter
 group's lr to `lr_schedule(step)` before each update, where `step`
@@ -96,6 +104,7 @@ from deep_vision_tpu_torch.data.device_prefetch import (
     DevicePrefetcher,
     PlacedBatch,
 )
+from deep_vision_tpu_torch.nn.layers import Dropout
 from deep_vision_tpu_torch.obs.registry import get_registry
 from deep_vision_tpu_torch.parallel.multihost import PreemptionGuard
 from deep_vision_tpu_torch.train.ema import EmaParams
@@ -108,6 +117,19 @@ _WALL_CLOCK = ("examples_per_sec", "epoch_time_s")
 
 def _means(summary: dict) -> dict:
     return {k: v for k, v in summary.items() if k not in _WALL_CLOCK}
+
+
+_MASK64 = 2 ** 64 - 1
+
+
+def dropout_step_seed(base: int, step: int) -> int:
+    """A step's dropout seed: splitmix64 of `base` advanced by `step + 1`
+    golden-ratio increments. Distinct steps give unrelated seeds, and the
+    same (base, step) the same seed in any process."""
+    z = (base + (step + 1) * 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
 
 
 class Trainer:
@@ -172,6 +194,10 @@ class Trainer:
             data_loader.enable_snapshots()
         self.state = create_train_state(model, tx, sample_input,
                                         device=self.device)
+        self._dropouts = [m for m in model.modules()
+                          if isinstance(m, Dropout)]
+        self._dropout_gen = (torch.Generator(device=self.device)
+                             if self._dropouts else None)
         # the base LR the plateau scales: the optimizer's as built, never
         # a restored (already scaled) group's
         self._base_lr = float(self.state.optimizer.param_groups[0]["lr"])
@@ -273,6 +299,11 @@ class Trainer:
                 self._buffer_snapshot = [torch.empty_like(b)
                                          for b in buffers]
             torch._foreach_copy_(self._buffer_snapshot, buffers)
+        if self._dropouts:
+            self._dropout_gen.manual_seed(dropout_step_seed(
+                self.state.generator.initial_seed(), self.state.step))
+            for m in self._dropouts:
+                m.generator = self._dropout_gen
         loss, metrics = self.loss_fn(model(batch[self.input_key]), batch)
         opt.zero_grad(set_to_none=True)
         loss.backward()

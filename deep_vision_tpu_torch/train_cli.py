@@ -6,8 +6,10 @@
 trains a registered config (configs/__init__.py) from `D/tfrecord_train/*`
 and evaluates on `D/tfrecord_val/*` every epoch (ImageNet-layout records;
 the flattened-folder layout `D/train_flatten`, `D/val_flatten` where no
-train records exist; `--fake-data` for the reference's seeded fake
-batches), with the config's optimizer, schedule or plateau, a checkpoint
+train records exist; MNIST idx files `D/train-images-idx3-ubyte`,
+`D/train-labels-idx1-ubyte`, `D/t10k-images-idx3-ubyte` and
+`D/t10k-labels-idx1-ubyte` for the `mnist` kind (lenet5);
+`--fake-data` for the reference's seeded fake batches), with the config's optimizer, schedule or plateau, a checkpoint
 with its crc32c sidecar after each epoch, a SIGTERM save at the next
 step boundary (the process then exits 0), and `-c` resuming where the
 checkpoint left off: parameters, momentum, BatchNorm running statistics,
@@ -16,13 +18,15 @@ the batch stream. It runs on the card unless `--device cpu` is given,
 and raises without one.
 
 Ported: `model_input_shape`, `_fake_classification`,
-`build_dataloaders` (fake and imagenet kinds, both `--preprocessing`
-chains and the s2d host transform), `_steps_per_epoch`,
+`build_dataloaders` (fake, mnist and imagenet kinds, both
+`--preprocessing` chains and the s2d host transform), `_steps_per_epoch`,
 `_build_schedule`, `build_trainer` and `run_eval_only` for the
 classification task, and `main` with the flags below. Every other
 reference flag is unknown here, so argparse fails on it loudly; the
-other tasks, the `mnist` and `records` dataset kinds, the GAN trainers
-and the requeue exit code after a preemption are not ported yet.
+other tasks, the `records` dataset kind, the GAN trainers and the
+requeue exit code after a preemption are not ported yet. Every
+registered classification config trains but `vmoe_s16`, whose model is
+not ported yet.
 
 Float32 precision: the CLI keeps PyTorch's defaults, which no registered
 config overrides, and prints them at start-up: cuDNN convolutions may
@@ -118,12 +122,32 @@ def build_dataloaders(cfg: ExperimentConfig, data_dir: str, fake: bool,
         data = _fake_classification(cfg, fake_batches)
         return (lambda: data), (lambda: data)
     kind = cfg.dataset["kind"]
-    if kind != "imagenet":
+    if kind not in ("imagenet", "mnist"):
         raise NotImplementedError(
-            f"dataset kind {kind!r} is not ported yet (imagenet and fake "
-            f"are)")
-    from deep_vision_tpu_torch.data import DataLoader, RecordDataset
+            f"dataset kind {kind!r} is not ported yet (imagenet, mnist and "
+            f"fake are)")
+    from deep_vision_tpu_torch.data import (
+        DataLoader,
+        MnistDataset,
+        RecordDataset,
+    )
     from deep_vision_tpu_torch.data.datasets import ImageFolderDataset
+
+    if kind == "mnist":  # 28x28 padded to 32x32 by the dataset
+        from deep_vision_tpu_torch.data import Compose
+        from deep_vision_tpu_torch.data import transforms as T
+
+        train_ds, eval_ds = (MnistDataset(
+            os.path.join(data_dir, f"{split}-images-idx3-ubyte"),
+            os.path.join(data_dir, f"{split}-labels-idx1-ubyte"))
+            for split in ("train", "t10k"))
+        tf_ = Compose([T.ToFloat(), T.Normalize(mean=[0.1307], std=[0.3081])])
+        train = DataLoader(train_ds, cfg.batch_size, tf_, shuffle=True,
+                           num_workers=num_workers, num_procs=num_procs,
+                           name="train")
+        evl = DataLoader(eval_ds, cfg.batch_size, tf_,
+                         num_workers=num_workers, name="val")
+        return (lambda: train), (lambda: evl)
 
     train_tf, eval_tf = imagenet_transforms(cfg, preprocessing)
     rec_glob = os.path.join(data_dir, "tfrecord_train", "*")

@@ -151,7 +151,7 @@ def test_imagenet_loaders_equal_the_references_bitwise(records,
     assert got[0]().snapshot_supported()
 
 
-@pytest.mark.parametrize("kind", ["mnist", "records"])
+@pytest.mark.parametrize("kind", ["records"])
 def test_unported_dataset_kinds_raise(kind):
     cfg = dataclasses.replace(TINY, dataset={"kind": kind, "schema": "voc"})
     with pytest.raises(NotImplementedError, match="not ported yet"):

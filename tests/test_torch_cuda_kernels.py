@@ -557,3 +557,77 @@ def test_norm_kernels_refuse_what_they_do_not_take(cuda_device):
                            torch.ones(1032, device=cuda_device),
                            torch.ones(1032, device=cuda_device), 1e-6,
                            torch.float32)
+
+
+# -- the zoo's shapes ----------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 60, 7, 7), (16, 216, 7, 7),
+                                   (16, 1024, 7, 7), (8, 32, 112, 112)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_zoo_shapes_bn_act_and_moments_match_plain(cuda_device, shape,
+                                                   dtype):
+    """MobileNet's and ShuffleNet's BatchNorm shapes (ShuffleNet's 60- and
+    216-channel bottleneck and concat widths, MobileNet's 1024-channel
+    head and 32-channel stem), channels_last as the models keep them:
+    bn_act with ReLU and no residual, as those models fuse it, and the
+    moments, under the rules above."""
+    x = norm_input(cuda_device, shape, dtype, "normal", seed=shape[1])
+    gen = torch.Generator(device=cuda_device).manual_seed(shape[1] + 1)
+    g = torch.randn(shape, generator=gen, device=cuda_device).to(
+        dtype).contiguous(memory_format=torch.channels_last)
+    c = shape[1]
+    a = torch.rand(c, generator=gen, device=cuda_device) + 0.5
+    b = torch.randn(c, generator=gen, device=cuda_device)
+    y = bn_act_forward(x, a, b, None, "relu")
+    want_y = bn_act_plain(x, a, b, None, "relu")
+    assert torch.equal(y, want_y) and y.stride() == x.stride()
+    got = bn_act_backward(x, a, want_y, g, "relu", False)
+    want = bn_act_bwd_plain(x, a, want_y, g, "relu", False)
+    assert torch.equal(got[0], want[0])
+    gf = torch.where(want_y > 0, g.float(), 0.0)
+    for k, terms in ((1, gf * x.float()), (2, gf)):
+        bound = 1e-5 * terms.abs().sum((0, 2, 3))
+        assert bool(((got[k] - want[k]).abs() <= bound).all())
+    rows = x.numel() // c
+    mom, mom_plain = bn_moments_forward(x), bn_moments_plain(x)
+    xd = x.permute(0, 2, 3, 1).reshape(rows, c).double()
+    for k, terms in ((0, xd.abs()), (1, xd.square())):
+        bound = 1e-5 * terms.mean(0).float()
+        assert bool(((mom[k] - mom_plain[k]).abs() <= bound).all())
+    u, w = (torch.randn(c, generator=gen, device=cuda_device)
+            for _ in range(2))
+    dx = bn_moments_backward(x, u, w)
+    assert torch.equal(dx, bn_moments_bwd_plain(
+        x, *bn_moments_bwd_coefficients(rows, u, w)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["avg", "max"])
+@pytest.mark.parametrize("window,strides,padding", [
+    (3, 1, "SAME"), (3, 2, "SAME"), (3, 2, "VALID"), (5, 3, "VALID")])
+def test_zoo_pools_on_the_card_match_the_cpu(cuda_device, kind, window,
+                                             strides, padding):
+    """nn/layers.py's pools on channels_last card tensors against the
+    same pools on the CPU, forward and input gradient, within 1e-6 of
+    the largest magnitude (the window sums in another order). The
+    library's own padded `F.avg_pool2d` fails this on the card (wrong
+    input gradients for channels_last with padding), so `avg_pool` pads
+    with F.pad."""
+    from deep_vision_tpu_torch.nn.layers import avg_pool, max_pool
+
+    pool = {"avg": avg_pool, "max": max_pool}[kind]
+    gen = torch.Generator().manual_seed(window * 10 + strides)
+    x = torch.randn(8, 192, 35, 35, generator=gen)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        xx = x.to(dev).contiguous(memory_format=torch.channels_last)
+        xx.requires_grad_()
+        y = pool(xx, window, strides, padding)
+        g = torch.randn(y.shape, generator=torch.Generator().manual_seed(1))
+        (y * g.to(dev)).sum().backward()
+        out[str(dev)] = (y.detach().cpu(), xx.grad.cpu())
+    (y_card, dx_card), (y_cpu, dx_cpu) = out["cuda"], out["cpu"]
+    for got, want in ((y_card, y_cpu), (dx_card, dx_cpu)):
+        assert float((got - want).abs().max()) <= 1e-6 * float(
+            want.abs().max())
