@@ -104,7 +104,31 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            mobilenet1` on phase 6's records under DVT_DETERMINISTIC=1, 2
            epochs straight and 1 + `-c auto`, ending bitwise equal, and
            `train_cli -m lenet5` one epoch on seeded MNIST idx files;
-8. report  the card line, the kernels line, and the final status line.
+8. vmoe    vmoe_s16 as registered (float32, batch 256, 224, AdamW with
+           warmup and cosine) through the CLI's `build_trainer` on the
+           CLI's seeded fake batch: warm-up and timed steps (ms/step,
+           images/s, peak memory, moe_aux, router entropy and the
+           largest expert share), 25 + 25 LayerNorm launches a step and
+           no flash or moments launch (T = 196 takes the dense
+           attention); the LayerNorm kernels at its float32 (256, 196,
+           384) shape against their plain versions with times, bounds
+           and F.layer_norm's; one float32 step at batch 2 on the card
+           against the CPU, the card taking the CPU's expert choice
+           where the top two gates lie within GATE_MARGIN;
+9. det     `train_cli -m yolov3_coco` as registered (416, batch 16,
+           Adam and plateau on the loss) for DET_EPOCHS epochs on seeded
+           COCO-layout images that `tools/convert.py coco` turned into
+           records: ms/step from its journal, peak memory, 72 + 72
+           moments launches a step; `--eval-only` from its checkpoint,
+           printing mAP@.5 and mAP@[.5:.95] with one NMS launch a val
+           batch; in this process every moments call of its step at the
+           registered batch against the plain version, with each
+           shape's time a call, bound and library times; NMS at
+           --eval-only's inputs (score 0.1) against its plain version
+           with times and bound; one float32 step at batch 2 on the card
+           against the CPU, the CPU taking the card's leaky-ReLU and
+           ignore-mask decisions (DET_CHECK_TOL);
+10. report the card line, the kernels line, and the final status line.
 """
 import json
 import os
@@ -203,8 +227,8 @@ CHECK_BATCH = 8
 #: max-pool pair within an ulp of a tie can fall the other way, sending
 #: one element's gradient elsewhere (tests/test_torch_train.py)
 CHECK_TOL = {"loss": 1e-4, "grad_norm": 1e-3, "update": 2e-2, "stats": 1e-3}
-#: phase 5b: one epoch of the fed step, 16 batches of 128
-FEED_IMAGES, FEED_SHARDS, FEED_SIZE = 2048, 8, 256
+#: phase 5b: one epoch of the fed step, 8 batches of 128
+FEED_IMAGES, FEED_SHARDS, FEED_SIZE = 1024, 8, 256
 FEED_DEPTH = 2
 #: the feed's worker modes, measured alone and in the fed step
 HOST_CHAIN_MODES = ({"num_workers": 8, "num_procs": 0},
@@ -326,6 +350,26 @@ def check_nms(torch, dev):
     finally:
         nms.PASS_CANDIDATES = default_k
     print(f"[kernels] nms: {len(runs)} cases equal to the plain version")
+
+
+def nms_bound(torch, best, indices, thr):
+    """The least time greedy NMS could take on these inputs: each box and
+    score read once and the picks written once, against
+    NMS_OPS_PER_CANDIDATE operations over each image's candidates (its
+    M_i boxes at a score >= thr and > 0; greedy NMS never looks at the
+    others) in each round this run's data needs (a round a pick, and one
+    more that finds none where an image keeps fewer than MAX_DET; none
+    where M_i = 0). best: (B, N) scores; indices: the kernel's
+    (B, MAX_DET) picks. -> (bound ms, bound by, bytes, operations,
+    rounds, picks per image)."""
+    nb, n = best.shape
+    picks = (indices >= 0).sum(dim=1)
+    m = ((best >= thr) & (best > 0.0)).sum(dim=1)
+    rounds = torch.clamp(picks + (picks < MAX_DET).long(), max=MAX_DET)
+    rounds = torch.where(m > 0, rounds, torch.zeros_like(rounds))
+    nbytes = nb * n * (16 + 4) + nb * MAX_DET * (4 + 4)
+    ops = NMS_OPS_PER_CANDIDATE * int((m * rounds).sum())
+    return (*bound_of(nbytes, ops), nbytes, ops, int(rounds.sum()), picks)
 
 
 def batchnorm_calls(torch, model, images):
@@ -668,14 +712,16 @@ def ln_share(torch, got, want, bf16_result, k):
     return float(((got - want).abs() / allowed.clamp_min(1e-300)).max())
 
 
-def layer_norm_cases(torch, dev, card):
+def layer_norm_cases(torch, dev, card, cases=None, tag="[kernels]"):
     """Phase 3 for LayerNorm: the ViT step's shapes (64 x 1024 rows of
     384: bf16 in and out for the 24 block LayerNorms, f32 for the final
-    one), then the edge cases. y, mean, rstd and dx within ln_share's
-    tolerance, dscale and dbias within NORM_SUM_TOL x k x sum |terms|,
-    all bit for bit on a second call. The main path's shapes are timed.
-    Returns the kernels line's fields for layer_norm_fwd and
-    layer_norm_bwd, times summed over one step's calls."""
+    one), then the edge cases; or `cases`, (shape, dtype, out dtype,
+    input case, calls a step) each. y, mean, rstd and dx within
+    ln_share's tolerance, dscale and dbias within NORM_SUM_TOL x k x sum
+    |terms|, all bit for bit on a second call. The main path's shapes
+    (calls a step > 0) are timed. Returns the kernels line's fields for
+    layer_norm_fwd and layer_norm_bwd, times summed over one step's
+    calls."""
     import torch.nn.functional as F
 
     from deep_vision_tpu_torch.ops.cuda.norm import (
@@ -688,7 +734,8 @@ def layer_norm_cases(torch, dev, card):
     gen = torch.Generator(device=dev).manual_seed(1)
     bf16, f32 = torch.bfloat16, torch.float32
     step = (VIT_BATCH, (VIT_IMAGE // 16) ** 2, 384)
-    cases = [(step, bf16, bf16, "normal", 24), (step, f32, f32, "normal", 1),
+    cases = cases or [
+             (step, bf16, bf16, "normal", 24), (step, f32, f32, "normal", 1),
              ((8, 1024, 384), bf16, bf16, "offset", 0),
              ((8, 1024, 384), f32, f32, "offset", 0),
              ((8, 1024, 384), bf16, bf16, "constant", 0),
@@ -736,7 +783,7 @@ def layer_norm_cases(torch, dev, card):
               f"layer_norm does not repeat bitwise: {label}")
         worst = max(shares.values())
         rounded = {m: float(f"{v:.3g}") for m, v in shares.items()}
-        print(f"[kernels] layer_norm {label} (k {k:.3g}): shares of the "
+        print(f"{tag} layer_norm {label} (k {k:.3g}): shares of the "
               f"tolerance {rounded}; repeats bitwise")
         check(worst <= 1.0, f"layer_norm beyond tolerance: {label}: "
               f"{shares}")
@@ -777,7 +824,7 @@ def layer_norm_cases(torch, dev, card):
                 row["library_ms"] += n * lib
                 row["bytes"] += n * nbytes
                 row["ops"] += n * ops
-            print(f"[kernels] layer_norm {label} x{n}/step: fwd "
+            print(f"{tag} layer_norm {label} x{n}/step: fwd "
                   f"{times[0]:.4f} ms (plain {times[1]:.4f}, F.layer_norm "
                   f"{times[2]:.4f}), bwd {times[3]:.4f} ms (plain "
                   f"{times[4]:.4f}, F.layer_norm backward {times[5]:.4f}) "
@@ -795,14 +842,14 @@ def layer_norm_cases(torch, dev, card):
             "bound_by": bound_by, "library_ms": row["library_ms"]}
         library = ("forward" if name == "layer_norm_fwd"
                    else "backward")
-        print(f"[kernels] {name} over one step's {row['calls']} calls "
+        print(f"{tag} {name} over one step's {row['calls']} calls "
               f"(replaces flax's LayerNorm, vit.py:156, :158, :225): kernel "
               f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({bound_by}), "
               f"{100 * bound_ms / row['ms']:.1f}% of the bound; "
               f"F.layer_norm {library} {row['library_ms']:.4f} ms; host "
               f"{1e3 * row['host_ms'] / row['calls']:.1f} us a call ({card})")
-    print(f"[kernels] layer_norm: {len(cases)} cases within tolerance")
+    print(f"{tag} layer_norm: {len(cases)} cases within tolerance")
     return fields
 
 
@@ -1533,32 +1580,39 @@ CLI_LOSS_RTOL = 1e-3
 #: timed fixed-batch steps, with the skip policy off and on
 CLI_POLICY_STEPS = 5
 #: phase 6's hook, imported by the CLI runs as sitecustomize: checksums
-#: of every batch Trainer.train_step reads (label and image sums weighted
-#: by row, in float64 on the card, read at exit) and the kernel wrappers'
-#: launch counts over the run, set to 0 before the CLI starts, written as
-#: JSON at exit
+#: of every batch Trainer.train_step reads (label (or detection class)
+#: and image sums weighted by row, in float64 on the card, read at exit)
+#: and the kernel wrappers' launch counts over the run, set to 0 before
+#: the CLI starts, written as JSON at exit: bn_act and the moments under
+#: "launches", NMS under "nms", LayerNorm's forward and backward under
+#: "layer_norm"
 BATCH_HOOK = """
 import atexit, json, os
 _path = os.environ.get("SMOKE_BATCH_LOG")
 if _path:
     import torch
     from deep_vision_tpu_torch.ops.cuda.bn_act import fused_scale_bias_act
-    from deep_vision_tpu_torch.ops.cuda.norm import batch_moments
+    from deep_vision_tpu_torch.ops.cuda.nms import greedy_nms
+    from deep_vision_tpu_torch.ops.cuda.norm import batch_moments, layer_norm
     from deep_vision_tpu_torch.train import trainer as _trainer
     fused_scale_bias_act.launches = 0
     fused_scale_bias_act.backward_launches = 0
     batch_moments.launches = 0
     batch_moments.backward_launches = 0
+    greedy_nms.launches = 0
+    layer_norm.launches = 0
+    layer_norm.backward_launches = 0
     _rows = []
     _train_step = _trainer.Trainer.train_step
 
     def _logged(self, batch):
         data = self._on_device(batch)
-        n = data["label"].shape[0]
-        w = torch.arange(1, n + 1, dtype=torch.float64,
-                         device=data["label"].device)
+        label = data["label"] if "label" in data else data["classes"]
+        n = label.shape[0]
+        w = torch.arange(1, n + 1, dtype=torch.float64, device=label.device)
         img = data[self.input_key].double().reshape(n, -1).sum(1)
-        _rows.append((self.state.step, (data["label"].double() * w).sum(),
+        _rows.append((self.state.step,
+                      (label.double().reshape(n, -1).sum(1) * w).sum(),
                       (img * w).sum()))
         return _train_step(self, data)
 
@@ -1573,7 +1627,9 @@ if _path:
         with open(_path, "w") as f:
             json.dump({"batches": [[s, float(a), float(b)]
                                    for s, a, b in _rows],
-                       "launches": launches}, f)
+                       "launches": launches, "nms": greedy_nms.launches,
+                       "layer_norm": [layer_norm.launches,
+                                      layer_norm.backward_launches]}, f)
 
     atexit.register(_dump)
 """
@@ -1604,11 +1660,12 @@ def run_cli(cmd, env, log, label):
     return secs
 
 
-def cli_report(rows, label, card, tag="[cli]"):
+def cli_report(rows, label, card, tag="[cli]", metric="top1"):
     """Print a CLI run's numbers from its journal: ms/step (the step
     events' host timestamps within an epoch of one process, each epoch's
     first step left out), images/s,
-    peak memory, save and restore times, LR and val top1 by epoch."""
+    peak memory, save and restore times, LR and the val `metric` by
+    epoch."""
     steps = [r for r in rows if r["event"] == "step"]
     runs = list(dict.fromkeys(r["run_id"] for r in steps))
     timed = [((b["ts"] - a["ts"]) * 1e3, b["step"], runs.index(b["run_id"]))
@@ -1633,8 +1690,8 @@ def cli_report(rows, label, card, tag="[cli]"):
           f"blocking {saves} ms, written "
           f"{[round(r['write_ms'], 1) for r in written]} ms "
           f"({[r['bytes'] for r in written]} bytes); restore {restores} ms; "
-          f"lr by epoch {lr}; val top1 by epoch "
-          f"{ {e: round(v['top1'], 5) for e, v in evals.items()} } ({card})")
+          f"lr by epoch {lr}; val {metric} by epoch "
+          f"{ {e: round(v[metric], 5) for e, v in evals.items()} } ({card})")
     if timed:
         g, step, proc = max(timed)
         print(f"{tag} {label}: the longest step gap, {g:.3f} ms, ends at "
@@ -1651,8 +1708,10 @@ def f32_step_kernels(torch, dev, model, images, card, counts=(48, 53),
     version (forward, dx and the moments backward bitwise; dscale, dbias
     and the moments within BN_SUM_TOL / NORM_SUM_TOL x sum|terms|), with
     kernel, plain and bound times summed over the step's calls, and the
-    library calls beside the moments (LIBRARY_CALL). `counts`: the
-    step's (bn_act, moments) call counts. Returns the per-kernel sums."""
+    library calls beside the moments (LIBRARY_CALL), and each moments
+    shape's times a call. `counts`: the step's (bn_act, moments) call
+    counts. Returns the per-kernel sums, with the largest |kernel -
+    plain| of each."""
     from deep_vision_tpu_torch.ops.cuda.bn_act import (
         bn_act_backward,
         bn_act_bwd_plain,
@@ -1671,7 +1730,7 @@ def f32_step_kernels(torch, dev, model, images, card, counts=(48, 53),
     calls, moments = batchnorm_calls(torch, model, images)
     gen = torch.Generator(device=dev).manual_seed(6)
     tot = {k: dict(calls=0, ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0,
-                   ops=0)
+                   ops=0, max_abs_err=0.0)
            for k in ("bn_act_fwd", "bn_act_bwd", "bn_moments_fwd",
                      "bn_moments_bwd")}
 
@@ -1708,6 +1767,9 @@ def f32_step_kernels(torch, dev, model, images, card, counts=(48, 53),
             check(bool(((got[k] - want[k]).abs()
                         <= BN_SUM_TOL * terms).all()),
                   f"f32 bn_act dscale/dbias beyond tolerance: {shape}")
+            tot["bn_act_bwd"]["max_abs_err"] = max(
+                tot["bn_act_bwd"]["max_abs_err"],
+                float((got[k] - want[k]).abs().max()))
         times = [time_cuda(torch, fn, runs=10)[0] for fn in (
             lambda: bn_act_forward(x, a, b, r, "relu"),
             lambda: bn_act_plain(x, a, b, r, "relu"),
@@ -1728,6 +1790,9 @@ def f32_step_kernels(torch, dev, model, images, card, counts=(48, 53),
             e = (got[k].double() - want[k].double()).abs() * rows
             check(bool((e <= NORM_SUM_TOL * terms).all()),
                   f"f32 moments beyond tolerance: {shape}")
+            tot["bn_moments_fwd"]["max_abs_err"] = max(
+                tot["bn_moments_fwd"]["max_abs_err"],
+                float((got[k] - want[k]).abs().max()))
         u = torch.randn(c, generator=gen, device=dev)
         w = torch.randn(c, generator=gen, device=dev)
         coef = bn_moments_bwd_coefficients(rows, u, w)
@@ -1746,6 +1811,16 @@ def f32_step_kernels(torch, dev, model, images, card, counts=(48, 53),
             MOMENTS_FWD_OPS * x.numel(), times[4])
         add("bn_moments_bwd", n, times[2], times[3], 2 * size + 8 * c,
             MOMENTS_BWD_OPS * x.numel(), times[5])
+        fwd_bound = bound_of(size + 8 * c, MOMENTS_FWD_OPS * x.numel())[0]
+        bwd_bound = bound_of(2 * size + 8 * c,
+                             MOMENTS_BWD_OPS * x.numel())[0]
+        print(f"{tag} moments {shape} ({rows} rows of {c}) x{n} a step, a "
+              f"call: fwd {times[0]:.4f} ms (bound {fwd_bound:.4f}, "
+              f"{100 * fwd_bound / times[0]:.1f}%; plain {times[1]:.4f}, "
+              f"{LIBRARY_CALL['bn_moments_fwd']} {times[4]:.4f}), bwd "
+              f"{times[2]:.4f} ms (bound {bwd_bound:.4f}, "
+              f"{100 * bwd_bound / times[2]:.1f}%; plain {times[3]:.4f}, "
+              f"{LIBRARY_CALL['bn_moments_bwd']} {times[5]:.4f}) ({card})")
         del x, xd, got, want
     for name, row in tot.items():
         if not row["calls"]:
@@ -2123,18 +2198,22 @@ def zoo_steps(torch, dev, card):
 
 class BranchReplay:
     """Record every ReLU decision (`F.relu`, a ConvBN's unfused ReLU, the
-    ReLU inside bn_act) and every max pool's choice (`F.max_pool2d`) of
-    one forward, and impose them, in call order, on a second forward of
-    the same model: there each ReLU keeps its input where the first
-    run's input was positive, and each pool takes the element the first
-    run's pool took. The second run's gradients then flow where the
-    first run's did."""
+    ReLU inside bn_act, Darknet's leaky ReLU) and every max pool's choice
+    (`F.max_pool2d`) of one forward, and impose them, in call order, on
+    a second forward of the same model: there each ReLU keeps its input
+    where the first run's input was positive (the leaky one scales the
+    rest by 0.1), and each pool takes the element the first run's pool
+    took. The second run's gradients then flow where the first run's
+    did."""
 
     def __init__(self, torch):
         import deep_vision_tpu_torch.nn.layers as layers
 
         self.torch, self.layers, self.f = torch, layers, torch.nn.functional
+        from deep_vision_tpu_torch.models import yolov3
+
         self.relu0, self.pool0 = self.f.relu, self.f.max_pool2d
+        self.leaky0 = yolov3._leaky
         self.fused0 = layers.fused_scale_bias_act
         self.taken, self.replay, self.i = [], False, 0
 
@@ -2150,6 +2229,12 @@ class BranchReplay:
         if m is None:
             return self.relu0(x)
         return self.torch.where(m.to(x.device), x, 0.0)
+
+    def leaky(self, x):
+        m = self._take(x > 0)
+        if m is None:
+            return self.leaky0(x)
+        return self.torch.where(m.to(x.device), x, 0.1 * x)
 
     def fused(self, x, a, b, residual=None, act=None):
         if act != "relu":
@@ -2179,19 +2264,22 @@ class BranchReplay:
         from deep_vision_tpu_torch.nn.layers import ConvBN
 
         self.replay, self.i = replay, 0
+        acts = {id(self.relu0): (self.relu0, self.relu),
+                id(self.leaky0): (self.leaky0, self.leaky)}
         convbns = [m for m in model.modules()
-                   if isinstance(m, ConvBN) and m.act is self.relu0]
+                   if isinstance(m, ConvBN) and id(m.act) in acts]
         self.f.relu, self.f.max_pool2d = self.relu, self.max_pool2d
         self.layers.fused_scale_bias_act = self.fused
         for m in convbns:
-            m.act = self.relu
+            m.act = acts[id(m.act)][1]
         try:
             return fn()
         finally:
             self.f.relu, self.f.max_pool2d = self.relu0, self.pool0
             self.layers.fused_scale_bias_act = self.fused0
             for m in convbns:
-                m.act = self.relu0
+                m.act = (self.relu0 if m.act == self.relu
+                         else self.leaky0)
 
 
 def fused_sum_bounds(torch, model):
@@ -2224,6 +2312,43 @@ def fused_sum_bounds(torch, model):
 
         handles.append(m.register_forward_hook(forward))
     return bounds, handles
+
+
+def card_cpu_shares(lk, lp, grads, stats, tol, bounds=None,
+                    cancelled=None):
+    """Each error of a card step against its CPU step as a share of what
+    its tolerance allows (ZOO_CHECK_TOL's rules): the loss relative; each
+    gradient relative to its tensor's largest magnitude (with `bounds`,
+    {name: per-channel bound}, added: the fused BatchNorms' sums of
+    |terms|; a `cancelled` (suffix, reference suffix) gradient against
+    its reference's largest magnitude); each running mean against the
+    larger of its largest magnitude and a tenth of its batch deviation,
+    each other statistic against its largest magnitude. grads and stats
+    are (card, cpu) dicts. -> (shares by kind, the worst tensor's name
+    by kind)."""
+    share = {"loss": abs(lk - lp) / abs(lp) / tol["loss"], "grad": 0.0,
+             "stats": 0.0}
+    where = {}
+    for kind, (got, want) in (("grad", grads), ("stats", stats)):
+        for k in want:
+            scale = float(want[k].abs().max())
+            if kind == "grad" and cancelled and k.endswith(cancelled[0]):
+                scale = float(want[k[:-len(cancelled[0])]
+                                   + cancelled[1]].abs().max())
+            allowed = tol[kind] * max(scale, 1e-30)
+            if kind == "grad" and bounds and k in bounds:
+                allowed = allowed + BN_SUM_TOL * bounds[k]
+            if kind == "stats" and k.endswith(".mean"):
+                # the step moved it by 0.1 x the batch mean, from 0;
+                # the batch's own spread moved var from 1
+                var = want[k[:-4] + "var"]
+                spread = 0.1 * float(((var - 0.9) / 0.1).clamp_min(0.0)
+                                     .sqrt().max())
+                allowed = tol[kind] * max(scale, spread, 1e-30)
+            e = float(((got[k] - want[k]).abs() / allowed).max())
+            if e > share[kind]:
+                share[kind], where[kind] = e, k
+    return share, where
 
 
 def zoo_against_cpu(torch, dev):
@@ -2289,30 +2414,8 @@ def zoo_against_cpu(torch, dev):
                               for p in ("scale", "bias")},
               f"{name}: sums recorded for {len(bounds)} fused parameters")
         tol = ZOO_CHECK_TOL
-        # each error as a share of what its tolerance allows
-        share = {"loss": abs(lk - lp) / abs(lp) / tol["loss"], "grad": 0.0,
-                 "stats": 0.0}
-        where = {}
-        for kind, got, want in (("grad", gk, gp), ("stats", sk, sp)):
-            for k in want:
-                scale = float(want[k].abs().max())
-                cancelled = ZOO_CANCELLED.get(name)
-                if kind == "grad" and cancelled and k.endswith(cancelled[0]):
-                    scale = float(want[k[:-len(cancelled[0])]
-                                       + cancelled[1]].abs().max())
-                allowed = tol[kind] * max(scale, 1e-30)
-                if kind == "grad" and k in bounds:
-                    allowed = allowed + BN_SUM_TOL * bounds[k]
-                if kind == "stats" and k.endswith(".mean"):
-                    # the step moved it by 0.1 x the batch mean, from 0;
-                    # the batch's own spread moved var from 1
-                    var = want[k[:-4] + "var"]
-                    spread = 0.1 * float(((var - 0.9) / 0.1).clamp_min(0.0)
-                                         .sqrt().max())
-                    allowed = tol[kind] * max(scale, spread, 1e-30)
-                e = float(((got[k] - want[k]).abs() / allowed).max())
-                if e > share[kind]:
-                    share[kind], where[kind] = e, k
+        share, where = card_cpu_shares(lk, lp, (gk, gp), (sk, sp), tol,
+                                       bounds, ZOO_CANCELLED.get(name))
         print(f"[zoo] {name} float32 batch {n}, card vs CPU "
               f"({len(branches.taken)} ReLU and max-pool calls replayed, "
               f"{len(bounds) // 2} fused BatchNorms): loss {lk:.6f} vs "
@@ -2424,6 +2527,499 @@ def zoo_phase(torch, dev, card, tmp, data, env, det):
           f"{ZOO_CLI_CONFIG} and lenet5 trained through the CLI in "
           f"{time.perf_counter() - t0:.1f} s; {ZOO_CLI_CONFIG} fed CLI "
           f"{cli_ms:.3f} ms/step ({card})")
+
+
+#: phase 8: vmoe_s16 as registered, its steps, and the LayerNorm calls
+#: of one (12 blocks x 2 and the final one, float32 at D = 384)
+VMOE_CONFIG, VMOE_WARMUP, VMOE_STEPS = "vmoe_s16", 2, 5
+VMOE_LN = 25
+#: vmoe_s16's parameters: ViT-S/16 at 224 (22,049,896) with six of its
+#: MLPs (1,181,568 each) replaced by 8-expert MoeMlps (9,455,616 each)
+VMOE_PARAMS = 71_694_184
+#: the card-against-CPU step's batch (392 tokens) and tolerances
+#: (VIT_CHECK_TOL's): the card takes the CPU's expert choice where the
+#: CPU's top two gates lie within GATE_MARGIN of each other, where a
+#: router logit's rounding can move the arg-max
+VMOE_CHECK_BATCH = 2
+GATE_MARGIN = 1e-5
+
+
+def vmoe_steps(torch, dev, card):
+    """Phase 8a: vmoe_s16 as registered (float32, batch 256, 224, AdamW
+    with warmup and cosine) through the CLI's `build_trainer` on the
+    CLI's seeded fake batch, with the CLI's precision: warm-up, then
+    timed steps with the LayerNorm, moments and flash launches counted
+    (25 + 25 LayerNorm a step; no BatchNorm; T = 196 takes the dense
+    attention). Returns (the LayerNorm launches, ms/step)."""
+    from deep_vision_tpu_torch.configs import get_config
+    from deep_vision_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from deep_vision_tpu_torch.ops.cuda.norm import batch_moments, layer_norm
+    from deep_vision_tpu_torch.tools.profile_train import make_zoo_parts
+
+    cfg = get_config(VMOE_CONFIG)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # the CLI keeps the default
+    try:
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        trainer, placed = make_zoo_parts(VMOE_CONFIG, device=dev)
+        build_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(VMOE_WARMUP):
+            trainer.train_step(placed)
+        torch.cuda.synchronize()
+        layer_norm.launches = 0  # the vmoe step's run starts here
+        layer_norm.backward_launches = 0
+        batch_moments.launches = 0
+        flash_attention.launches = 0
+        events, metrics = [], []
+        for _ in range(VMOE_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics.append(trainer.train_step(placed))
+            end.record()
+            events.append((start, end))
+        torch.cuda.synchronize()
+        launches = {"layer_norm_fwd": layer_norm.launches,
+                    "layer_norm_bwd": layer_norm.backward_launches,
+                    "bn_moments_fwd": batch_moments.launches,
+                    "flash_fwd": flash_attention.launches}  # ... ends here
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    ms = statistics.median(a.elapsed_time(b) for a, b in events)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    seen = {k: [float(m[k]) for m in metrics] for k in (
+        "loss", "moe_aux", "router_entropy", "expert_load_max", "top1")}
+    print(f"[vmoe] {VMOE_CONFIG} ({n_params} parameters, "
+          f"{'x'.join(map(str, cfg.input_shape))}, float32 batch "
+          f"{cfg.batch_size}, {cfg.optimizer['name']}): {ms:.3f} ms/step "
+          f"median of {VMOE_STEPS} (CUDA events), "
+          f"{cfg.batch_size / ms * 1e3:.1f} images/s, peak memory "
+          f"{peak:.2f} GiB (max_memory_allocated over what was held "
+          f"before); built in {build_s:.1f} s ({card})")
+    print(f"[vmoe] by step: " + "; ".join(
+        f"{k} {[round(v, 4) for v in vs]}" for k, vs in seen.items())
+          + f"; launches {launches} over {VMOE_STEPS} steps")
+    check(n_params == VMOE_PARAMS, f"{VMOE_CONFIG} has {n_params} params")
+    check(launches == {"layer_norm_fwd": VMOE_LN * VMOE_STEPS,
+                       "layer_norm_bwd": VMOE_LN * VMOE_STEPS,
+                       "bn_moments_fwd": 0, "flash_fwd": 0},
+          f"vmoe launches {launches}, want {VMOE_LN} + {VMOE_LN} LayerNorm "
+          f"a step and no moments or flash")
+    check(all(np.isfinite(v).all() for v in seen.values()),
+          "non-finite vmoe metrics")
+    check(all(1 / 8 <= v <= 1.0 for v in seen["expert_load_max"]),
+          f"expert_load_max {seen['expert_load_max']} outside [1/E, 1]")
+    check(all(0.0 <= v <= np.log(8) + 1e-4 for v in seen["router_entropy"]),
+          f"router_entropy {seen['router_entropy']} outside [0, ln E]")
+    del trainer, placed
+    torch.cuda.empty_cache()
+    return launches, ms
+
+
+def vmoe_against_cpu(torch, dev):
+    """Phase 8b: one float32 vmoe_s16 step at VMOE_CHECK_BATCH on the CPU
+    (plain versions) and then on the card (kernels), from the same seeded
+    weights and batch, TF32 off: loss, grad norm and each parameter's
+    gradient within VIT_CHECK_TOL, the card taking the CPU's expert
+    choices within GATE_MARGIN (MoeMlp.choose); every MoE block routes
+    its tokens to two experts or more, so the grouped dispatch's sort,
+    split and inverse-permutation gather run at full width."""
+    import copy
+
+    from deep_vision_tpu_torch.configs import get_config
+    from deep_vision_tpu_torch.losses import classification_loss_fn
+    from deep_vision_tpu_torch.models import get_model
+    from deep_vision_tpu_torch.models.vit import MoeMlp
+    from deep_vision_tpu_torch.ops.cuda.norm import layer_norm
+
+    cfg = get_config(VMOE_CONFIG)
+    rng = np.random.RandomState(8)
+    # zero-mean images, as after the mean/std normalisation: uniform
+    # [0, 1) noise shares one large token component, and a block then
+    # sends every token to one expert and runs one group
+    x = rng.randn(VMOE_CHECK_BATCH, *cfg.input_shape).astype(np.float32)
+    y = rng.randint(0, cfg.num_classes, VMOE_CHECK_BATCH).astype(np.int32)
+    cpu = get_model(cfg.model, device="cpu", seed=0, train=True,
+                    num_classes=cfg.num_classes)
+    card_model = copy.deepcopy(cpu).to(dev)
+    gates, replayed, groups = {}, {}, ({}, {})
+
+    def record(name):
+        def choose(g):
+            gates[name] = g.detach().cpu()
+            own = g.argmax(dim=-1)
+            groups[0][name] = torch.bincount(
+                own, minlength=g.shape[-1]).tolist()
+            return own
+        return choose
+
+    def replay(name):
+        def choose(g):
+            want = gates[name].argmax(dim=-1).to(g.device)
+            top2 = gates[name].topk(2, dim=-1).values
+            near = (top2[:, 0] - top2[:, 1] < GATE_MARGIN).to(g.device)
+            own = g.argmax(dim=-1)
+            differ = own != want
+            check(not bool((differ & ~near).any()),
+                  f"{name}: the card's expert choice differs from the "
+                  f"CPU's beyond a gate margin of {GATE_MARGIN}")
+            replayed[name] = int(differ.sum())
+            took = torch.where(differ, want, own)
+            groups[1][name] = torch.bincount(
+                took, minlength=g.shape[-1]).tolist()
+            return took
+        return choose
+
+    runs = []
+    for model, hook in ((cpu, record), (card_model, replay)):
+        for name, m in model.named_modules():
+            if isinstance(m, MoeMlp):
+                m.choose = hook(name)
+        where = next(model.parameters()).device
+        before = (layer_norm.launches, layer_norm.backward_launches)
+        batch = {"image": torch.from_numpy(x).to(where),
+                 "label": torch.from_numpy(y).to(where)}
+        loss, metrics = classification_loss_fn(model(batch["image"]), batch)
+        loss.backward()
+        grads = {k: p.grad.detach().cpu() for k, p in
+                 model.named_parameters()}
+        runs.append((float(loss.detach()), float(torch.nn.utils.get_total_norm(
+            list(grads.values()))), grads,
+            {k: float(metrics[k]) for k in ("moe_aux", "router_entropy",
+                                            "expert_load_max")},
+            (layer_norm.launches - before[0],
+             layer_norm.backward_launches - before[1])))
+    (lp, gp, dp, mp, np_), (lk, gk, dk, mk, nk) = runs
+    check(nk == (VMOE_LN, VMOE_LN) and np_ == (0, 0),
+          f"LayerNorm launches card {nk}, cpu {np_}")
+    check(len(gates) == 6 and len(replayed) == 6,
+          f"MoE blocks: {len(gates)} recorded, {len(replayed)} replayed")
+    print(f"[vmoe] tokens per expert in each MoE block, card (CPU): "
+          + "; ".join(f"{k.split('.')[0]} {v} ({groups[0][k]})"
+                      for k, v in groups[1].items()))
+    check(groups[0] == groups[1], "the card's expert groups differ from the "
+          "CPU's")
+    check(all(sum(n > 0 for n in v) >= 2 for v in groups[1].values()),
+          f"an MoE block ran one expert group: {groups[1]}")
+    worst = {"loss": abs(lk - lp) / abs(lp),
+             "grad_norm": abs(gk - gp) / abs(gp), "grad": 0.0}
+    at = ""
+    for k in dp:
+        e = float((dk[k] - dp[k]).abs().max()) / max(
+            float(dp[k].abs().max()), 1e-30)
+        if e > worst["grad"]:
+            worst["grad"], at = e, k
+    print(f"[vmoe] float32 batch {VMOE_CHECK_BATCH} ({VMOE_CHECK_BATCH * 196}"
+          f" tokens), card vs CPU: loss {lk:.6f} vs {lp:.6f}, grad_norm "
+          f"{gk:.6f} vs {gp:.6f}; router metrics card {mk} cpu {mp}; expert "
+          f"choices replayed {sum(replayed.values())} of "
+          f"{6 * VMOE_CHECK_BATCH * 196}; worst relative errors {worst} "
+          f"(gradient: {at}); tolerances {VIT_CHECK_TOL}")
+    for kind, e in worst.items():
+        check(e <= VIT_CHECK_TOL[kind], f"vmoe card vs CPU {kind} error "
+              f"{e:.3e} > {VIT_CHECK_TOL[kind]}")
+    del cpu, card_model
+    torch.cuda.empty_cache()
+
+
+def vmoe_phase(torch, dev, card):
+    """Phase 8: V-MoE. Returns (the LayerNorm launches of its run, the
+    kernels line's LayerNorm fields at its shapes)."""
+    t0 = time.perf_counter()
+    launches, ms = vmoe_steps(torch, dev, card)
+    rows = layer_norm_cases(
+        torch, dev, card, tag="[vmoe]",
+        cases=[((256, 196, 384), torch.float32, torch.float32, "normal",
+                VMOE_LN)])
+    torch.cuda.empty_cache()
+    vmoe_against_cpu(torch, dev)
+    print(f"[vmoe] {VMOE_CONFIG} stepped, its LayerNorms timed and held "
+          f"against the CPU in {time.perf_counter() - t0:.1f} s; "
+          f"{ms:.3f} ms/step ({card})")
+    return launches, rows
+
+
+#: phase 9: detection training as registered, on seeded COCO-layout box
+#: records converted by tools/convert.py (train, val images of DET_SIZE
+#: square), DET_EPOCHS epochs, then --eval-only from its checkpoint
+DET_CONFIG, DET_EPOCHS = "yolov3_coco", 2
+DET_TRAIN_IMAGES, DET_VAL_IMAGES, DET_SIZE = 256, 64, 480
+#: training BatchNorms of a YOLOv3 step (all unfused: Darknet's leaky ReLU
+#: follows the BatchNorm), each taking its batch's moments
+DET_BN = 72
+#: the detector of --eval-only (train_cli.run_eval_only)
+DET_SCORE_THR = 0.1
+#: the float32 card-against-CPU step: its batch, and ZOO_CHECK_TOL's
+#: rules with the loss within 1e-5 relative; the CPU takes the card's
+#: leaky-ReLU decisions (BranchReplay) and the card's ignore-mask
+#: decisions where the CPU's best IoU lies within IOU_MARGIN of the
+#: threshold
+DET_CHECK_BATCH = 2
+DET_CHECK_TOL = {"loss": 1e-5, "grad": 2e-2, "stats": 1e-3}
+IOU_MARGIN = 1e-4
+
+
+def det_records(tmp):
+    """Seeded COCO-layout trees (JPEG files and instances JSON, category
+    ids with holes, crowd boxes) through `tools/convert.py coco` into
+    records under `tmp`/det_data: 4 train shards, 1 val shard."""
+    from deep_vision_tpu_torch.tools import convert
+    from deep_vision_tpu_torch.tools.synth_records import write_synth_coco
+
+    root, data = os.path.join(tmp, "coco"), os.path.join(tmp, "det_data")
+    t0 = time.perf_counter()
+    for split, n, seed, shards in (("train", DET_TRAIN_IMAGES, 0, 4),
+                                   ("val", DET_VAL_IMAGES, 1, 1)):
+        js, images = write_synth_coco(root, split, n, DET_SIZE, seed=seed)
+        check(convert.main(["coco", "--instances-json", js, "--images-dir",
+                            images, "--out-dir", data, "--prefix", split,
+                            "--num-shards", str(shards), "--workers",
+                            "1"]) == 0, f"tools/convert.py coco {split}")
+    print(f"[det] wrote {DET_TRAIN_IMAGES} + {DET_VAL_IMAGES} seeded "
+          f"{DET_SIZE}x{DET_SIZE} COCO-layout images and converted them "
+          f"to records in {time.perf_counter() - t0:.1f} s")
+    return data
+
+
+def det_cli(torch, card, tmp, data, env):
+    """Phase 9a: `train_cli -m yolov3_coco` as registered for DET_EPOCHS
+    epochs on the converted records (72 + 72 moments launches a step, no
+    other kernel), then `--eval-only` from its checkpoint: mAP@.5 and
+    mAP@[.5:.95] with one NMS launch a val batch. -> (the checkpoint's
+    step dir, its ms/step, train launches, eval NMS launches)."""
+    from deep_vision_tpu_torch.configs import get_config
+    from deep_vision_tpu_torch.obs.journal import read_journal
+
+    def path(name):
+        return os.path.join(tmp, "det_" + name)
+
+    base = [sys.executable, "-m", "deep_vision_tpu_torch.train_cli", "-m",
+            DET_CONFIG, "--data-dir", data]
+    run_cli(base + ["--ckpt-dir", path("ck"), "--epochs", str(DET_EPOCHS),
+                    "--journal", path("run.jsonl")],
+            dict(env, SMOKE_BATCH_LOG=path("train.json")), path("train.log"),
+            f"{DET_CONFIG} ({DET_EPOCHS} epochs)")
+    rows = read_journal(path("run.jsonl"))
+    steps, ms = cli_report(rows, f"{DET_CONFIG} run", card, tag="[det]",
+                           metric="loss")
+    batch = get_config(DET_CONFIG).batch_size
+    n_steps = DET_EPOCHS * (DET_TRAIN_IMAGES // batch)
+    check(len(steps) == n_steps, f"{DET_CONFIG} took {len(steps)} steps")
+    check(all(np.isfinite(r["loss"]) for r in steps), "non-finite loss")
+    train = json.load(open(path("train.json")))
+    want = {"bn_act_fwd": 0, "bn_act_bwd": 0,
+            "bn_moments_fwd": DET_BN * n_steps,
+            "bn_moments_bwd": DET_BN * n_steps}
+    print(f"[det] {DET_CONFIG} run's kernel launches {train['launches']}, "
+          f"nms {train['nms']}, layer_norm {train['layer_norm']} over "
+          f"{n_steps} steps and {DET_EPOCHS * DET_VAL_IMAGES // batch} eval "
+          f"batches")
+    check(train["launches"] == want and train["nms"] == 0
+          and train["layer_norm"] == [0, 0],
+          f"train launches {train}, want {want} and no NMS or LayerNorm")
+    for line in open(path("train.log")).read().splitlines():
+        if line.startswith(("model ", "peak device")):
+            print(f"[det] the run says: {line}")
+    run_cli(base + ["-c", path("ck"), "--eval-only"],
+            dict(env, SMOKE_BATCH_LOG=path("eval.json")), path("eval.log"),
+            f"{DET_CONFIG} --eval-only")
+    said = [line for line in open(path("eval.log")).read().splitlines()
+            if line.startswith("eval: mAP@.5=")]
+    check(len(said) == 1 and "mAP@[.5:.95]=" in said[0]
+          and said[0].endswith(f"images={DET_VAL_IMAGES}"),
+          f"--eval-only printed {said}")
+    evaluated = json.load(open(path("eval.json")))
+    n_eval = DET_VAL_IMAGES // batch
+    print(f"[det] --eval-only: {said[0]} (score {DET_SCORE_THR}, IoU 0.5, "
+          f"100 detections); nms launches {evaluated['nms']} for {n_eval} "
+          f"val batches; moments {evaluated['launches']['bn_moments_fwd']}")
+    check(evaluated["nms"] == n_eval
+          and evaluated["launches"]["bn_moments_fwd"] == 0,
+          f"--eval-only launches {evaluated}")
+    return (os.path.join(path("ck"), str(n_steps)), ms,
+            train["launches"], evaluated["nms"])
+
+
+def nms_at_eval(torch, dev, model, images, card):
+    """Phase 9c: NMS at --eval-only's inputs, the class-shifted boxes of
+    one val batch through the trained model at score DET_SCORE_THR:
+    kernel against plain version (equal), candidates per image, passes,
+    kernel, plain and bound times. -> the kernels line's fields."""
+    from deep_vision_tpu_torch.inference import yolo_decode_outputs
+    from deep_vision_tpu_torch.ops.cuda.nms import (
+        PASS_CANDIDATES,
+        greedy_nms,
+        nms_plain,
+        selection_plan,
+    )
+
+    with torch.inference_mode():
+        boxes, scores = yolo_decode_outputs(model(images))
+        best, cls = scores.max(dim=-1)
+    shifted = (boxes + cls.to(boxes.dtype)[..., None] * 2.0).contiguous()
+    best = best.contiguous()
+    args = (shifted, best, MAX_DET, IOU_THR, DET_SCORE_THR)
+    k_out, p_out = greedy_nms(*args), nms_plain(*args)
+    check(all(torch.equal(a, b) for a, b in zip(k_out, p_out)),
+          "nms differs from its plain version at --eval-only's inputs")
+    ms, passes, chunks = selection_plan(best, k_out[1], DET_SCORE_THR,
+                                        PASS_CANDIDATES)
+    plain_ms, _ = time_cuda(torch, lambda: nms_plain(*args), runs=10)
+    nms_ms, nms_us = time_cuda(torch, lambda: greedy_nms(*args))
+    nb, n = best.shape
+    bound_ms, bound_by, nbytes, ops, rounds, picks = nms_bound(
+        torch, best, k_out[1], DET_SCORE_THR)
+    print(f"[det] nms at --eval-only's inputs (B={nb}, N={n}, D={MAX_DET}, "
+          f"score {DET_SCORE_THR}): candidates above the score per image "
+          f"{ms}, passes {passes}, 64-candidate chunks {chunks}, keeps "
+          f"{picks.tolist()}; equal to the plain version; kernel "
+          f"{nms_ms:.4f} ms (host {nms_us:.1f} us), plain {plain_ms:.4f} "
+          f"ms, bound {bound_ms:.6f} ms ({bound_by}: {nbytes} B, {ops} "
+          f"ops over the candidates in {rounds} rounds); library: none "
+          f"({card})")
+    return {"max_abs_err": float((k_out[0] - p_out[0]).abs().max()),
+            "ms": nms_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def det_against_cpu(torch, dev):
+    """Phase 9d: one float32 yolov3_coco step (yolo_train_loss_fn at the
+    416 grids) at DET_CHECK_BATCH on the card (kernels) and on the CPU
+    (plain versions) from the same seeded weights and the CLI's fake
+    detection batch, TF32 off, the CPU taking the card's leaky-ReLU and
+    ignore-mask decisions: the loss, every gradient and every running
+    statistic within DET_CHECK_TOL (card_cpu_shares)."""
+    import copy
+    import dataclasses
+    import functools
+
+    from deep_vision_tpu_torch.configs import get_config
+    from deep_vision_tpu_torch.losses import yolo
+    from deep_vision_tpu_torch.models import get_model
+    from deep_vision_tpu_torch.ops.cuda.norm import batch_moments
+    from deep_vision_tpu_torch.train_cli import _fake_detection
+
+    cfg = dataclasses.replace(get_config(DET_CONFIG),
+                              batch_size=DET_CHECK_BATCH)
+    host = _fake_detection(cfg, 1)[0]
+    s = cfg.input_shape[0]
+    loss_fn = functools.partial(yolo.yolo_train_loss_fn,
+                                grid_sizes=(s // 32, s // 16, s // 8),
+                                num_classes=cfg.num_classes)
+    cpu = get_model(cfg.model, device="cpu", seed=0, train=True,
+                    num_classes=cfg.num_classes)
+    card_model = copy.deepcopy(cpu).to(dev)
+    best_iou0, taken, flips = yolo.best_iou, [], [0]
+
+    def record(pred, gt, anchors):
+        iou = best_iou0(pred, gt, anchors)
+        taken.append(iou.cpu())
+        return iou
+
+    def replay(pred, gt, anchors):
+        iou, card = best_iou0(pred, gt, anchors), taken.pop(0)
+        differ = (iou > 0.5) != (card > 0.5)
+        check(bool(((iou[differ] - 0.5).abs() <= IOU_MARGIN).all()),
+              "an ignore-mask decision differs beyond IOU_MARGIN")
+        flips[0] += int(differ.sum())
+        return torch.where(differ, card, iou)
+
+    runs, branches = [], BranchReplay(torch)
+    try:
+        for model, hook in ((card_model, record), (cpu, replay)):
+            yolo.best_iou = hook
+            where = next(model.parameters()).device
+            before = (batch_moments.launches, batch_moments.backward_launches)
+            batch = {k: torch.from_numpy(v).to(where) for k, v in host.items()}
+            loss, metrics = branches.run(model, lambda: loss_fn(
+                model(batch["image"]), batch), replay=model is cpu)
+            loss.backward()
+            runs.append((
+                float(loss.detach()),
+                {k: p.grad.detach().cpu() for k, p in
+                 model.named_parameters()},
+                {k: b.detach().cpu() for k, b in model.named_buffers()},
+                (batch_moments.launches - before[0],
+                 batch_moments.backward_launches - before[1]),
+                {k: float(v) for k, v in metrics.items()}))
+    finally:
+        yolo.best_iou = best_iou0
+    (lk, gk, sk, nk, mk), (lp, gp, sp, np_, mp) = runs
+    check(nk == (DET_BN, DET_BN) and np_ == (0, 0),
+          f"moments launches card {nk}, cpu {np_}")
+    check(branches.i == len(branches.taken) == DET_BN and not taken,
+          f"replayed {branches.i} of {len(branches.taken)} leaky ReLUs, "
+          f"{len(taken)} ignore masks left")
+    share, at = card_cpu_shares(lk, lp, (gk, gp), (sk, sp), DET_CHECK_TOL)
+    print(f"[det] float32 batch {DET_CHECK_BATCH}, card vs CPU ({DET_BN} "
+          f"leaky ReLUs replayed, {flips[0]} ignore decisions within "
+          f"{IOU_MARGIN} of the threshold replayed): loss {lk:.6f} vs "
+          f"{lp:.6f}; terms card "
+          f"{ {k: round(v, 4) for k, v in mk.items()} }; the worst error as "
+          f"a share of its tolerance "
+          f"{ {k: float(f'{v:.3e}') for k, v in share.items()} } at {at}; "
+          f"tolerances {DET_CHECK_TOL}")
+    for kind, e in share.items():
+        check(e <= 1.0, f"{DET_CONFIG}: card vs CPU {kind} error {e:.3f} of "
+              f"its tolerance ({at.get(kind, kind)})")
+    del cpu, card_model, runs
+    torch.cuda.empty_cache()
+
+
+def det_phase(torch, dev, card, tmp, env):
+    """Phase 9: detection training. Returns the kernels line's entries
+    for its path (the moments at YOLOv3's shapes, NMS at score 0.1)."""
+    from deep_vision_tpu_torch.configs import get_config
+    from deep_vision_tpu_torch.models import get_model
+    from deep_vision_tpu_torch.train_cli import build_dataloaders
+
+    t0 = time.perf_counter()
+    data = det_records(tmp)
+    ck, ms, train_launches, nms_launches = det_cli(torch, card, tmp, data,
+                                                   env)
+    cfg = get_config(DET_CONFIG)
+    model = get_model(cfg.model, num_classes=cfg.num_classes, device=dev,
+                      train=True)
+    model.load_state_dict(torch.load(os.path.join(ck, "state.pt"),
+                                     map_location=dev,
+                                     weights_only=True)["model"])
+    train_fn, eval_fn = build_dataloaders(cfg, data, False, 0, 8)
+    images = torch.as_tensor(next(iter(train_fn()))["image"]).to(dev)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # the CLI keeps the default
+    try:
+        tot = f32_step_kernels(torch, dev, model, images, card,
+                               counts=(0, DET_BN), tag="[det]")
+        val = torch.as_tensor(next(iter(eval_fn()))["image"]).to(dev)
+        nms_row = nms_at_eval(torch, dev, model.eval(), val, card)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    del model, images, val
+    torch.cuda.empty_cache()
+    det_against_cpu(torch, dev)
+    entries = [{"name": "nms[yolov3_coco --eval-only, score 0.1]",
+                "route": "cuda", "source": "deep_vision_tpu_torch/csrc/nms.cu",
+                "replaces": "deep_vision_tpu/ops/pallas/nms.py:42",
+                "launches": nms_launches, **nms_row}]
+    for name in ("bn_moments_fwd", "bn_moments_bwd"):
+        row = tot[name]
+        bound_ms, bound_by = bound_of(row["bytes"], row["ops"])
+        entries.append({
+            "name": f"{name}[yolov3_coco]", "route": "cuda",
+            "source": "deep_vision_tpu_torch/csrc/norm.cu",
+            "replaces": "deep_vision_tpu/nn/layers.py:129",
+            "launches": train_launches[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": row["library_ms"]})
+    print(f"[det] {DET_CONFIG} trained through the CLI, evaluated, its "
+          f"kernels timed and its step held against the CPU in "
+          f"{time.perf_counter() - t0:.1f} s; {ms:.3f} ms/step ({card})")
+    return entries
 
 
 def main():
@@ -2635,15 +3231,11 @@ def main():
     nms1_ms, nms1_us = time_cuda(torch, lambda: greedy_nms(
         *one, MAX_DET, IOU_THR, SCORE_THR))
     nb, n = best.shape
-    picks = (k_out[1] >= 0).sum(dim=1)
-    rounds = int(torch.clamp(picks + (picks < MAX_DET).long(),
-                             max=MAX_DET).sum())
-    nbytes = nb * n * (16 + 4) + nb * MAX_DET * (4 + 4)
-    ops = NMS_OPS_PER_CANDIDATE * n * rounds
-    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+    bound_ms, bound_by, nbytes, ops, rounds, picks = nms_bound(
+        torch, best, k_out[1], SCORE_THR)
     print(f"[kernels] nms at serving inputs (B={nb}, N={n}, D={MAX_DET}): "
           f"kernel {nms_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{max(bytes_ms, ops_ms):.6f} ms ({nbytes} B, {ops} ops, {rounds} "
+          f"{bound_ms:.6f} ms ({nbytes} B, {ops} ops, {rounds} "
           f"rounds); serial chain of the scan: {sum(chunks)} chunks + "
           f"{int(picks.sum())} keeps over {nb} images in parallel (a note, "
           f"not the bound); library: none (no single PyTorch call computes "
@@ -2663,8 +3255,8 @@ def main():
         "max_abs_err": max_abs_err,
         "ms": nms_ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
         "library_ms": None,
     }]
     del engine, model, x, variables
@@ -2693,6 +3285,10 @@ def main():
         cli_phase(torch, dev, card, tmp, data, env, det)
         torch.cuda.empty_cache()
         zoo_phase(torch, dev, card, tmp, data, env, det)
+        torch.cuda.empty_cache()
+        # -- 8. V-MoE, 9. detection training ---------------------------
+        vmoe_launches, vmoe_rows = vmoe_phase(torch, dev, card)
+        det_entries = det_phase(torch, dev, card, tmp, env)
     for name, n in launches.items():
         if name not in bn_rows:
             continue
@@ -2717,7 +3313,13 @@ def main():
                         "source": "deep_vision_tpu_torch/csrc/norm.cu",
                         "launches": n, **norm_rows[name]})
 
-    # -- 8. report -----------------------------------------------------------
+    for name in ("layer_norm_fwd", "layer_norm_bwd"):
+        kernels.append({"name": f"{name}[vmoe_s16]", "route": "cuda",
+                        "source": "deep_vision_tpu_torch/csrc/norm.cu",
+                        "launches": vmoe_launches[name], **vmoe_rows[name]})
+    kernels += det_entries
+
+    # -- 10. report ----------------------------------------------------------
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,9 @@ auto-names, so the mapping is by path:
     params/.../Conv_0/bias                    -> ....Conv_0.bias
     params/.../BatchNorm_0/{scale,bias}       -> ....BatchNorm_0.{scale,bias}
     batch_stats/.../BatchNorm_0/{mean,var}    -> ....BatchNorm_0.{mean,var}
+    params/.../MoeMlp_0/{router,w1,b1,w2,b2}  -> ....MoeMlp_0.<same>
+        (V-MoE: the router (dim, E) and the stacked expert weights keep
+        the reference's layout)
 
 `model.load_state_dict(sd)` (strict) then proves the mapping complete.
 """

@@ -2,5 +2,11 @@ from deep_vision_tpu_torch.losses.classification import (
     classification_loss_fn,
     cross_entropy_loss,
 )
+from deep_vision_tpu_torch.losses.yolo import (
+    yolo_loss_fn,
+    yolo_loss_per_scale,
+    yolo_train_loss_fn,
+)
 
-__all__ = ["classification_loss_fn", "cross_entropy_loss"]
+__all__ = ["classification_loss_fn", "cross_entropy_loss", "yolo_loss_fn",
+           "yolo_loss_per_scale", "yolo_train_loss_fn"]

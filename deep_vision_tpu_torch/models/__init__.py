@@ -3,8 +3,8 @@
 Only the models of the ported slices are registered: `yolov3` and its
 backbone `darknet53`; the classifiers `lenet5`, `alexnet1`, `alexnet2`,
 `vgg16`, `vgg19`, `inception1`, `inception3`, `resnet34`, `resnet50`,
-`resnet152`, `resnet50v2`, `mobilenet1` and `shufflenet1`; and the
-dense ViTs `vit_s16` and `vit_b16`. Each registers with its own initialiser,
+`resnet152`, `resnet50v2`, `mobilenet1` and `shufflenet1`; the dense
+ViTs `vit_s16` and `vit_b16`, and the V-MoE `vmoe_s16`. Each registers with its own initialiser,
 which draws the weights as flax draws them from a `torch.Generator`
 seeded with `seed` (the draws differ from JAX's; load the reference's
 numbers through convert.py where they must agree). `get_model` returns

@@ -2,7 +2,12 @@
 
 Public layout matches the JAX model: NHWC images in, three raw scale
 outputs `(B, g, g, 3, 5+C)` out (stride 32, 16, 8). Inside, tensors are
-NCHW. Submodule names are the flax auto-names (`Darknet53_0`,
+NCHW-indexed in channels_last memory: the NHWC input permuted, the
+weights stored channels_last by `reset_parameters`, and the neck's
+permutes, concatenations and upsampling keep that layout, so every
+training BatchNorm hands the moments kernel the (rows, C) matrix it
+reads. Darknet's ConvBN takes the unfused BatchNorm apply and then the
+leaky ReLU, the reference's arithmetic. Submodule names are the flax auto-names (`Darknet53_0`,
 `DarknetResidual_3`, `ConvBN_0`, `Conv_0`, ...), so the state_dict keys
 are the reference's variable paths with '.' for '/' (convert.py).
 """
@@ -30,7 +35,7 @@ def reset_parameters(module: nn.Module,
     """Re-draw every weight as flax initializes it: ConvBN convs he-normal,
     BatchNorm scale 1 / bias 0 / mean 0 / var 1, the head's plain conv
     lecun-normal with a zero bias. Draws follow module order, from
-    `generator`."""
+    `generator`. Then the 4-D weights go to channels_last memory."""
     for m in module.modules():
         if isinstance(m, ConvBN):
             m.reset_parameters(generator)
@@ -38,6 +43,7 @@ def reset_parameters(module: nn.Module,
             with torch.no_grad():
                 trunc_normal_fan_in_(m.Conv_0.weight, 1.0, generator)
                 m.Conv_0.bias.zero_()
+    module.to(memory_format=torch.channels_last)
 
 
 class DarknetConv(nn.Module):

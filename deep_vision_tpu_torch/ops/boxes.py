@@ -1,5 +1,5 @@
-"""Box transforms, broadcast IoU and YOLO box decode
-(deep_vision_tpu/ops/boxes.py:17-68).
+"""Box transforms, broadcast IoU and YOLO box decode and encode
+(deep_vision_tpu/ops/boxes.py).
 
 Conventions as in the reference: boxes are (..., 4); 'xywh' = center x,
 center y, width, height; 'xyxy' = x1, y1, x2, y2; normalized to [0, 1].
@@ -14,6 +14,11 @@ import torch
 def xywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
     xy, wh = boxes[..., :2], boxes[..., 2:4]
     return torch.cat([xy - wh / 2.0, xy + wh / 2.0], dim=-1)
+
+
+def xyxy_to_xywh(boxes: torch.Tensor) -> torch.Tensor:
+    mins, maxs = boxes[..., :2], boxes[..., 2:4]
+    return torch.cat([(mins + maxs) / 2.0, maxs - mins], dim=-1)
 
 
 def broadcast_iou(box_a: torch.Tensor, box_b: torch.Tensor) -> torch.Tensor:
@@ -58,3 +63,18 @@ def decode_yolo_boxes(pred: torch.Tensor, anchors: torch.Tensor
     b_wh = torch.exp(t_wh.clamp(-10.0, 10.0)) * anchors
     boxes = xywh_to_xyxy(torch.cat([b_xy, b_wh], dim=-1))
     return boxes, objectness, class_probs
+
+
+def encode_yolo_boxes(boxes_xywh: torch.Tensor, anchors: torch.Tensor,
+                      grid_size: int) -> torch.Tensor:
+    """Absolute xywh -> the (tx, ty, tw, th) regression targets, the
+    inverse of the decode: tx = x * g - floor(x * g), tw = log(w / pw),
+    with w and pw floored at 1e-9 and tw, th = 0 where w or h is 0
+    (padding)."""
+    b_xy, b_wh = boxes_xywh[..., :2], boxes_xywh[..., 2:4]
+    scaled = b_xy * grid_size
+    t_xy = scaled - torch.floor(scaled)
+    t_wh = torch.log(b_wh.clamp(min=1e-9) / anchors.clamp(min=1e-9))
+    valid = (b_wh[..., 0] > 0) & (b_wh[..., 1] > 0)
+    t_wh = torch.where(valid[..., None], t_wh, 0.0)
+    return torch.cat([t_xy, t_wh], dim=-1)

@@ -1,9 +1,12 @@
 """The training steps chip_smoke.py drives, and where their time goes on
 the card.
 
-    python -m deep_vision_tpu_torch.tools.profile_train [--model resnet50|vit_s16|
-        lenet5|alexnet1|alexnet2|vgg16|vgg19|inception1|inception3|
-        resnet50v2|mobilenet1|shufflenet1] [--records DIR]
+    python -m deep_vision_tpu_torch.tools.profile_train [--model NAME]
+        [--records DIR]
+
+NAME is `resnet50` (the default), `vit_s16` or any other registered
+classification or detection config (`lenet5`, `vmoe_s16`,
+`yolov3_coco`, ...).
 
 `make_train_parts` is the port of bench.py:432-498: ResNet-50 with the
 space-to-depth stem, 1000 classes, bf16 convolutions, softmax cross
@@ -20,11 +23,12 @@ every parameter (decay_bn_bias=True), warmup + cosine to 0, with the
 horizon cut to chip_smoke's 13 steps (warmup 3); softmax cross entropy
 on one fixed `RandomState(0)` batch.
 
-`make_zoo_parts` is any other classifier of the zoo as `train_cli`
-builds it: the registered config's model, width, input, batch, float32,
-optimizer and schedule (`build_trainer`), on the CLI's seeded fake
-batch, under the CLI's precision (PyTorch's defaults: cuDNN TF32 on,
-matmuls float32). Its groups are ResNet-50's.
+`make_zoo_parts` is any other registered classification or detection
+config as `train_cli` builds it: the config's model, width, input,
+batch, float32, optimizer and schedule (`build_trainer`), on the CLI's
+seeded fake batch, under the CLI's precision (PyTorch's defaults: cuDNN
+TF32 on, matmuls float32). Its groups are ResNet-50's (a ViT's: the
+flash and LayerNorm groups).
 
 `make_record_loader` is the fed ResNet step's input: record shards
 (tools/synth_records.py) through a `RecordDataset`, the reference's
@@ -187,14 +191,11 @@ def make_zoo_parts(name: str, device: DeviceLike = None):
     train_cli's `build_trainer`, and its first seeded fake batch on the
     trainer's device."""
     from deep_vision_tpu_torch.configs import get_config
-    from deep_vision_tpu_torch.train_cli import (
-        _fake_classification,
-        build_trainer,
-    )
+    from deep_vision_tpu_torch.train_cli import FAKE_DATA, build_trainer
 
     dev = resolve_device(device)
     cfg = get_config(name)
-    host = _fake_classification(cfg, 1)[0]
+    host = FAKE_DATA[cfg.task](cfg, 1)[0]
     trainer = build_trainer(cfg, lambda: [host], None, device=dev)
     return trainer, {k: torch.as_tensor(v).to(dev) for k, v in host.items()}
 
@@ -364,9 +365,16 @@ def _epochs(loader: DataLoader) -> Iterator[dict]:
 
 
 def main() -> None:
+    from deep_vision_tpu_torch.configs import CONFIG_REGISTRY
+    from deep_vision_tpu_torch.models.vit import ViT
+    from deep_vision_tpu_torch.train_cli import FAKE_DATA
+
+    own = ("resnet50", "vit_s16")  # the flagship steps above
+    registered = tuple(name for name, cfg in CONFIG_REGISTRY.items()
+                       if cfg.task in FAKE_DATA and name not in own)
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--model", default="resnet50",
-                        choices=("resnet50", "vit_s16") + ZOO_MODELS)
+                        choices=own + registered)
     parser.add_argument("--records", metavar="DIR",
                         help="feed the ResNet step from the record shards "
                              "in DIR (tools/synth_records.py, raw)")
@@ -375,9 +383,10 @@ def main() -> None:
         trainer, batch = make_vit_train_parts()
         grouping = VIT_GROUPING
         label = f"ViT-S/16 {VIT_IMAGE_SIZE} bf16 batch {VIT_BATCH_PER_CHIP}"
-    elif args.model in ZOO_MODELS:
+    elif args.model in registered:
         trainer, batch = make_zoo_parts(args.model)
-        grouping = RESNET_GROUPING
+        grouping = (VIT_GROUPING if isinstance(trainer.model, ViT)
+                    else RESNET_GROUPING)
         label = (f"{args.model} float32 batch {len(batch['image'])} (the "
                  f"registered config)")
     else:

@@ -1,12 +1,24 @@
-"""Seeded synthetic ImageNet-style record shards, written by the port.
+"""Seeded synthetic record shards, written by the port.
 
     python -m deep_vision_tpu_torch.tools.synth_records DIR [--count 2048]
         [--size 256] [--shards 8] [--encoding raw|jpeg] [--seed 0]
+        [--schema imagenet|coco|voc]
 
-writes `DIR/train-0000i-of-0000k`: `count` uniform-noise uint8 RGB
-images of `size` x `size` from `numpy.random.default_rng(seed)`, with
-labels in [0, 1000), as tf.train.Example records through the port's
-`RecordWriter`, contiguous runs of images a shard.
+With the default `imagenet` schema it writes `DIR/train-0000i-of-0000k`:
+`count` uniform-noise uint8 RGB images of `size` x `size` from
+`numpy.random.default_rng(seed)`, with labels in [0, 1000), as
+tf.train.Example records through the port's `RecordWriter`, contiguous
+runs of images a shard.
+
+With `coco` or `voc` it writes box records as a user makes them: a
+seeded annotation tree under `DIR/tree` (`write_synth_coco`: JPEG files
+and an instances JSON with COCO's category-id holes and some crowd
+boxes; `write_synth_voc`: a VOCdevkit layout of JPEGs, XML annotations
+and ImageSets split lists), `count` train and `count // 4` val images of
+`size` x `size`, converted by tools/converters.py into
+`DIR/train_*.tfrecord` and `DIR/val_*.tfrecord`, the files the detection
+configs read. Each image is noise with 1-4 filled rectangles, each in
+its class's colour, and the boxes are those rectangles.
 
 Two encodings:
 
@@ -25,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import io
+import json
 import os
 from typing import Dict, List
 
@@ -102,6 +115,126 @@ def write_synth_records(directory: str, count: int = 2048, size: int = 256,
     return paths
 
 
+def box_image(rng: np.random.Generator, height: int, width: int,
+              num_classes: int):
+    """Noise with 1-4 filled rectangles in their classes' colours ->
+    (image uint8 HWC, pixel boxes [(x1, y1, x2, y2)], classes)."""
+    image = rng.integers(0, 256, (height, width, 3), dtype=np.uint8)
+    boxes, classes = [], []
+    for _ in range(int(rng.integers(1, 5))):
+        bw, bh = rng.uniform(0.1, 0.5) * width, rng.uniform(0.1, 0.5) * height
+        x1, y1 = rng.uniform(0, width - bw), rng.uniform(0, height - bh)
+        c = int(rng.integers(0, num_classes))
+        colour = np.random.default_rng(1000 + c).integers(0, 256, 3)
+        image[int(y1):int(y1 + bh), int(x1):int(x1 + bw)] = colour
+        boxes.append((float(x1), float(y1), float(x1 + bw), float(y1 + bh)))
+        classes.append(c)
+    return image, boxes, classes
+
+
+#: COCO's 80 category ids run from 1 to 90 with holes; the synthetic
+#: tree keeps holes so the converter's dense remap is exercised
+def coco_category_id(c: int) -> int:
+    return 1 + c + c // 8
+
+
+def write_synth_coco(root: str, split: str, count: int, size: int = 256,
+                     num_classes: int = 80, seed: int = 0):
+    """A seeded COCO-layout tree: `root/<split>/*.jpg` and
+    `root/annotations/instances_<split>.json` (xywh pixel boxes, one
+    crowd box every 8th image, which the converter drops). -> (the JSON's
+    path, the images' directory)."""
+    rng = np.random.default_rng(seed)
+    images_dir = os.path.join(root, split)
+    os.makedirs(images_dir, exist_ok=True)
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    images, annotations = [], []
+    for i in range(count):
+        image, boxes, classes = box_image(rng, size, size, num_classes)
+        name = f"{seed:04d}{i:08d}.jpg"
+        with open(os.path.join(images_dir, name), "wb") as f:
+            f.write(encode_jpeg(image))
+        images.append({"id": i, "file_name": name, "width": size,
+                       "height": size})
+        for (x1, y1, x2, y2), c in zip(boxes, classes):
+            annotations.append({
+                "id": len(annotations), "image_id": i,
+                "category_id": coco_category_id(c),
+                "bbox": [x1, y1, x2 - x1, y2 - y1], "iscrowd": 0})
+        if i % 8 == 7:
+            annotations.append({"id": len(annotations), "image_id": i,
+                                "category_id": coco_category_id(0),
+                                "bbox": [0.0, 0.0, size / 2, size / 2],
+                                "iscrowd": 1})
+    categories = [{"id": coco_category_id(c), "name": f"class{c}"}
+                  for c in range(num_classes)]
+    path = os.path.join(root, "annotations", f"instances_{split}.json")
+    with open(path, "w") as f:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": categories}, f)
+    return path, images_dir
+
+
+def write_synth_voc(root: str, split: str, count: int, size: int = 256,
+                    seed: int = 0) -> List[str]:
+    """A seeded VOCdevkit-layout tree under `root`: JPEGImages/<id>.jpg,
+    Annotations/<id>.xml (pixel boxes and VOC class names) and
+    ImageSets/Main/<split>.txt. -> the image ids."""
+    from deep_vision_tpu_torch.tools.converters import VOC_CLASSES
+
+    rng = np.random.default_rng(seed)
+    for sub in ("JPEGImages", "Annotations", os.path.join("ImageSets",
+                                                          "Main")):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    ids = []
+    for i in range(count):
+        image, boxes, classes = box_image(rng, size, size, len(VOC_CLASSES))
+        image_id = f"{seed:02d}{i:04d}"
+        with open(os.path.join(root, "JPEGImages", f"{image_id}.jpg"),
+                  "wb") as f:
+            f.write(encode_jpeg(image))
+        objects = "".join(
+            f"<object><name>{VOC_CLASSES[c]}</name><bndbox>"
+            f"<xmin>{x1:.1f}</xmin><ymin>{y1:.1f}</ymin>"
+            f"<xmax>{x2:.1f}</xmax><ymax>{y2:.1f}</ymax></bndbox></object>"
+            for (x1, y1, x2, y2), c in zip(boxes, classes))
+        with open(os.path.join(root, "Annotations", f"{image_id}.xml"),
+                  "w") as f:
+            f.write(f"<annotation><filename>{image_id}.jpg</filename>"
+                    f"<size><width>{size}</width><height>{size}</height>"
+                    f"<depth>3</depth></size>{objects}</annotation>")
+        ids.append(image_id)
+    with open(os.path.join(root, "ImageSets", "Main", f"{split}.txt"),
+              "w") as f:
+        f.write("".join(f"{i}\n" for i in ids))
+    return ids
+
+
+def write_synth_box_records(directory: str, schema: str, count: int = 256,
+                            size: int = 256, shards: int = 2,
+                            seed: int = 0) -> List[str]:
+    """`count` train and `count // 4` val images as a `schema` (coco or
+    voc) tree under `directory/tree`, converted into `directory/train_*`
+    and `directory/val_*` records. -> the shard paths."""
+    from deep_vision_tpu_torch.tools import converters as C
+
+    tree = os.path.join(directory, "tree")
+    paths = []
+    for split, n, split_seed in (("train", count, seed),
+                                 ("val", count // 4, seed + 1)):
+        if schema == "coco":
+            js, images = write_synth_coco(tree, split, n, size, seed=split_seed)
+            annos = C.coco_annotations(js, images)
+        elif schema == "voc":
+            write_synth_voc(tree, split, n, size, seed=split_seed)
+            annos = C.voc_annotations(tree, split)
+        else:
+            raise ValueError(f"unknown box schema {schema!r} (coco or voc)")
+        paths += C.build_shards(annos, C.detection_example, directory, split,
+                                shards, num_workers=1)
+    return paths
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("directory")
@@ -110,7 +243,16 @@ def main() -> None:
     parser.add_argument("--shards", type=int, default=8)
     parser.add_argument("--encoding", choices=("raw", "jpeg"), default="raw")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--schema", choices=("imagenet", "coco", "voc"),
+                        default="imagenet")
     args = parser.parse_args()
+    if args.schema != "imagenet":
+        paths = write_synth_box_records(args.directory, args.schema,
+                                        args.count, args.size, args.shards,
+                                        args.seed)
+        print(f"wrote {args.count} + {args.count // 4} {args.schema} box "
+              f"records in {len(paths)} shards under {args.directory}")
+        return
     paths = write_synth_records(args.directory, args.count, args.size,
                                 args.shards, args.encoding, args.seed)
     print(f"wrote {args.count} {args.encoding} records in {len(paths)} "

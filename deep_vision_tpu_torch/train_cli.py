@@ -3,30 +3,37 @@
     python -m deep_vision_tpu_torch.train_cli -m resnet50 --data-dir D \\
         --ckpt-dir C [-c auto|DIR] [--epochs N] [--device cuda|cpu]
 
-trains a registered config (configs/__init__.py) from `D/tfrecord_train/*`
-and evaluates on `D/tfrecord_val/*` every epoch (ImageNet-layout records;
-the flattened-folder layout `D/train_flatten`, `D/val_flatten` where no
-train records exist; MNIST idx files `D/train-images-idx3-ubyte`,
-`D/train-labels-idx1-ubyte`, `D/t10k-images-idx3-ubyte` and
-`D/t10k-labels-idx1-ubyte` for the `mnist` kind (lenet5);
-`--fake-data` for the reference's seeded fake batches), with the config's optimizer, schedule or plateau, a checkpoint
+trains a registered config (configs/__init__.py) and evaluates it every
+epoch. Classification reads ImageNet-layout records `D/tfrecord_train/*`
+and `D/tfrecord_val/*` (the flattened-folder layout `D/train_flatten`,
+`D/val_flatten` where no train records exist; MNIST idx files
+`D/train-images-idx3-ubyte`, `D/train-labels-idx1-ubyte`,
+`D/t10k-images-idx3-ubyte` and `D/t10k-labels-idx1-ubyte` for the
+`mnist` kind of lenet5). Detection (`yolov3_coco`, `yolov3_voc`) reads
+box records `D/train*` and `D/val*` in the config's schema, as
+`python -m deep_vision_tpu_torch.tools.convert voc|coco` writes them.
+`--fake-data` takes the reference's seeded fake batches instead. It
+runs the config's optimizer, schedule or plateau, a checkpoint
 with its crc32c sidecar after each epoch, a SIGTERM save at the next
 step boundary (the process then exits 0), and `-c` resuming where the
 checkpoint left off: parameters, momentum, BatchNorm running statistics,
 the step counter, the plateau, the loggers and, with `--data-snapshot`,
-the batch stream. It runs on the card unless `--device cpu` is given,
-and raises without one.
+the batch stream. `--eval-only` evaluates a checkpoint: loss and top-k
+for classification; for detection, mAP@.5 and mAP@[.5:.95] over the
+val split through the YOLO detector at score 0.1, whose NMS runs on the
+card. It runs on the card unless `--device cpu` is given, and raises
+without one.
 
-Ported: `model_input_shape`, `_fake_classification`,
-`build_dataloaders` (fake, mnist and imagenet kinds, both
-`--preprocessing` chains and the s2d host transform), `_steps_per_epoch`,
-`_build_schedule`, `build_trainer` and `run_eval_only` for the
-classification task, and `main` with the flags below. Every other
-reference flag is unknown here, so argparse fails on it loudly; the
-other tasks, the `records` dataset kind, the GAN trainers and the
-requeue exit code after a preemption are not ported yet. Every
-registered classification config trains but `vmoe_s16`, whose model is
-not ported yet.
+Ported: `model_input_shape`, `_fake_classification`, `_fake_detection`,
+`build_dataloaders` (fake, mnist, imagenet, and the records kind of the
+detection task, with both `--preprocessing` chains and the s2d host
+transform), `_steps_per_epoch`, `_build_schedule`, `build_trainer` and
+`run_eval_only` for the classification and detection tasks, and `main`
+with the flags below. Every other reference flag is unknown here, so
+argparse fails on it loudly; the pose, centernet, dcgan and cyclegan
+tasks, the GAN trainers and the requeue exit code after a preemption are
+not ported yet. Every registered classification and detection config
+trains.
 
 Float32 precision: the CLI keeps PyTorch's defaults, which no registered
 config overrides, and prints them at start-up: cuDNN convolutions may
@@ -78,6 +85,35 @@ def _fake_classification(cfg: ExperimentConfig, n_batches: int):
         for _ in range(n_batches)]
 
 
+def _fake_detection(cfg: ExperimentConfig, n_batches: int,
+                    max_boxes: int = 20):
+    """The reference's seeded fake detection batches, draw for draw:
+    1-4 boxes an image (xyxy in [0, 0.95]) with classes, zero padding,
+    and uniform images."""
+    rng = np.random.RandomState(0)
+    h, w, c = cfg.input_shape
+    out = []
+    for _ in range(n_batches):
+        boxes = np.zeros((cfg.batch_size, max_boxes, 4), np.float32)
+        classes = np.zeros((cfg.batch_size, max_boxes), np.int32)
+        for b in range(cfg.batch_size):
+            n = rng.randint(1, 5)
+            x1 = rng.uniform(0, 0.6, n)
+            y1 = rng.uniform(0, 0.6, n)
+            boxes[b, :n, 0], boxes[b, :n, 1] = x1, y1
+            boxes[b, :n, 2] = x1 + rng.uniform(0.1, 0.35, n)
+            boxes[b, :n, 3] = y1 + rng.uniform(0.1, 0.35, n)
+            classes[b, :n] = rng.randint(0, cfg.num_classes, n)
+        out.append({"image": rng.rand(cfg.batch_size, h, w, c).astype(
+            np.float32), "boxes": boxes, "classes": classes})
+    return out
+
+
+#: the fake-data makers of the ported tasks
+FAKE_DATA = {"classification": _fake_classification,
+             "detection": _fake_detection}
+
+
 def imagenet_transforms(cfg: ExperimentConfig, preprocessing: str = "torch"):
     """(train, eval) ImageNet chains: "torch" is the torchvision-stats
     chain, "tf" the 0-255 mean-subtraction variant; the s2d stem appends
@@ -113,19 +149,22 @@ def build_dataloaders(cfg: ExperimentConfig, data_dir: str, fake: bool,
                       fake_batches: int, num_workers: int,
                       preprocessing: str = "torch", num_procs: int = 0):
     """(train_fn, eval_fn) thunks yielding batch dicts per epoch: the
-    reference's fake batches, or its ImageNet records (folder where
-    `tfrecord_train` holds no shard) through the port's data layer."""
+    reference's fake batches, its ImageNet records (folder where
+    `tfrecord_train` holds no shard), MNIST, or a detection config's box
+    records, through the port's data layer."""
     if fake or cfg.dataset.get("kind") == "fake":
-        if cfg.task != "classification":
+        if cfg.task not in FAKE_DATA:
             raise NotImplementedError(
                 f"fake {cfg.task} data is not ported yet")
-        data = _fake_classification(cfg, fake_batches)
+        data = FAKE_DATA[cfg.task](cfg, fake_batches)
         return (lambda: data), (lambda: data)
     kind = cfg.dataset["kind"]
+    if kind == "records":
+        return detection_dataloaders(cfg, data_dir, num_workers, num_procs)
     if kind not in ("imagenet", "mnist"):
         raise NotImplementedError(
-            f"dataset kind {kind!r} is not ported yet (imagenet, mnist and "
-            f"fake are)")
+            f"dataset kind {kind!r} is not ported yet (imagenet, mnist, "
+            f"records and fake are)")
     from deep_vision_tpu_torch.data import (
         DataLoader,
         MnistDataset,
@@ -170,6 +209,41 @@ def build_dataloaders(cfg: ExperimentConfig, data_dir: str, fake: bool,
     return (lambda: train), (lambda: evl)
 
 
+def detection_dataloaders(cfg: ExperimentConfig, data_dir: str,
+                          num_workers: int, num_procs: int = 0):
+    """The records kind for the detection task (train_cli.py:245-300):
+    `train_glob` / `val_glob` (default train*, val*) under `data_dir` in
+    the config's schema; the train chain flips, crops around the boxes,
+    resizes to the input, scales to [0, 1] and pads the boxes to 100;
+    the eval chain only resizes, scales and pads. Partial batches are
+    dropped."""
+    if cfg.task != "detection":
+        raise NotImplementedError(
+            f"the records kind for task {cfg.task!r} is not ported yet "
+            f"(detection is)")
+    from deep_vision_tpu_torch.data import Compose, DataLoader, RecordDataset
+    from deep_vision_tpu_torch.data import transforms as T
+
+    size = cfg.input_shape[0]
+    schema = cfg.dataset["schema"]
+    train_chain = [T.RandomHorizontalFlip(), T.RandomCropWithBoxes(),
+                   T.Resize(size), T.ToFloat(), T.PadBoxes(100)]
+    eval_chain = [T.Resize(size), T.ToFloat(), T.PadBoxes(100)]
+    train_ds = RecordDataset(
+        os.path.join(data_dir, cfg.dataset.get("train_glob", "train*")),
+        schema, shuffle_shards=True)
+    eval_ds = RecordDataset(
+        os.path.join(data_dir, cfg.dataset.get("val_glob", "val*")), schema)
+    train = DataLoader(train_ds, cfg.batch_size, Compose(train_chain),
+                       shuffle=True, num_workers=num_workers,
+                       num_procs=num_procs, drop_remainder=True,
+                       name="train")
+    evl = DataLoader(eval_ds, cfg.batch_size, Compose(eval_chain),
+                     num_workers=num_workers, drop_remainder=True,
+                     name="val")
+    return (lambda: train), (lambda: evl)
+
+
 def _steps_per_epoch(cfg: ExperimentConfig, train_fn) -> int:
     data = train_fn()
     try:
@@ -210,19 +284,25 @@ def build_trainer(cfg: ExperimentConfig, train_fn, ckpt_dir: Optional[str],
                   opt_state_dtype: Optional[str] = None, data_loader=None,
                   steps_per_epoch: Optional[int] = None,
                   device: DeviceLike = None):
-    """The reference's build_trainer for the classification task, on
-    `device` (default cuda, raising without a card)."""
+    """The reference's build_trainer for the classification and detection
+    tasks, on `device` (default cuda, raising without a card). Detection
+    trains on `yolo_train_loss_fn` with the grids of the input size
+    (s/32, s/16, s/8)."""
     from deep_vision_tpu_torch.core.checkpoint import CheckpointManager
     from deep_vision_tpu_torch.core.metrics import MetricLogger
-    from deep_vision_tpu_torch.losses import classification_loss_fn
+    from deep_vision_tpu_torch.losses import (
+        classification_loss_fn,
+        yolo_train_loss_fn,
+    )
     from deep_vision_tpu_torch.obs.registry import get_registry
     from deep_vision_tpu_torch.train import Trainer, build_optimizer
     from deep_vision_tpu_torch.train.optimizers import ReduceLROnPlateau
 
     dev = resolve_device(device)
-    if cfg.task != "classification":
+    if cfg.task not in ("classification", "detection"):
         raise NotImplementedError(
-            f"task {cfg.task!r} is not ported yet (classification is)")
+            f"task {cfg.task!r} is not ported yet (classification and "
+            f"detection are)")
     steps = (steps_per_epoch if steps_per_epoch is not None
              else _steps_per_epoch(cfg, train_fn))
     opt_kw = dict(cfg.optimizer)
@@ -233,7 +313,14 @@ def build_trainer(cfg: ExperimentConfig, train_fn, ckpt_dir: Optional[str],
     tx = build_optimizer(name, lr, weight_decay=wd, decay_bn_bias=True,
                          state_dtype=opt_state_dtype, **opt_kw)
     model = build_model(cfg, dev)
-    loss_fn = functools.partial(classification_loss_fn, **cfg.loss_kwargs)
+    if cfg.task == "detection":
+        size = cfg.input_shape[0]
+        loss_fn = functools.partial(
+            yolo_train_loss_fn, grid_sizes=(size // 32, size // 16, size // 8),
+            num_classes=cfg.num_classes, **cfg.loss_kwargs)
+    else:
+        loss_fn = functools.partial(classification_loss_fn,
+                                    **cfg.loss_kwargs)
     plateau = ReduceLROnPlateau(**cfg.plateau) if cfg.plateau else None
     ckpt = CheckpointManager(ckpt_dir, journal=journal) if ckpt_dir else None
     sample = torch.ones((2, *model_input_shape(cfg)), dtype=torch.float32)
@@ -252,13 +339,40 @@ def build_trainer(cfg: ExperimentConfig, train_fn, ckpt_dir: Optional[str],
 
 def run_eval_only(cfg: ExperimentConfig, trainer, eval_fn) -> dict:
     """Evaluate the (restored) state on the val split: classification
-    loss and top-k. Detection mAP and pose PCK are not ported yet."""
-    if cfg.task != "classification":
+    loss and top-k; detection mAP@.5 and mAP@[.5:.95] from the YOLO
+    detector (score 0.1, NMS on the trainer's device) and
+    `DetectionEvaluator` (train_cli.py:469-507). Pose PCK is not ported
+    yet."""
+    if cfg.task == "classification":
+        summary = trainer.evaluate(eval_fn())
+        print("eval: " + " ".join(f"{k}={v:.4f}"
+                                  for k, v in summary.items()))
+        return summary
+    if cfg.task != "detection":
         raise NotImplementedError(
             f"--eval-only for task {cfg.task!r} is not ported yet")
-    summary = trainer.evaluate(eval_fn())
-    print("eval: " + " ".join(f"{k}={v:.4f}" for k, v in summary.items()))
-    return summary
+    from deep_vision_tpu_torch.core.detection_metrics import (
+        DetectionEvaluator,
+    )
+    from deep_vision_tpu_torch.inference import make_yolo_detector
+
+    model = trainer.model.eval()
+    variables = dict(model.state_dict())
+    detect = make_yolo_detector(model, device=trainer.device,
+                                score_threshold=0.1)
+    ev = DetectionEvaluator(cfg.num_classes)
+    for batch in eval_fn():
+        out = {k: v.cpu().numpy() for k, v in
+               detect(variables, batch["image"]).items()}
+        for i in range(len(batch["image"])):
+            ev.add(out["boxes"][i], out["scores"][i], out["classes"][i],
+                   batch["boxes"][i], batch["classes"][i])
+    res = ev.compute(iou_threshold=0.5)
+    coco = ev.compute_coco()
+    print(f"eval: mAP@.5={res['mAP']:.4f} "
+          f"mAP@[.5:.95]={coco['mAP@[.5:.95]']:.4f} "
+          f"images={res['num_images']}")
+    return {"mAP@.5": res["mAP"], **coco}
 
 
 def _deterministic() -> str:

@@ -83,11 +83,11 @@ def test_every_config_builds_or_names_its_missing_model(name):
     if cfg.model not in MODEL_REGISTRY:
         with pytest.raises(KeyError, match=f"unknown model '{cfg.model}'"):
             train_cli.build_model(cfg, device="cpu")
-    elif cfg.task == "classification":
+    elif cfg.task in ("classification", "detection"):
         model = train_cli.build_model(cfg, device="cpu")
         assert model.training and sum(p.numel() for p in
                                       model.parameters()) > 0
-    if cfg.task != "classification":
+    if cfg.task not in ("classification", "detection"):
         with pytest.raises(NotImplementedError, match=cfg.task):
             train_cli.build_trainer(cfg, lambda: [], None, device="cpu",
                                     steps_per_epoch=1)

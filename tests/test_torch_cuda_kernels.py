@@ -631,3 +631,81 @@ def test_zoo_pools_on_the_card_match_the_cpu(cuda_device, kind, window,
     for got, want in ((y_card, y_cpu), (dx_card, dx_cpu)):
         assert float((got - want).abs().max()) <= 1e-6 * float(
             want.abs().max())
+
+
+# -- detection training and V-MoE ---------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 1024, 13, 13), (16, 32, 416, 416)])
+def test_yolov3_moments_shapes_match_plain(cuda_device, shape):
+    """The moments at YOLOv3's smallest (2,704 rows of 1,024) and largest
+    (2.77 M rows of 32) training BatchNorm shapes at the registered batch
+    of 16, float32 channels_last, under the rules above."""
+    x = norm_input(cuda_device, shape, torch.float32, "normal",
+                   seed=shape[1])
+    c = shape[1]
+    rows = x.numel() // c
+    got, want = bn_moments_forward(x), bn_moments_plain(x)
+    assert all(torch.equal(g, a) for g, a in zip(got, bn_moments_forward(x)))
+    xd = x.permute(0, 2, 3, 1).reshape(rows, c).double()
+    for k, terms in ((0, xd.abs()), (1, xd.square())):
+        bound = 1e-5 * terms.mean(0).float()
+        assert bool(((got[k] - want[k]).abs() <= bound).all())
+    del xd
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    u, w = (torch.randn(c, generator=gen, device=cuda_device)
+            for _ in range(2))
+    assert torch.equal(bn_moments_backward(x, u, w), bn_moments_bwd_plain(
+        x, *bn_moments_bwd_coefficients(rows, u, w)))
+
+
+@pytest.mark.cuda
+def test_yolov3_training_batchnorm_inputs_are_channels_last(cuda_device):
+    """Every BatchNorm of a YOLOv3 training step gets a channels_last
+    input (the moments kernels refuse any other 4-D layout), through
+    the backbone, the neck's concatenations and upsampling, and the
+    heads: 72 moments forward and 72 backward launches."""
+    from deep_vision_tpu_torch.models import get_model
+    from deep_vision_tpu_torch.nn.layers import BatchNorm
+
+    model = get_model("yolov3", num_classes=20, device=cuda_device,
+                      train=True)
+    layouts = []
+    handles = [m.register_forward_pre_hook(lambda mod, args: layouts.append(
+        args[0].is_contiguous(memory_format=torch.channels_last)))
+        for m in model.modules() if isinstance(m, BatchNorm)]
+    before = (batch_moments.launches, batch_moments.backward_launches)
+    x = torch.rand(2, 128, 128, 3, device=cuda_device)
+    sum(o.float().square().mean() for o in model(x)).backward()
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    assert len(layouts) == 72 and all(layouts)
+    assert (batch_moments.launches - before[0],
+            batch_moments.backward_launches - before[1]) == (72, 72)
+
+
+@pytest.mark.cuda
+def test_moe_scatter_back_repeats_bitwise(cuda_device):
+    """A MoeMlp forward and backward on the card twice from the same
+    inputs: outputs, gates and every gradient bit for bit (the rows go
+    back by a gather, whose backward writes each row once)."""
+    from deep_vision_tpu_torch.models.vit import MoeMlp
+
+    mlp = MoeMlp(384, 8, 1536)
+    mlp.reset_parameters(torch.Generator().manual_seed(0))
+    mlp.to(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(8, 196, 384, generator=gen, device=cuda_device)
+    cot = torch.randn(8, 196, 384, generator=gen, device=cuda_device)
+    runs = []
+    for _ in range(2):
+        xx = x.clone().requires_grad_()
+        mlp.zero_grad()
+        out, gates = mlp(xx)
+        (out * cot).sum().backward()
+        runs.append([out, gates, xx.grad] + [p.grad.clone()
+                                             for p in mlp.parameters()])
+    assert len(set(gates.argmax(-1).tolist())) > 1
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

@@ -258,8 +258,19 @@ def test_remat_gives_the_same_gradients():
 
 @pytest.mark.parametrize("kw", [{"num_experts": 4}, {"dropout": 0.1}])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ViT(**TINY, image_size=32, **kw)
+    """V-MoE and dropout, refused until they were ported, now build:
+    MoE blocks at the odd indices, a Dropout after the position
+    embedding (tests/test_torch_vmoe.py holds them against the JAX
+    package)."""
+    model = ViT(**TINY, image_size=32, **kw)
+    if "num_experts" in kw:
+        assert not hasattr(model.ViTBlock_0, "MoeMlp_0")
+        assert model.ViTBlock_1.MoeMlp_0.w1.shape[0] == 4
+    else:
+        assert model.Dropout_0.rate == 0.1
+    model.eval()
+    with torch.no_grad():
+        assert model(torch.rand(1, 32, 32, 3)).shape == (1, 10)
 
 
 # -- optimizer, schedule, Trainer --------------------------------------------
