@@ -29,7 +29,17 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            within FLASH_TOL (also T 129 with Tk 65, one query against
            1024 keys, causal cross attention 256 x 1024; bf16 dq runs
            flash_dq_sm90); kernel, plain, bound and
-           scaled_dot_product_attention times at the step's shape;
+           scaled_dot_product_attention times at the step's shape; the
+           BatchNorm moments at every shape of the flagship step (bf16),
+           a few in f32 and edge cases: the forward bit for bit the
+           order model's (moments_order_model) and within NORM_SUM_TOL
+           of the plain version, the backward bit for bit the plain
+           version's, both repeating; the kernels a call from a profiler
+           trace at each of these shapes and at YOLOv3's 13 step shapes
+           in float32 (the forward one kernel where one cluster covers
+           each column chunk, then the combine where it does not; the
+           backward one); kernel, plain, bound and library times and
+           host us a call; LayerNorm at the ViT shapes;
 4. serve   YOLOv3 at 416x416, 80 classes, seeded weights, through the
            port's Engine (buckets 1, 2, 4, 8) and Server: a mixed burst
            stream, response checks, the NMS launch count against the
@@ -122,8 +132,9 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            moments launches a step; `--eval-only` from its checkpoint,
            printing mAP@.5 and mAP@[.5:.95] with one NMS launch a val
            batch; in this process every moments call of its step at the
-           registered batch against the plain version, with each
-           shape's time a call, bound and library times; NMS at
+           registered batch against the order model and the plain
+           version, with each shape's time and host us a call, bound and
+           library times; NMS at
            --eval-only's inputs (score 0.1) against its plain version
            with times and bound; one float32 step at batch 2 on the card
            against the CPU, the CPU taking the card's leaky-ReLU and
@@ -563,13 +574,134 @@ def bound_of(nbytes, ops):
             else (ops_ms, "operations"))
 
 
-def moments_cases(torch, dev, calls, card):
+def moments_kernels_child(spec):
+    """Run in a child process by check_moments_launches: for each
+    [shape, dtype name] of the JSON `spec`, one forward and one backward
+    call of the moments wrappers on a seeded input, under torch.profiler,
+    each call framed by a spin kernel (torch.cuda._sleep) on the stream;
+    prints, as its last line, the names of the device kernels of each
+    call, split at the spin kernels, from the raw trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deep_vision_tpu_torch.ops.cuda.norm import (
+        bn_moments_backward,
+        bn_moments_forward,
+    )
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    fns = []
+    for shape, dtype in json.loads(spec):
+        x = norm_input(torch, dev, tuple(shape), getattr(torch, dtype),
+                       "normal", gen)
+        u, w = (torch.randn(shape[1], generator=gen, device=dev)
+                for _ in range(2))
+        bn_moments_forward(x), bn_moments_backward(x, u, w)  # built, loaded
+        fns += [lambda x=x: bn_moments_forward(x),
+                lambda x=x, u=u, w=w: bn_moments_backward(x, u, w)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            torch.cuda._sleep(1)
+            fn()
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+    calls = []
+    for e in sorted((e for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == DeviceType.CUDA),
+                    key=lambda e: e.start_ns()):
+        if "spin_kernel" in e.name():
+            calls.append([])
+        elif calls:
+            calls[-1].append(e.name())
+    print(json.dumps({"calls": calls}))
+
+
+def check_moments_launches(torch, cases, tag):
+    """The kernels of one forward and one backward call at each of
+    `cases`, (x, u, w, plan, label), read from a profiler trace taken in a
+    child process (moments_kernels_child): a profiler session leaves
+    CUPTI attached to its process, which would slow every later phase's
+    host. The forward is bn_moments_fwd alone where its plan has one
+    cluster a chunk, and bn_moments_combine after it where it has
+    several; the backward is bn_moments_bwd alone."""
+    spec = json.dumps([[list(x.shape), str(x.dtype).split(".")[-1]]
+                       for x, *_ in cases])
+    out = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.moments_kernels_child(sys.argv[1])", spec],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"{tag} the moments kernels' trace failed: "
+          f"{out.stderr[-3000:]}")
+    calls = json.loads(out.stdout.strip().splitlines()[-1])["calls"]
+    check(len(calls) == 2 * len(cases) + 1 and not calls[-1],
+          f"{tag} the trace framed {len(calls) - 1} calls, want "
+          f"{2 * len(cases)}")
+    for i, names in enumerate(calls[:-1]):
+        plan, label = cases[i // 2][3:]
+        expect = (["bn_moments_bwd"] if i % 2 else
+                  ["bn_moments_fwd", "bn_moments_combine"][:plan.launches])
+        check(len(names) == len(expect)
+              and all(e in n for e, n in zip(expect, names)),
+              f"{tag} moments {'backward' if i % 2 else 'forward'} at "
+              f"{label} launched {names}, want {expect}")
+    one = sum(plan.launches == 1 for *_, plan, _ in cases)
+    print(f"{tag} moments launches a call (profiler trace, child process): "
+          f"forward 1 at {one} shapes, 2 (several clusters, then the "
+          f"combine) at {len(cases) - one}; backward 1 at all {len(cases)}")
+
+
+def check_moments_model(torch, x, got, label):
+    """The forward's E1, E2 at x against moments_order_model on the card,
+    bit for bit. Returns the plan."""
+    from deep_vision_tpu_torch.ops.cuda.norm import (
+        moments_order_model,
+        moments_plan,
+        moments_rows,
+    )
+
+    rows, c = moments_rows(x), x.shape[1]
+    plan = moments_plan(rows, c, torch.cuda.get_device_properties(
+        x.device).multi_processor_count, x.element_size())
+    xr = x.permute(0, 2, 3, 1).reshape(rows, c) if x.dim() == 4 else x
+    model = moments_order_model(xr, plan)
+    check(all(torch.equal(g, m) for g, m in zip(got, model)),
+          f"bn_moments forward differs from moments_order_model: {label} "
+          f"{plan}")
+    return plan
+
+
+def yolov3_moment_shapes(torch, dev):
+    """{NCHW shape: calls} of the batch moments of a YOLOv3 training step
+    at DET_CONFIG's batch and IMAGE, read by batchnorm_calls off the
+    port's model (seeded, float32)."""
+    from deep_vision_tpu_torch.configs import get_config
+    from deep_vision_tpu_torch.models import get_model
+
+    cfg = get_config(DET_CONFIG)
+    model = get_model(cfg.model, num_classes=cfg.num_classes, device=dev,
+                      seed=0, train=True)
+    images = torch.zeros(cfg.batch_size, IMAGE, IMAGE, 3, device=dev)
+    _, moments = batchnorm_calls(torch, model, images)
+    check(sum(moments.values()) == DET_BN,
+          f"a YOLOv3 step should take {DET_BN} batch moments: {moments}")
+    return moments
+
+
+def moments_cases(torch, dev, calls, card, launch_calls=None):
     """Phase 3 for the BatchNorm moments: every shape of `calls` (the
     flagship step's BatchNorms) in bf16, channels_last, and the first
     three in f32, then the edge cases. E[x] and E[x^2] within
     NORM_SUM_TOL x mean |terms| per channel of the plain version, both
     errors against a float64 sum printed; the backward bit for bit; both
     bit for bit on a second call. The main path's shapes are timed.
+    The forward also bit for bit against moments_order_model, and the
+    kernels a call, read from a profiler trace, at each timed shape and
+    at each shape of `launch_calls` in float32 (YOLOv3's step: this
+    early in the run the trace is whole; once the training CLI's loaders
+    have run in this process, kineto loses device records).
     Returns the kernels line's fields for bn_moments_fwd and
     bn_moments_bwd, times summed over one step's calls."""
     from deep_vision_tpu_torch.ops.cuda.norm import (
@@ -601,11 +733,13 @@ def moments_cases(torch, dev, calls, card):
            for name in ("bn_moments_fwd", "bn_moments_bwd")}
     max_err = {"bn_moments_fwd": 0.0, "bn_moments_bwd": 0.0}
     worst_f64 = {"kernel": 0.0, "plain": 0.0}
+    timed = []  # (x, u, w, plan, label) of the step's shapes
     for shape, dtype, case, n in cases:
         x = norm_input(torch, dev, shape, dtype, case, gen)
         rows, c = moments_rows(x), shape[1]
         got, again = bn_moments_forward(x), bn_moments_forward(x)
         want = bn_moments_plain(x)
+        plan = check_moments_model(torch, x, got, f"{shape} {dtype} {case}")
         xd = (x.permute(0, 2, 3, 1).reshape(rows, c) if x.dim() == 4
               else x).double()
         errs = []
@@ -637,11 +771,13 @@ def moments_cases(torch, dev, calls, card):
               and dx.stride() == x.stride()
               and torch.equal(dx, bn_moments_backward(x, u, w)),
               f"bn_moments backward differs: {shape} {dtype} {case}")
-        print(f"[kernels] bn_moments {shape} {dtype} {case}: forward within "
+        print(f"[kernels] bn_moments {shape} {dtype} {case}: forward equal "
+              f"to moments_order_model ({plan}) and within "
               f"{NORM_SUM_TOL} x sum|terms| of the plain version, error "
               f"against a float64 sum as a share of sum|terms|: "
               f"{'; '.join(errs)}; backward equal; both repeat bitwise")
         if n:
+            timed.append((x, u, w, plan, f"{shape} {dtype}"))
             # the library's dx = alpha + beta * x: one broadcast addcmul,
             # f32 by type promotion, written into a tensor like x
             chan = (1, -1) + (1,) * (x.dim() - 2)
@@ -672,13 +808,28 @@ def moments_cases(torch, dev, calls, card):
                 row["bytes"] += n * nbytes
                 row["ops"] += n * ops
             print(f"[kernels] bn_moments {shape} x{n}/step: fwd "
-                  f"{times[0]:.4f} ms (plain {times[1]:.4f}, "
-                  f"torch.batch_norm_stats {times[2]:.4f}, bytes bound "
-                  f"{bound_of(size + 8 * c, 0)[0]:.4f}), bwd "
-                  f"{times[3]:.4f} ms (plain {times[4]:.4f}, torch.addcmul "
-                  f"{times[5]:.4f}, bytes bound "
-                  f"{bound_of(2 * size + 8 * c, 0)[0]:.4f}) ({card})")
+                  f"{times[0]:.4f} ms, host {host[0]:.1f} us a call (plain "
+                  f"{times[1]:.4f}, torch.batch_norm_stats {times[2]:.4f}, "
+                  f"bytes bound {bound_of(size + 8 * c, 0)[0]:.4f}), bwd "
+                  f"{times[3]:.4f} ms, host {host[3]:.1f} us a call (plain "
+                  f"{times[4]:.4f}, torch.addcmul {times[5]:.4f}, bytes "
+                  f"bound {bound_of(2 * size + 8 * c, 0)[0]:.4f}) ({card})")
         del x, xd, got, again, want, dx
+    for shape, _ in sorted((launch_calls or {}).items()):
+        x = norm_input(torch, dev, shape, torch.float32, "normal", gen)
+        u, w = (torch.randn(shape[1], generator=gen, device=dev)
+                for _ in range(2))
+        plan = check_moments_model(torch, x, bn_moments_forward(x),
+                                   f"{shape} float32")
+        timed.append((x, u, w, plan, f"{shape} float32"))
+    # one cluster a chunk, so one launch, at ResNet-50's 7x7 and 14x14 and
+    # YOLOv3's 13x13, 26x26 and 52x52
+    single = [label for x, _, _, plan, label in timed if plan.clusters > 1
+              and x.shape[2] <= (52 if x.dtype == torch.float32 else 14)]
+    check(not single, f"the moments forward takes several clusters a "
+          f"chunk at {single}")
+    check_moments_launches(torch, timed, "[kernels]")
+    del timed
     fields = {}
     for name in ("bn_moments_fwd", "bn_moments_bwd"):
         row = tot[name]
@@ -1706,10 +1857,12 @@ def f32_step_kernels(torch, dev, model, images, card, counts=(48, 53),
     """A float32 step's kernel instances at its batch: every bn_act and
     moments call of one step of `model` on `images` against its plain
     version (forward, dx and the moments backward bitwise; dscale, dbias
-    and the moments within BN_SUM_TOL / NORM_SUM_TOL x sum|terms|), with
-    kernel, plain and bound times summed over the step's calls, and the
-    library calls beside the moments (LIBRARY_CALL), and each moments
-    shape's times a call. `counts`: the step's (bn_act, moments) call
+    and the moments within BN_SUM_TOL / NORM_SUM_TOL x sum|terms|; the
+    moments also bitwise against moments_order_model, repeating), with
+    kernel,
+    plain and bound times summed over the step's calls, and the library
+    calls beside the moments (LIBRARY_CALL), and each moments shape's
+    times and host us a call. `counts`: the step's (bn_act, moments) call
     counts. Returns the per-kernel sums, with the largest |kernel -
     plain| of each."""
     from deep_vision_tpu_torch.ops.cuda.bn_act import (
@@ -1730,11 +1883,11 @@ def f32_step_kernels(torch, dev, model, images, card, counts=(48, 53),
     calls, moments = batchnorm_calls(torch, model, images)
     gen = torch.Generator(device=dev).manual_seed(6)
     tot = {k: dict(calls=0, ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0,
-                   ops=0, max_abs_err=0.0)
+                   ops=0, max_abs_err=0.0, host_ms=0.0)
            for k in ("bn_act_fwd", "bn_act_bwd", "bn_moments_fwd",
                      "bn_moments_bwd")}
 
-    def add(name, n, t, t_plain, nbytes, ops, t_library=0.0):
+    def add(name, n, t, t_plain, nbytes, ops, t_library=0.0, host_us=0.0):
         row = tot[name]
         row["calls"] += n
         row["ms"] += n * t
@@ -1742,6 +1895,7 @@ def f32_step_kernels(torch, dev, model, images, card, counts=(48, 53),
         row["library_ms"] += n * t_library
         row["bytes"] += n * nbytes
         row["ops"] += n * ops
+        row["host_ms"] += n * host_us / 1e3
 
     def draw(shape):
         return torch.randn(shape, generator=gen, device=dev).contiguous(
@@ -1785,6 +1939,9 @@ def f32_step_kernels(torch, dev, model, images, card, counts=(48, 53),
         x = draw(shape)
         rows, c = moments_rows(x), shape[1]
         got, want = bn_moments_forward(x), bn_moments_plain(x)
+        check(all(torch.equal(g, a) for g, a in zip(got, bn_moments_forward(
+            x))), f"f32 moments forward does not repeat: {shape}")
+        plan = check_moments_model(torch, x, got, f"{tag} {shape}")
         xd = x.permute(0, 2, 3, 1).reshape(rows, c).double()
         for k, terms in ((0, xd.abs().sum(0)), (1, xd.square().sum(0))):
             e = (got[k].double() - want[k].double()).abs() * rows
@@ -1796,32 +1953,36 @@ def f32_step_kernels(torch, dev, model, images, card, counts=(48, 53),
         u = torch.randn(c, generator=gen, device=dev)
         w = torch.randn(c, generator=gen, device=dev)
         coef = bn_moments_bwd_coefficients(rows, u, w)
-        check(torch.equal(bn_moments_backward(x, u, w),
-                          bn_moments_bwd_plain(x, *coef)),
-              f"f32 moments backward differs: {shape}")
+        dx = bn_moments_backward(x, u, w)
+        check(torch.equal(dx, bn_moments_bwd_plain(x, *coef))
+              and torch.equal(dx, bn_moments_backward(x, u, w)),
+              f"f32 moments backward differs or does not repeat: {shape}")
         alpha, beta = (t.view(1, -1, 1, 1) for t in coef)
-        times = [time_cuda(torch, fn, runs=10)[0] for fn in (
+        times, host = zip(*(time_cuda(torch, fn, runs=10) for fn in (
             lambda: bn_moments_forward(x), lambda: bn_moments_plain(x),
             lambda: bn_moments_backward(x, u, w),
             lambda: bn_moments_bwd_plain(x, *coef),
             lambda: torch.batch_norm_stats(x, 1e-5),
-            lambda: torch.addcmul(alpha, beta, x, out=torch.empty_like(x)))]
+            lambda: torch.addcmul(alpha, beta, x, out=torch.empty_like(x)))))
         size = x.numel() * 4
         add("bn_moments_fwd", n, times[0], times[1], size + 8 * c,
-            MOMENTS_FWD_OPS * x.numel(), times[4])
+            MOMENTS_FWD_OPS * x.numel(), times[4], host[0])
         add("bn_moments_bwd", n, times[2], times[3], 2 * size + 8 * c,
-            MOMENTS_BWD_OPS * x.numel(), times[5])
+            MOMENTS_BWD_OPS * x.numel(), times[5], host[2])
         fwd_bound = bound_of(size + 8 * c, MOMENTS_FWD_OPS * x.numel())[0]
         bwd_bound = bound_of(2 * size + 8 * c,
                              MOMENTS_BWD_OPS * x.numel())[0]
         print(f"{tag} moments {shape} ({rows} rows of {c}) x{n} a step, a "
               f"call: fwd {times[0]:.4f} ms (bound {fwd_bound:.4f}, "
               f"{100 * fwd_bound / times[0]:.1f}%; plain {times[1]:.4f}, "
-              f"{LIBRARY_CALL['bn_moments_fwd']} {times[4]:.4f}), bwd "
+              f"{LIBRARY_CALL['bn_moments_fwd']} {times[4]:.4f}; host "
+              f"{host[0]:.1f} us; {plan.clusters} clusters of {plan.cluster} "
+              f"x {plan.chunks} chunks), bwd "
               f"{times[2]:.4f} ms (bound {bwd_bound:.4f}, "
               f"{100 * bwd_bound / times[2]:.1f}%; plain {times[3]:.4f}, "
-              f"{LIBRARY_CALL['bn_moments_bwd']} {times[5]:.4f}) ({card})")
-        del x, xd, got, want
+              f"{LIBRARY_CALL['bn_moments_bwd']} {times[5]:.4f}; host "
+              f"{host[2]:.1f} us) ({card})")
+        del x, xd, got, want, dx
     for name, row in tot.items():
         if not row["calls"]:
             continue
@@ -1829,11 +1990,13 @@ def f32_step_kernels(torch, dev, model, images, card, counts=(48, 53),
         row["bound_ms"] = bound_ms
         library = (f"{LIBRARY_CALL[name]} {row['library_ms']:.4f} ms"
                    if name in LIBRARY_CALL else "none")
+        host = (f"; host {1e3 * row['host_ms'] / row['calls']:.1f} us a "
+                f"call" if name in LIBRARY_CALL else "")
         print(f"{tag} float32 batch {images.shape[0]}: {name} over one "
               f"step's {row['calls']} calls: kernel {row['ms']:.4f} ms, "
               f"plain {row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), {100 * bound_ms / row['ms']:.1f}% of the "
-              f"bound; library {library} ({card})")
+              f"bound; library {library}{host} ({card})")
     check((tot["bn_act_fwd"]["calls"], tot["bn_moments_fwd"]["calls"])
           == tuple(counts),
           f"{tag} the step should make {counts[0]} bn_act and {counts[1]} "
@@ -3048,6 +3211,11 @@ def main():
     from deep_vision_tpu_torch.tools.profile_train import make_train_parts
 
     dev = torch.device("cuda", 0)
+    t_run = time.perf_counter()
+
+    def elapsed(what):
+        print(f"[time] {what} {time.perf_counter() - t_run:.1f} s into the "
+              f"run", flush=True)
 
     # -- 1. setup ------------------------------------------------------------
     smi = subprocess.run(
@@ -3096,11 +3264,13 @@ def main():
           f"{moment_calls}")
     bn_rows = bn_act_cases(torch, dev, calls, card)
     torch.cuda.empty_cache()
-    norm_rows = moments_cases(torch, dev, moment_calls, card)
+    norm_rows = moments_cases(torch, dev, moment_calls, card,
+                              yolov3_moment_shapes(torch, dev))
     torch.cuda.empty_cache()
     norm_rows.update(layer_norm_cases(torch, dev, card))
     torch.cuda.empty_cache()
     flash_rows = flash_cases(torch, dev, card)
+    elapsed("phases 1-3 (setup, build, kernels) done")
 
     # -- 4. serving ----------------------------------------------------------
     rng = np.random.RandomState(0)
@@ -3262,6 +3432,8 @@ def main():
     del engine, model, x, variables
     torch.cuda.empty_cache()
 
+    elapsed("phase 4 (serve) done")
+
     # -- 5. training ---------------------------------------------------------
     launches, step_ms, wall_ms = train_phase(torch, trainer, train_batch,
                                              card)
@@ -3270,7 +3442,9 @@ def main():
     check_against_cpu(torch, dev)
 
     # -- 5b. feed ------------------------------------------------------------
+    elapsed("phase 5 (train) done")
     feed_phase(torch, dev, (step_ms, wall_ms), card)
+    elapsed("phase 5b (feed) done")
     torch.cuda.empty_cache()
     vit_launches = vit_phase(torch, dev, card)
     check_vit_dense_route(torch, dev)
@@ -3282,13 +3456,17 @@ def main():
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
         data, env, det = cli_records(tmp)
+        elapsed("phase 5 (ViT) and the CLI's records done")
         cli_phase(torch, dev, card, tmp, data, env, det)
+        elapsed("phase 6 (cli) done")
         torch.cuda.empty_cache()
         zoo_phase(torch, dev, card, tmp, data, env, det)
+        elapsed("phase 7 (zoo) done")
         torch.cuda.empty_cache()
         # -- 8. V-MoE, 9. detection training ---------------------------
         vmoe_launches, vmoe_rows = vmoe_phase(torch, dev, card)
         det_entries = det_phase(torch, dev, card, tmp, env)
+        elapsed("phases 8-9 (vmoe, det) done")
     for name, n in launches.items():
         if name not in bn_rows:
             continue

@@ -6,8 +6,8 @@ read the tensor once: the training BatchNorm's statistics
 (deep_vision_tpu/nn/layers.py:129-137, "one pass over x: f32
 accumulation without an f32 materialization") and flax's `LayerNorm`
 (deep_vision_tpu/models/vit.py:156, :158, :225). The kernels are
-`csrc/norm.cu`, whose header says what bounds them and what a faster
-version would do.
+`csrc/norm.cu`, whose header says what bounds them and how they are
+laid out.
 
     batch_moments(x) -> (E[x], E[x^2])        f32 (C,) over every axis but C
     layer_norm(x, scale, bias, eps, out_dtype) -> y    over the last axis
@@ -18,6 +18,24 @@ bn_act's (scale, bias) stay (C,)-sized PyTorch expressions in
 nn/layers.py, so autograd differentiates the reference's algebra, the
 clamp included. Its backward takes dE1, dE2 and writes
 `dx = dE1 / N + (2 dE2 / N) * x` in x's dtype and layout.
+
+The moments kernels are bound by bytes, and at a step's small shapes by
+their fixed cost a call, so each call is one launch where it can be:
+
+- the forward sums a column chunk's rows in a thread-block cluster of up
+  to 16 CTAs, which adds its CTAs' sums through distributed shared
+  memory in rank order and writes E1, E2 itself. `moments_plan` narrows
+  the chunks at small shapes so that one cluster a chunk fills the card;
+  at tall, narrow shapes (millions of rows) it gives a chunk several
+  clusters, which write partial rows, and a second launch adds them in
+  a fixed order. `moments_order_model` is the order, evaluated with
+  PyTorch's float32 ops: the kernel equals it bit for bit;
+- the backward is one launch: a thread forms alpha = dE1 / N and beta =
+  (2 dE2) / N of its 16-byte vector of channels (IEEE division, as
+  `bn_moments_bwd_coefficients`), keeps them in registers and walks the
+  rows (`moments_bwd_plan`); it equals the plain version bit for bit.
+
+A refused cluster launch or attribute raises; nothing falls back.
 
 `layer_norm` is flax's, in f32 whatever x's dtype: mean, the fast
 variance `max(E[x^2] - mean^2, 0)`, `(x - mean) * (rsqrt(var + eps) *
@@ -33,14 +51,15 @@ kernels or raise. There is no fallback from a kernel to a plain version
 and nothing is copied on the caller's behalf: the moments kernels take x
 with C innermost (contiguous (N, C), or (N, C, H, W) in channels_last
 memory), the LayerNorm kernels contiguous rows; both take float32 or
-bfloat16 starting on a 16-byte boundary. The one exception is the
-gradient autograd hands to a backward, whose layout the caller does not
+bfloat16 starting on a 16-byte boundary. The moments backward reads dE1
+and dE2 through their strides. The one exception is the gradient
+autograd hands to LayerNorm's backward, whose layout the caller does not
 choose: it is brought to the forward input's layout first (a copy only
 when it differs).
 
 `batch_moments.launches` / `.backward_launches` and `layer_norm.launches`
-/ `.backward_launches` count kernel launches (plain integers; set them to
-0 to start a count).
+/ `.backward_launches` count the wrappers' calls that launch kernels
+(plain integers; set them to 0 to start a count).
 """
 from __future__ import annotations
 
@@ -48,7 +67,6 @@ import ctypes
 import functools
 from typing import NamedTuple, Tuple
 
-import numpy as np
 import torch
 
 from deep_vision_tpu_torch.ops.cuda import build
@@ -58,16 +76,32 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 THREADS = 256
 #: warps per block of the LayerNorm kernels, one row a warp at a time
 LN_WARPS = THREADS // 32
-#: the moments grid aims at this many blocks per SM ...
-MOMENTS_BLOCKS_PER_SM = 4
-#: ... but gives each thread at least this many rows to sum
-MOMENTS_MIN_ROWS_PER_THREAD = 8
-#: resident blocks per SM of the LayerNorm backward's persistent grid
-LN_BWD_BLOCKS_PER_SM = 2
+#: CTAs in a moments cluster at most (csrc/norm.cu's kMaxCluster; above 8
+#: the kernel sets the non-portable cluster attribute)
+MOMENTS_MAX_CLUSTER = 16
+#: the narrowest column chunk of the moments forward, in bytes of a row
+MOMENTS_MIN_CHUNK_BYTES = 128
+#: one cluster a chunk while a thread sums at most this many rows ...
+MOMENTS_SINGLE_MAX_ROWS_PER_THREAD = 128
+#: ... else clusters of MOMENTS_TALL_CLUSTER CTAs, up to
+#: MOMENTS_CTAS_PER_SM CTAs an SM (one wave: csrc/norm.cu's registers
+#: allow kFwdCtasPerSm), each thread with at least
+#: MOMENTS_MIN_ROWS_PER_THREAD rows
+MOMENTS_TALL_CLUSTER = 4
+MOMENTS_CTAS_PER_SM = 2
+MOMENTS_MIN_ROWS_PER_THREAD = 16
+#: column chunks of a moments grid at most (a grid's y)
+MAX_CHUNKS = 65535
 #: the combine kernels' block: COMBINE_COLS columns x COMBINE_GROUPS
 #: groups of partial rows (csrc/column_sum.cuh's kColumnSumCols,
 #: kColumnSumGroups)
 COMBINE_COLS, COMBINE_GROUPS = 32, 8
+#: the moments backward: rows a thread at least (csrc/norm.cu's
+#: kBwdUnroll, one pass of its loads in flight), CTAs an SM at most
+MOMENTS_BWD_MIN_ROWS_PER_THREAD = 4
+MOMENTS_BWD_CTAS_PER_SM = 4
+#: resident blocks per SM of the LayerNorm backward's persistent grid
+LN_BWD_BLOCKS_PER_SM = 2
 #: a LayerNorm lane holds at most this many elements of its row, so a
 #: row is at most 32 times as long
 LN_MAX_ELEMS_PER_LANE = 32
@@ -75,8 +109,8 @@ LN_MAX_ELEMS_PER_LANE = 32
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "dvt_norm_threads": [],
-    "dvt_bn_moments_fwd": [_P] * 3 + [_LL] + [_I] * 6 + [_LL, _I, _P],
-    "dvt_bn_moments_bwd": [_P] * 4 + [_LL] + [_I] * 5 + [_P],
+    "dvt_bn_moments_fwd": [_P] * 2 + [_LL] + [_I] * 8 + [_P],
+    "dvt_bn_moments_bwd": [_P, _P, _LL, _P, _LL, _P, _LL] + [_I] * 7 + [_P],
     "dvt_layer_norm_fwd": [_P] * 6 + [_LL, _I, ctypes.c_float] + [_I] * 6
     + [_P],
     "dvt_layer_norm_bwd": [_P] * 9 + [_LL] + [_I] * 7 + [_P],
@@ -123,9 +157,15 @@ def bn_moments_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def bn_moments_bwd_coefficients(n: int, d_mean: torch.Tensor,
                                 d_mean2: torch.Tensor):
-    """(alpha, beta), f32 (C,): dx = alpha + beta * x. beta = 2 dE2 / N,
-    which rounds as (dE2 / N) * 2 does (a factor of 2 is exact)."""
-    return d_mean.float() / n, 2 * d_mean2.float() / n
+    """(alpha, beta), f32 (C,): dx = alpha + beta * x, alpha = dE1 / N and
+    beta = (2 dE2) / N (which rounds as (dE2 / N) * 2 does: a factor of 2
+    is exact), N rounded to float32. The divisor is a tensor on the
+    cotangents' device, so that the card divides as the CPU does (IEEE
+    division): PyTorch's CUDA `t / n` for a Python number multiplies by a
+    rounded 1 / n instead, which differs in the last bit. The moments
+    backward kernel forms these in its registers, bit for bit."""
+    div = torch.tensor(float(n), dtype=torch.float32, device=d_mean.device)
+    return d_mean.float() / div, 2 * d_mean2.float() / div
 
 
 def bn_moments_bwd_plain(x: torch.Tensor, alpha: torch.Tensor,
@@ -172,77 +212,144 @@ def layer_norm_bwd_plain(x: torch.Tensor, scale: torch.Tensor,
 # -- launch plans ------------------------------------------------------------
 
 class MomentsPlan(NamedTuple):
-    """The moments kernel's grid. A block of THREADS threads covers
-    `cols` vectors of `vec` channels of column chunk blockIdx.y, and
-    `lanes` rows at a time: thread t is (lane t // cols, column t % cols),
-    t < lanes * cols. Split blockIdx.x takes rows [s * rows_per_split,
-    (s + 1) * rows_per_split); a thread sums its rows lane, lane + lanes,
-    ... of the split in order, the block adds its lanes in order into one
-    partial row, and the combine adds the partial rows (see
-    `moments_order_model`)."""
+    """The moments forward's grid, (cluster * clusters, chunks) CTAs of
+    THREADS threads in clusters of `cluster`. CTA (b, chunk) covers `cols`
+    vectors of `vec` channels of column chunk `chunk`: thread t is (lane
+    t // cols, column t % cols), t < lanes * cols, and sums rows b * lanes
+    + lane, + stride, + 2 stride, ..., stride = cluster * clusters *
+    lanes. With one cluster a chunk the kernel writes E1, E2 itself, one
+    launch; with several, each cluster writes a partial row and a combine
+    launch adds them (see `moments_order_model`)."""
 
     vec: int
     cols: int
     lanes: int
-    col_blocks: int
-    splits: int
-    rows_per_split: int
+    chunks: int
+    cluster: int
+    clusters: int
+
+    @property
+    def launches(self) -> int:
+        return 1 if self.clusters == 1 else 2
 
 
 @functools.lru_cache(maxsize=None)
 def moments_plan(rows: int, c: int, sm_count: int,
                  elem_bytes: int = 2) -> MomentsPlan:
-    """The grid for `rows` x `c` elements of `elem_bytes` each: about
-    MOMENTS_BLOCKS_PER_SM blocks an SM, fewer when the rows would give a
-    thread fewer than MOMENTS_MIN_ROWS_PER_THREAD. Many channels and few
-    rows (C = 2048, 6,272 rows) give one row a block and many splits; few
-    channels and many rows (C = 64, 1.6 M rows) 32 rows a block."""
+    """The forward's grid for `rows` x `c` elements of `elem_bytes` each.
+    Chunks are halved, down to MOMENTS_MIN_CHUNK_BYTES of a row, until
+    one cluster of MOMENTS_MAX_CLUSTER CTAs a chunk fills the card; if a
+    thread then sums at most MOMENTS_SINGLE_MAX_ROWS_PER_THREAD rows, one
+    cluster covers each chunk's rows (2,704 x 1,024 f32: 16 chunks of 16
+    vectors, 256 CTAs). Else chunks are up to THREADS vectors wide and
+    clusters of MOMENTS_TALL_CLUSTER CTAs are added up to
+    MOMENTS_CTAS_PER_SM CTAs an SM (one wave), each thread keeping at
+    least MOMENTS_MIN_ROWS_PER_THREAD rows (2.77 M x 32 f32: one chunk of
+    8 vectors, 66 clusters)."""
+    vec = vector_width(c, elem_bytes)
+    vectors = c // vec
+    min_cols = max(1, MOMENTS_MIN_CHUNK_BYTES // (vec * elem_bytes))
+    wide = min(vectors, THREADS)
+    cols = wide
+    while (-(-vectors // cols) * MOMENTS_MAX_CLUSTER < sm_count
+           and cols > min_cols):
+        cols = max(min_cols, -(-cols // 2))
+    lanes = THREADS // cols
+    if rows <= MOMENTS_MAX_CLUSTER * lanes * MOMENTS_SINGLE_MAX_ROWS_PER_THREAD:
+        cluster = max(1, min(MOMENTS_MAX_CLUSTER, -(-rows // lanes)))
+        clusters = 1
+    else:
+        cols = wide
+        lanes = THREADS // cols
+        cluster = MOMENTS_TALL_CLUSTER
+        chunks = -(-vectors // cols)
+        clusters = max(1, min(
+            sm_count * MOMENTS_CTAS_PER_SM // (chunks * cluster),
+            rows // (cluster * lanes * MOMENTS_MIN_ROWS_PER_THREAD)))
+    chunks = -(-vectors // cols)
+    if chunks > MAX_CHUNKS:
+        raise ValueError(f"the moments kernels take at most {MAX_CHUNKS} "
+                         f"column chunks; C = {c} needs {chunks}")
+    return MomentsPlan(vec, cols, lanes, chunks, cluster, clusters)
+
+
+class MomentsBwdPlan(NamedTuple):
+    """The moments backward's grid, (blocks, chunks) CTAs laid out as the
+    forward's: thread t of CTA (b, chunk) is (lane t // cols, column t %
+    cols) and walks rows b * lanes + lane, + blocks * lanes, ..."""
+
+    vec: int
+    cols: int
+    lanes: int
+    chunks: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=None)
+def moments_bwd_plan(rows: int, c: int, sm_count: int,
+                     elem_bytes: int = 2) -> MomentsBwdPlan:
+    """Chunks up to THREADS vectors wide; blocks enough to give each
+    thread MOMENTS_BWD_MIN_ROWS_PER_THREAD rows, at most
+    MOMENTS_BWD_CTAS_PER_SM CTAs an SM over the chunks."""
     vec = vector_width(c, elem_bytes)
     vectors = c // vec
     cols = min(vectors, THREADS)
     lanes = THREADS // cols
-    col_blocks = -(-vectors // cols)
-    target = -(-sm_count * MOMENTS_BLOCKS_PER_SM // col_blocks)
-    splits = max(1, min(target, -(-rows // (lanes
-                                            * MOMENTS_MIN_ROWS_PER_THREAD))))
-    per = max(1, -(-rows // splits))
-    return MomentsPlan(vec, cols, lanes, col_blocks, -(-rows // per), per)
+    chunks = -(-vectors // cols)
+    if chunks > MAX_CHUNKS:
+        raise ValueError(f"the moments kernels take at most {MAX_CHUNKS} "
+                         f"column chunks; C = {c} needs {chunks}")
+    blocks = max(1, min(
+        -(-rows // (lanes * MOMENTS_BWD_MIN_ROWS_PER_THREAD)),
+        -(-sm_count * MOMENTS_BWD_CTAS_PER_SM // chunks)))
+    return MomentsBwdPlan(vec, cols, lanes, chunks, blocks)
 
 
-def moments_order_model(x: np.ndarray, plan: MomentsPlan):
-    """(sum x, sum x^2), float32 (C,), of a (rows, C) array in the
-    kernels' order, evaluated with numpy in float32 (each step rounded as
-    the kernels round it: built with --fmad=false, so x * x and the add
-    round apart). The kernels' sums equal these bit for bit."""
-    x = np.asarray(x, np.float32)
+def _in_order(acc: torch.Tensor) -> torch.Tensor:
+    """acc[0] + acc[1] + ... along dim 0, one add at a time, in order."""
+    tot = acc[0].clone()
+    for part in acc[1:]:
+        tot += part
+    return tot
+
+
+def moments_order_model(x: torch.Tensor, plan: MomentsPlan):
+    """(E[x], E[x^2]), float32 (C,), of a (rows, C) float32 tensor, summed
+    in the forward kernel's order with PyTorch's elementwise float32 ops
+    on x's device (each add and product rounded once, as the kernel, built
+    with --fmad=false, rounds them), then divided by the row count. The
+    kernel's outputs equal these bit for bit:
+
+    1. the thread of lane l of CTA b sums rows b * lanes + l, + stride,
+       ... in order (stride = cluster * clusters * lanes);
+    2. the CTA adds its lanes in order;
+    3. cluster g adds its CTAs b = g * cluster, ..., in rank order;
+    4. with one cluster that is the sum; else the combine adds the
+       clusters' partial rows in COMBINE_GROUPS interleaved groups (row j
+       to group j % COMBINE_GROUPS, in order), then the groups in order."""
+    x = x.float()
     rows, c = x.shape
-    lanes, per = plan.lanes, plan.rows_per_split
-    pad = plan.splits * per - rows
-    xs = np.concatenate([x, np.zeros((pad, c), np.float32)]).reshape(
-        plan.splits, per, c)
-    s = np.zeros((plan.splits, lanes, c), np.float32)
-    q = np.zeros((plan.splits, lanes, c), np.float32)
-    for k in range(-(-per // lanes)):  # a thread's k-th row: k*lanes + lane
-        lo = k * lanes
-        v = np.zeros((plan.splits, lanes, c), np.float32)
-        v[:, :min(lanes, per - lo)] = xs[:, lo:lo + lanes]
+    ctas, lanes = plan.cluster * plan.clusters, plan.lanes
+    stride = ctas * lanes
+    pad = x.new_zeros((-(-rows // stride) * stride - rows, c))
+    xs = torch.cat([x, pad]).view(-1, ctas, lanes, c)
+    s = x.new_zeros((ctas, lanes, c))
+    q = x.new_zeros((ctas, lanes, c))
+    for v in xs:  # every thread's next row, a stride further on
         s += v  # rows past the end add 0.0, which changes no sum
         q += v * v
-    parts = []
-    for acc in (s, q):
-        tot = acc[:, 0].copy()
-        for lane in range(1, lanes):
-            tot += acc[:, lane]
-        parts.append(tot)  # (splits, C): the block's partial row
+    div = torch.tensor(float(rows), dtype=torch.float32, device=x.device)
     out = []
-    for part in parts:
-        groups = [np.zeros(c, np.float32) for _ in range(COMBINE_GROUPS)]
-        for j in range(plan.splits):
-            groups[j % COMBINE_GROUPS] += part[j]
-        tot = groups[0].copy()
-        for grp in groups[1:]:
-            tot += grp
-        out.append(tot)
+    for acc in (s, q):
+        ctas_sums = _in_order(acc.transpose(0, 1))  # (ctas, C)
+        clusters = _in_order(ctas_sums.view(
+            plan.clusters, plan.cluster, c).transpose(0, 1))
+        if plan.clusters > 1:
+            groups = x.new_zeros((COMBINE_GROUPS, c))
+            for j in range(plan.clusters):
+                groups[j % COMBINE_GROUPS] += clusters[j]
+            clusters = groups
+        out.append(_in_order(clusters) / div)
     return out[0], out[1]
 
 
@@ -342,52 +449,54 @@ def _check_moments(x: torch.Tensor) -> None:
 
 
 def bn_moments_forward(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(E[x], E[x^2]) without autograd: CPU -> plain, CUDA -> kernel."""
+    """(E[x], E[x^2]) without autograd: CPU -> plain, CUDA -> kernel (one
+    launch, or two where `moments_plan` gives a chunk several clusters)."""
     _check_moments(x)
     if _route(x) == "cpu":
         return bn_moments_plain(x)
     rows, c = moments_rows(x), x.shape[1]
     dev = x.device
-    out = torch.empty((2, c), dtype=torch.float32, device=dev)
-    if rows == 0:
-        return out.fill_(float("nan")).unbind(0)  # as mean() of nothing
+    if rows == 0:  # as mean() of nothing
+        return torch.full((2, c), float("nan"), device=dev).unbind(0)
     _check_aligned(x, "x")
     plan = moments_plan(rows, c, _sm_count(dev.index), x.element_size())
-    partial = torch.empty((plan.splits, 2, c), dtype=torch.float32,
-                          device=dev)
+    # E1, E2, then the clusters' partial rows where there are several
+    scratch = 2 * c * plan.clusters if plan.clusters > 1 else 0
+    out = torch.empty(2 * c + scratch, dtype=torch.float32, device=dev)
     _raise_on(_lib().dvt_bn_moments_fwd(
-        x.data_ptr(), partial.data_ptr(), out.data_ptr(), rows, c,
-        DTYPES[x.dtype], plan.vec, plan.cols, plan.col_blocks, plan.splits,
-        plan.rows_per_split, dev.index, _stream(dev)), "bn_moments forward")
+        x.data_ptr(), out.data_ptr(), rows, c, DTYPES[x.dtype], plan.vec,
+        plan.cols, plan.chunks, plan.cluster, plan.clusters, dev.index,
+        _stream(dev)), "bn_moments forward")
     batch_moments.launches += 1
-    return out[0], out[1]
+    return out[:c], out[c:2 * c]
 
 
 def bn_moments_backward(x: torch.Tensor, d_mean: torch.Tensor,
                         d_mean2: torch.Tensor) -> torch.Tensor:
     """dx of (E[x], E[x^2]) for their cotangents, in x's dtype and
-    layout: CPU -> plain, CUDA -> kernel."""
+    layout: CPU -> plain, CUDA -> kernel, one launch that forms
+    `bn_moments_bwd_coefficients` itself."""
     _check_moments(x)
     c = x.shape[1]
     for name, t in (("d_mean", d_mean), ("d_mean2", d_mean2)):
         _check_vector(t, c, x, name)
-    n = x.numel() // c if c else 0
-    alpha, beta = bn_moments_bwd_coefficients(max(n, 1), d_mean, d_mean2)
     if _route(x) == "cpu":
-        return bn_moments_bwd_plain(x, alpha, beta)
+        n = x.numel() // c if c else 0
+        return bn_moments_bwd_plain(
+            x, *bn_moments_bwd_coefficients(max(n, 1), d_mean, d_mean2))
     rows = moments_rows(x)
     dx = torch.empty_strided(x.shape, x.stride(), dtype=x.dtype,
                              device=x.device)
     if rows == 0:
         return dx
     _check_aligned(x, "x")
-    vec = vector_width(c, x.element_size())
-    blocks = min(-(-x.numel() // (vec * THREADS)),
-                 _sm_count(x.device.index) * MOMENTS_BLOCKS_PER_SM * 2)
+    plan = moments_bwd_plan(rows, c, _sm_count(x.device.index),
+                            x.element_size())
     _raise_on(_lib().dvt_bn_moments_bwd(
-        x.data_ptr(), alpha.data_ptr(), beta.data_ptr(), dx.data_ptr(),
-        x.numel(), c, DTYPES[x.dtype], vec, blocks, x.device.index,
-        _stream(x.device)), "bn_moments backward")
+        x.data_ptr(), d_mean.data_ptr(), d_mean.stride(0),
+        d_mean2.data_ptr(), d_mean2.stride(0), dx.data_ptr(), rows, c,
+        DTYPES[x.dtype], plan.vec, plan.cols, plan.chunks, plan.blocks,
+        x.device.index, _stream(x.device)), "bn_moments backward")
     batch_moments.backward_launches += 1
     return dx
 

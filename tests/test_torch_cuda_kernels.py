@@ -25,9 +25,11 @@ lse is float32 in both and held to the float32 tolerance.
 
 The norm kernels (csrc/norm.cu): the moments backward equals its plain
 version bit for bit; the moments forward equals ops/cuda/norm.py's
-`moments_order_model` (the CPU model of its summation order) bit for bit,
-and the plain version within 1e-5 of the sum of |terms| per channel
-(another order); LayerNorm within rtol and atol u + 2e-6 k (atol relative
+`moments_order_model` (the model of its summation order, evaluated with
+PyTorch's float32 ops) bit for bit, and the plain version within 1e-5 of
+the sum of |terms| per channel (another order); a forward call launches
+one kernel where one cluster covers each column chunk's rows (two, with
+the combine, where it does not), a backward call one; LayerNorm within rtol and atol u + 2e-6 k (atol relative
 to the compared tensor's largest magnitude; u is one bf16 ulp, 2^-7, for
 a bf16 result, else 0; k the worst row's E[x^2] / (var + eps), the
 cancellation the fast variance suffers), and its dscale and dbias, sums
@@ -397,6 +399,41 @@ def norm_input(dev, shape, dtype, case, seed, channels_last=True):
     return x
 
 
+def moments_plan_of(x):
+    c = x.shape[1]
+    return norm.moments_plan(x.numel() // c, c,
+                             torch.cuda.get_device_properties(
+                                 x.device).multi_processor_count,
+                             x.element_size())
+
+
+def kernels_per_call(fns):
+    """The device kernels' names of each call in `fns`, from a profiler
+    trace in which a spin kernel on the same stream frames each call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn in fns:
+            torch.cuda._sleep(1)
+            fn()
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+    calls = []
+    # the raw trace: events() drops a kernel whose launch kineto linked to
+    # a CPU op it did not keep
+    for e in sorted((e for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == DeviceType.CUDA),
+                    key=lambda e: e.start_ns()):
+        if "spin_kernel" in e.name():
+            calls.append([])
+        elif calls:
+            calls[-1].append(e.name())
+    assert len(calls) == len(fns) + 1 and not calls[-1]
+    return calls[:-1]
+
+
 def kappa(x):
     """The worst row's E[x^2] / (var + eps) over the last axis."""
     xd = x.double()
@@ -419,17 +456,13 @@ def test_bn_moments_kernels_match_plain(cuda_device, shape, dtype, case):
     want = bn_moments_plain(x)
     again = bn_moments_forward(x)
     xr = x.permute(0, 2, 3, 1).reshape(rows, c) if x.dim() == 4 else x
-    plan = norm.moments_plan(rows, c, torch.cuda.get_device_properties(
-        cuda_device).multi_processor_count, x.element_size())
-    model = norm.moments_order_model(xr.float().cpu().numpy(), plan)
+    model = norm.moments_order_model(xr, moments_plan_of(x))
     xd = xr.double()
     for k, terms in ((0, xd.abs()), (1, xd.square())):
         assert torch.equal(got[k], again[k])
         bound = 1e-5 * terms.mean(0).float()
         assert bool(((got[k] - want[k]).abs() <= bound).all())
-        from_model = torch.from_numpy(model[k]) / torch.tensor(
-            float(rows), dtype=torch.float32)
-        assert torch.equal(got[k].cpu(), from_model)
+        assert torch.equal(got[k], model[k])
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     u, w = (torch.randn(c, generator=gen, device=cuda_device)
             for _ in range(2))
@@ -520,9 +553,8 @@ def test_norm_autograd_launches_the_kernels(cuda_device, monkeypatch):
             layer_norm.launches, layer_norm.backward_launches) == tuple(
         n + 1 for n in counts)
     names = " ".join(e.name for e in prof.events())
-    for kernel in ("bn_moments_fwd", "bn_moments_combine", "bn_moments_bwd",
-                   "layer_norm_fwd", "layer_norm_bwd",
-                   "layer_norm_bwd_combine"):
+    for kernel in ("bn_moments_fwd", "bn_moments_bwd", "layer_norm_fwd",
+                   "layer_norm_bwd", "layer_norm_bwd_combine"):
         assert kernel in names, kernel
     ones = torch.ones(64, device=cuda_device).view(1, -1, 1, 1)
     n = x.numel() // 64
@@ -657,6 +689,92 @@ def test_yolov3_moments_shapes_match_plain(cuda_device, shape):
             for _ in range(2))
     assert torch.equal(bn_moments_backward(x, u, w), bn_moments_bwd_plain(
         x, *bn_moments_bwd_coefficients(rows, u, w)))
+
+
+#: the 13 distinct BatchNorm input shapes of a YOLOv3 training step at
+#: batch 16 and 416x416 (tests/test_torch_norm_plan.py reads them off the
+#: port's model), from 2.77 M rows of 32 down to 2,704 rows of 1,024
+YOLOV3_BN_SHAPES = [
+    (16, 32, 416, 416), (16, 32, 208, 208), (16, 64, 208, 208),
+    (16, 64, 104, 104), (16, 128, 104, 104), (16, 128, 52, 52),
+    (16, 256, 52, 52), (16, 128, 26, 26), (16, 256, 26, 26),
+    (16, 512, 26, 26), (16, 256, 13, 13), (16, 512, 13, 13),
+    (16, 1024, 13, 13)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", YOLOV3_BN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_yolov3_step_moments_match_the_model_and_plain(cuda_device, shape,
+                                                       dtype):
+    """Every moments shape of the YOLOv3 step in float32 (the config's
+    dtype) and bf16: the forward bit for bit the order model's and within
+    1e-5 x mean |terms| of the plain version, the backward bit for bit
+    the plain version's, both bit for bit on a second call."""
+    x = norm_input(cuda_device, shape, dtype, "normal", seed=shape[1])
+    c = shape[1]
+    rows = x.numel() // c
+    got, want = bn_moments_forward(x), bn_moments_plain(x)
+    assert all(torch.equal(g, a) for g, a in zip(got, bn_moments_forward(x)))
+    xr = x.permute(0, 2, 3, 1).reshape(rows, c)
+    model = norm.moments_order_model(xr, moments_plan_of(x))
+    for k in (0, 1):
+        assert torch.equal(got[k], model[k])
+        terms = (xr.float().abs() if k == 0 else xr.float().square()).mean(0)
+        assert bool(((got[k] - want[k]).abs() <= 1e-5 * terms).all())
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    u, w = (torch.randn(c, generator=gen, device=cuda_device)
+            for _ in range(2))
+    dx = bn_moments_backward(x, u, w)
+    assert torch.equal(dx, bn_moments_bwd_plain(
+        x, *bn_moments_bwd_coefficients(rows, u, w)))
+    assert torch.equal(dx, bn_moments_backward(x, u, w))
+
+
+@pytest.mark.cuda
+def test_moments_kernels_launch_once_a_call(cuda_device):
+    """A backward call is one kernel, bn_moments_bwd, at every YOLOv3
+    shape and at ResNet-50's stem (1.6 M rows of 64, bf16); a forward
+    call is bn_moments_fwd alone where one cluster covers each chunk's
+    rows (YOLOv3's 13x13, 26x26 and 52x52), and bn_moments_fwd then
+    bn_moments_combine where the plan gives a chunk several clusters."""
+    cases = [(shape, torch.float32) for shape in YOLOV3_BN_SHAPES]
+    cases.append(((128, 64, 112, 112), torch.bfloat16))
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    fns, want = [], []
+    for shape, dtype in cases:
+        x = norm_input(cuda_device, shape, dtype, "normal", seed=5)
+        u, w = (torch.randn(shape[1], generator=gen, device=cuda_device)
+                for _ in range(2))
+        plan = moments_plan_of(x)
+        if shape[2] <= 52:
+            assert plan.clusters == 1, (shape, plan)
+        fns += [lambda x=x: bn_moments_forward(x),
+                lambda x=x, u=u, w=w: bn_moments_backward(x, u, w)]
+        want += [["bn_moments_fwd", "bn_moments_combine"][:plan.launches],
+                 ["bn_moments_bwd"]]
+    assert any(len(names) == 2 for names in want)
+    for names, expect in zip(kernels_per_call(fns), want):
+        assert len(names) == len(expect)
+        assert all(e in n for e, n in zip(expect, names)), (names, expect)
+
+
+@pytest.mark.cuda
+def test_moments_forward_raises_on_a_refused_cluster_launch(cuda_device,
+                                                             monkeypatch):
+    """A cluster the kernel does not take (32 CTAs) is refused and the
+    wrapper raises: no other route runs, and no result is returned."""
+    x = norm_input(cuda_device, (16, 256, 13, 13), torch.float32, "normal",
+                   seed=6)
+    plan = moments_plan_of(x)._replace(cluster=32)
+    monkeypatch.setattr(norm, "moments_plan", lambda *a: plan)
+    before = batch_moments.launches
+    with pytest.raises(RuntimeError, match="bn_moments forward"):
+        bn_moments_forward(x)
+    assert batch_moments.launches == before
+    monkeypatch.undo()
+    got = bn_moments_forward(x)  # the next call runs
+    assert all(torch.isfinite(g).all() for g in got)
 
 
 @pytest.mark.cuda
