@@ -68,7 +68,8 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            imports, whose chain adds the Rescale), read through a
            RecordDataset, the reference's ImageNet train chain and a
            DataLoader of batch 128; the host chain's images/s with 8 and
-           16 thread workers and 4 and 8 worker processes; then
+           16 thread workers, and for JPEG records also 4 and 8 worker
+           processes (feed_modes); then
            Trainer(device_prefetch=2).fit over the loader: a checked
            epoch (48 + 48 bn_act and 53 + 53 moments launches a step, a
            finite loss, a step for every batch, and each batch as the
@@ -76,7 +77,7 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            the loader yielded, by checksums, while the copy stream is
            held back before each copy longer than a batch waits in the
            prefetch queue, and the compute stream kept busy before each
-           read), then a timed epoch in each worker mode:
+           read), then a timed epoch in each of those worker modes:
            ms/step against phase 5's fixed batch, the host's time in
            train_step, the feed's starvation counters, host ms a
            _place_one, pinned-block reuse; and the copy stream's time
@@ -139,7 +140,36 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            with times and bound; one float32 step at batch 2 on the card
            against the CPU, the CPU taking the card's leaky-ReLU and
            ignore-mask decisions (DET_CHECK_TOL);
-10. report the card line, the kernels line, and the final status line.
+10. gan_pose the last four configs, each as registered (width, input,
+           batch, float32, optimizer) through the CLI's `build_trainer`
+           (hourglass_mpii, centernet_coco) or `build_gan_trainer`
+           (dcgan_mnist; cyclegan with one A and one B image, the
+           reference's feed) on the CLI's seeded fake batch:
+           GAN_POSE_WARMUP then GAN_POSE_STEPS timed steps (ms/step,
+           images/s, peak memory, finite losses, both for the GANs), the
+           moments' launches a step against GAN_POSE_BN; every
+           moments call of a Hourglass, CenterNet and DCGAN step against
+           the order model and the plain version, with kernel, plain,
+           bound and library times summed over a step and host us a
+           call (DCGAN's (256, 12544) through the 2-D route), and the
+           kernels a call at each shape from a child process's trace;
+           a float32 step of each on the card against the CPU
+           (GAN_POSE_CHECK_TOL: Hourglass and CenterNet at their
+           registered inputs, batch 1, the card's ReLU and max-pool
+           decisions replayed; DCGAN with the noise and dropout masks
+           passed in; CycleGAN at 64x64, G step, pool and D step, the
+           gradients read where the trainer applies them); then in
+           subprocesses `train_cli -m hourglass_mpii` 2 epochs on
+           seeded MPII people through `tools/convert.py mpii` and its
+           `--eval-only` (PCK), `-m centernet_coco` one epoch on seeded
+           512x512 COCO-layout records and its `--eval-only` (mAP),
+           `-m cyclegan --batch-size 2` 2 epochs on image folders
+           through `tools/convert.py cyclegan` and a `-c` resume to a
+           third, `-m dcgan_mnist --fake-data` one epoch and a resume to
+           a second, each run's moments launches counted by the hook;
+           the kernels line gains `bn_moments_*[hourglass_mpii]`,
+           `[centernet_coco]` and `[dcgan_mnist]`;
+11. report the card line, the kernels line, and the final status line.
 """
 import json
 import os
@@ -241,10 +271,19 @@ CHECK_TOL = {"loss": 1e-4, "grad_norm": 1e-3, "update": 2e-2, "stats": 1e-3}
 #: phase 5b: one epoch of the fed step, 8 batches of 128
 FEED_IMAGES, FEED_SHARDS, FEED_SIZE = 1024, 8, 256
 FEED_DEPTH = 2
-#: the feed's worker modes, measured alone and in the fed step
+#: the feed's worker modes, measured alone and in the fed step: all four
+#: for JPEG records, the thread modes for raw ones (each worker-process
+#: mode costs ~12 s of spawning a reading, and the decode-free raw
+#: records are not what a process pool is for)
 HOST_CHAIN_MODES = ({"num_workers": 8, "num_procs": 0},
                     {"num_workers": 16, "num_procs": 0},
                     {"num_procs": 4}, {"num_procs": 8})
+
+
+def feed_modes(encoding):
+    """HOST_CHAIN_MODES for `encoding`'s records."""
+    return tuple(m for m in HOST_CHAIN_MODES
+                 if encoding == "jpeg" or not m.get("num_procs"))
 #: the checked epoch's spins at the H100's clocks: ~1 s on the copy
 #: stream before each copy, longer than a batch waits in the prefetch
 #: queue (two steps of ~250 ms), so a step that did not wait for its copy
@@ -1411,10 +1450,10 @@ def feed_variants():
 
 def host_chain(pattern, encoding, card):
     """The host chain alone, records -> transforms -> collate, one epoch
-    in each of HOST_CHAIN_MODES: images/s after the first batch."""
+    in each of `feed_modes(encoding)`: images/s after the first batch."""
     from deep_vision_tpu_torch.tools.profile_train import make_record_loader
 
-    for mode in HOST_CHAIN_MODES:
+    for mode in feed_modes(encoding):
         loader = make_record_loader(pattern, encoding=encoding, **mode)
         t0 = time.perf_counter()
         first, n = None, 0
@@ -1536,7 +1575,7 @@ def fed_epochs(torch, dev, pattern, encoding, step_ms, card):
 
     rows = {mode_name(mode): timed_epoch(torch, trainer, pattern, encoding,
                                          mode, counters, place, card)
-            for mode in HOST_CHAIN_MODES}
+            for mode in feed_modes(encoding)}
     print(f"[feed] fed step ({encoding}) by worker mode, ms/step: "
           f"{ {k: round(v, 3) for k, v in rows.items()} }; the fixed batch "
           f"of phase 5: {step_ms[0]:.3f} ms/step (CUDA events), "
@@ -1718,21 +1757,22 @@ def check_against_cpu(torch, dev):
 
 #: phase 6: the training CLI's config, data and runs
 CLI_CONFIG = "resnet50"
-CLI_TRAIN_IMAGES, CLI_VAL_IMAGES, CLI_SIZE = 2048, 512, 256
+CLI_TRAIN_IMAGES, CLI_VAL_IMAGES, CLI_SIZE = 1024, 256, 256
 CLI_TRAIN_SHARDS, CLI_VAL_SHARDS = 8, 2
 CLI_EPOCHS = 2
 #: seconds a CLI run may take (process start, native build, 2 epochs)
 CLI_TIMEOUT = 420
 #: the SIGTERM run is signalled after this many steps of its first epoch
-CLI_SIGTERM_AFTER = 3
+CLI_SIGTERM_AFTER = 1
 #: the first step's loss, CLI subprocess against the in-process Trainer
 #: on the same batch (both TF32 convolutions, other cuDNN algorithms)
 CLI_LOSS_RTOL = 1e-3
 #: timed fixed-batch steps, with the skip policy off and on
 CLI_POLICY_STEPS = 5
 #: phase 6's hook, imported by the CLI runs as sitecustomize: checksums
-#: of every batch Trainer.train_step reads (label (or detection class)
-#: and image sums weighted by row, in float64 on the card, read at exit)
+#: of every batch Trainer.train_step reads (label (or detection class, or
+#: pose keypoint) and image sums weighted by row, in float64 on the card,
+#: read at exit)
 #: and the kernel wrappers' launch counts over the run, set to 0 before
 #: the CLI starts, written as JSON at exit: bn_act and the moments under
 #: "launches", NMS under "nms", LayerNorm's forward and backward under
@@ -1758,7 +1798,8 @@ if _path:
 
     def _logged(self, batch):
         data = self._on_device(batch)
-        label = data["label"] if "label" in data else data["classes"]
+        label = next(data[k] for k in ("label", "classes", "keypoints")
+                     if k in data)
         n = label.shape[0]
         w = torch.arange(1, n + 1, dtype=torch.float64, device=label.device)
         img = data[self.input_key].double().reshape(n, -1).sum(1)
@@ -1898,8 +1939,9 @@ def f32_step_kernels(torch, dev, model, images, card, counts=(48, 53),
         row["host_ms"] += n * host_us / 1e3
 
     def draw(shape):
-        return torch.randn(shape, generator=gen, device=dev).contiguous(
-            memory_format=torch.channels_last)
+        x = torch.randn(shape, generator=gen, device=dev)
+        return (x.contiguous(memory_format=torch.channels_last)
+                if len(shape) == 4 else x)
 
     for (shape, res), n in sorted(calls.items()):
         c = shape[1]
@@ -1942,7 +1984,8 @@ def f32_step_kernels(torch, dev, model, images, card, counts=(48, 53),
         check(all(torch.equal(g, a) for g, a in zip(got, bn_moments_forward(
             x))), f"f32 moments forward does not repeat: {shape}")
         plan = check_moments_model(torch, x, got, f"{tag} {shape}")
-        xd = x.permute(0, 2, 3, 1).reshape(rows, c).double()
+        xd = (x.permute(0, 2, 3, 1).reshape(rows, c) if x.dim() == 4
+              else x).double()
         for k, terms in ((0, xd.abs().sum(0)), (1, xd.square().sum(0))):
             e = (got[k].double() - want[k].double()).abs() * rows
             check(bool((e <= NORM_SUM_TOL * terms).all()),
@@ -1957,7 +2000,8 @@ def f32_step_kernels(torch, dev, model, images, card, counts=(48, 53),
         check(torch.equal(dx, bn_moments_bwd_plain(x, *coef))
               and torch.equal(dx, bn_moments_backward(x, u, w)),
               f"f32 moments backward differs or does not repeat: {shape}")
-        alpha, beta = (t.view(1, -1, 1, 1) for t in coef)
+        alpha, beta = (t.view((1, -1) + (1,) * (x.dim() - 2))
+                       for t in coef)
         times, host = zip(*(time_cuda(torch, fn, runs=10) for fn in (
             lambda: bn_moments_forward(x), lambda: bn_moments_plain(x),
             lambda: bn_moments_backward(x, u, w),
@@ -2361,11 +2405,12 @@ def zoo_steps(torch, dev, card):
 
 class BranchReplay:
     """Record every ReLU decision (`F.relu`, a ConvBN's unfused ReLU, the
-    ReLU inside bn_act, Darknet's leaky ReLU) and every max pool's choice
+    ReLU inside bn_act, Darknet's leaky ReLU, `F.leaky_relu` (the GANs'))
+    and every max pool's choice
     (`F.max_pool2d`) of one forward, and impose them, in call order, on
     a second forward of the same model: there each ReLU keeps its input
-    where the first run's input was positive (the leaky one scales the
-    rest by 0.1), and each pool takes the element the first run's pool
+    where the first run's input was positive (a leaky one scales the rest
+    by its slope), and each pool takes the element the first run's pool
     took. The second run's gradients then flow where the first run's
     did."""
 
@@ -2376,6 +2421,7 @@ class BranchReplay:
         from deep_vision_tpu_torch.models import yolov3
 
         self.relu0, self.pool0 = self.f.relu, self.f.max_pool2d
+        self.leaky_relu0 = self.f.leaky_relu
         self.leaky0 = yolov3._leaky
         self.fused0 = layers.fused_scale_bias_act
         self.taken, self.replay, self.i = [], False, 0
@@ -2394,10 +2440,13 @@ class BranchReplay:
         return self.torch.where(m.to(x.device), x, 0.0)
 
     def leaky(self, x):
+        return self.leaky_relu(x, 0.1)
+
+    def leaky_relu(self, x, negative_slope=0.01, inplace=False):
         m = self._take(x > 0)
         if m is None:
-            return self.leaky0(x)
-        return self.torch.where(m.to(x.device), x, 0.1 * x)
+            return self.leaky_relu0(x, negative_slope)
+        return self.torch.where(m.to(x.device), x, negative_slope * x)
 
     def fused(self, x, a, b, residual=None, act=None):
         if act != "relu":
@@ -2432,6 +2481,7 @@ class BranchReplay:
         convbns = [m for m in model.modules()
                    if isinstance(m, ConvBN) and id(m.act) in acts]
         self.f.relu, self.f.max_pool2d = self.relu, self.max_pool2d
+        self.f.leaky_relu = self.leaky_relu
         self.layers.fused_scale_bias_act = self.fused
         for m in convbns:
             m.act = acts[id(m.act)][1]
@@ -2439,6 +2489,7 @@ class BranchReplay:
             return fn()
         finally:
             self.f.relu, self.f.max_pool2d = self.relu0, self.pool0
+            self.f.leaky_relu = self.leaky_relu0
             self.layers.fused_scale_bias_act = self.fused0
             for m in convbns:
                 m.act = (self.relu0 if m.act == self.relu
@@ -2910,7 +2961,7 @@ def vmoe_phase(torch, dev, card):
 #: records converted by tools/convert.py (train, val images of DET_SIZE
 #: square), DET_EPOCHS epochs, then --eval-only from its checkpoint
 DET_CONFIG, DET_EPOCHS = "yolov3_coco", 2
-DET_TRAIN_IMAGES, DET_VAL_IMAGES, DET_SIZE = 256, 64, 480
+DET_TRAIN_IMAGES, DET_VAL_IMAGES, DET_SIZE = 128, 64, 480
 #: training BatchNorms of a YOLOv3 step (all unfused: Darknet's leaky ReLU
 #: follows the BatchNorm), each taking its batch's moments
 DET_BN = 72
@@ -3182,6 +3233,504 @@ def det_phase(torch, dev, card, tmp, env):
     print(f"[det] {DET_CONFIG} trained through the CLI, evaluated, its "
           f"kernels timed and its step held against the CPU in "
           f"{time.perf_counter() - t0:.1f} s; {ms:.3f} ms/step ({card})")
+    return entries
+
+
+#: phase 10: the GAN, pose and CenterNet configs, and the training
+#: BatchNorms a step of each: its moments' forward and backward launches
+#: (the reference's variable trees hold as many; CycleGAN's instance
+#: norm takes no moments)
+GAN_POSE_BN = {"hourglass_mpii": 182, "centernet_coco": 199,
+               "dcgan_mnist": 3, "cyclegan": 0}
+GAN_POSE_WARMUP, GAN_POSE_STEPS = 2, 5
+#: the float32 card-against-CPU steps, ZOO_CHECK_TOL's rules: Hourglass
+#: and CenterNet at their registered inputs with batch 1, where their
+#: deepest BatchNorms normalise 16 rows a channel (at smaller inputs 1 to
+#: 4, and float32 rounding alone moves the gradients through them by
+#: percents); DCGAN at batch GAN_CHECK_BATCH with the noise and dropout
+#: masks passed in; CycleGAN at CYCLEGAN_CHECK_SIZE, one A and one B
+#: image; the CPU takes the card's ReLU, leaky-ReLU and max-pool
+#: decisions (BranchReplay)
+GAN_POSE_CHECK_TOL = {"loss": 1e-4, "grad": 2e-2, "stats": 1e-3}
+GAN_CHECK_BATCH, CYCLEGAN_CHECK_SIZE = 8, 64
+#: CycleGAN's biases that a `_Norm` normalises away: zero gradients in
+#: exact arithmetic, held against their kernel's largest gradient
+CYCLEGAN_NORMED = {"generator": ("Conv_0", "Conv_1", "Conv_2",
+                                 "ConvTranspose_0", "ConvTranspose_1"),
+                   "discriminator": ("Conv_1", "Conv_2", "Conv_3")}
+#: the CLI runs' data: MPII-layout people (images POSE_SIZE x 5/4 of it)
+#: and COCO-layout images at CenterNet's 512 through tools/convert.py,
+#: CycleGAN's image folders (A and B) through `convert.py cyclegan`
+POSE_TRAIN, POSE_VAL, POSE_SIZE, POSE_EPOCHS = 32, 32, 320, 2
+CN_TRAIN, CN_VAL = 64, 32
+CYC_IMAGES, CYC_VAL, CYC_SIZE = 4, 2, 256
+DCGAN_FAKE_BATCHES = 2
+
+
+def gan_pose_parts(torch, dev, name, batch):
+    """(trainer, step fn -> losses, the moments model and its input) for
+    `name` at `batch` as train_cli builds it, on its seeded fake batch."""
+    import dataclasses
+
+    from deep_vision_tpu_torch.configs import get_config
+    from deep_vision_tpu_torch.train_cli import (
+        FAKE_DATA,
+        build_gan_trainer,
+        build_trainer,
+    )
+
+    cfg = dataclasses.replace(get_config(name), batch_size=batch)
+    if name == "cyclegan":  # one A and one B image, the reference's feed
+        cfg = dataclasses.replace(cfg, batch_size=2)
+    host = FAKE_DATA[cfg.task](cfg, 1)[0]
+    placed = {k: torch.as_tensor(v).to(dev) for k, v in host.items()}
+    if cfg.task in ("pose", "centernet"):
+        trainer = build_trainer(cfg, lambda: [host], None, device=dev)
+        return (trainer, lambda: [trainer.train_step(placed)["loss"]],
+                trainer.model, placed["image"])
+    trainer = build_gan_trainer(cfg, device=dev)
+    images = placed["image"]
+    if name == "dcgan_mnist":
+        noise = torch.randn(batch, 100, generator=torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+        return (trainer, lambda: list(trainer.train_step(images).values()),
+                trainer.g_state.model, noise)
+    return (trainer, lambda: list(trainer.train_step(
+        images[:1], images[1:2]).values()), None, None)
+
+
+def gan_pose_steps(torch, dev, card):
+    """Phase 10a and 10b: each config at its registered width, input,
+    batch, float32 and optimizer (CenterNet's batch of 32 fits in the
+    H100's 80 GB: 57.5 GiB at its peak), GAN_POSE_WARMUP then GAN_POSE_STEPS
+    timed steps under the CLI's precision (cuDNN TF32 on): ms/step,
+    images/s, peak memory, finite losses, the moments' launches a step
+    against GAN_POSE_BN; then every moments call of a step against its
+    plain version (f32_step_kernels) and the kernels a call from a
+    profiler trace. -> ({config: (ms, images/s, peak GiB)},
+    {config: f32_step_kernels' sums})."""
+    from deep_vision_tpu_torch.configs import get_config
+    from deep_vision_tpu_torch.ops.cuda.bn_act import fused_scale_bias_act
+    from deep_vision_tpu_torch.ops.cuda.norm import (
+        batch_moments,
+        moments_plan,
+    )
+
+    out, sums, traced = {}, {}, []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # the CLI keeps the default
+    try:
+        for name, n_bn in GAN_POSE_BN.items():
+            batch = get_config(name).batch_size
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            trainer, step, model, images = gan_pose_parts(torch, dev, name,
+                                                          batch)
+            build_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(GAN_POSE_WARMUP):
+                step()
+            torch.cuda.synchronize()
+            fused_scale_bias_act.launches = 0  # the fixed step's run starts
+            fused_scale_bias_act.backward_launches = 0
+            batch_moments.launches = 0
+            batch_moments.backward_launches = 0
+            events, losses = [], []
+            for _ in range(GAN_POSE_STEPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                losses.append(step())
+                end.record()
+                events.append((start, end))
+            torch.cuda.synchronize()
+            launches = zoo_launches(torch, fused_scale_bias_act,
+                                    batch_moments)  # ... and ends here
+            ms = statistics.median(a.elapsed_time(b) for a, b in events)
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            losses = [[float(v) for v in row] for row in losses]
+            want = {"bn_act_fwd": 0, "bn_act_bwd": 0,
+                    "bn_moments_fwd": n_bn * GAN_POSE_STEPS,
+                    "bn_moments_bwd": n_bn * GAN_POSE_STEPS}
+            images_a_step = 2 if name == "cyclegan" else batch
+            ips = images_a_step / ms * 1e3
+            n_params = sum(p.numel() for s in (
+                trainer.states().values() if hasattr(trainer, "states")
+                else [trainer.state]) for p in s.model.parameters())
+            cfg = get_config(name)
+            print(f"[gan_pose] {name} ({n_params} parameters, "
+                  f"{'x'.join(map(str, cfg.input_shape))}, float32 batch "
+                  f"{batch}{' (one A + one B image)' if name == 'cyclegan' else ''}, "
+                  f"{cfg.optimizer['name']}): {ms:.3f} ms/step median of "
+                  f"{GAN_POSE_STEPS} (CUDA events), {ips:.1f} images/s, peak "
+                  f"memory {peak:.2f} GiB (max_memory_allocated over what "
+                  f"was held before); losses "
+                  f"{[[round(v, 4) for v in row] for row in losses]}; "
+                  f"launches {launches} over {GAN_POSE_STEPS} steps; built "
+                  f"in {build_s:.1f} s ({card})")
+            check(launches == want, f"{name}: launches {launches}, want "
+                  f"{want} ({n_bn} training BatchNorms a step)")
+            check(all(np.isfinite(row).all() for row in losses),
+                  f"{name}: non-finite loss")
+            out[name] = (ms, ips, peak)
+            if model is not None:
+                sums[name] = f32_step_kernels(
+                    torch, dev, model, images, card, counts=(0, n_bn),
+                    tag=f"[gan_pose] {name}")
+                _, moments = batchnorm_calls(torch, model, images)
+                for shape in sorted(moments):
+                    rows = int(np.prod(shape)) // shape[1]
+                    traced.append((torch.empty(shape, device="meta"), None,
+                                   None, moments_plan(rows, shape[1], sms, 4),
+                                   f"{name} {shape} float32"))
+            del trainer, step, model, images
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    check_moments_launches(torch, traced, "[gan_pose]")
+    return out, sums
+
+
+def pose_against_cpu(torch, dev, name):
+    """Phase 10c for the Trainer configs: one float32 step of `name`'s
+    registered model at its input and batch 1 on the card (kernels) and
+    on the CPU (plain versions), TF32 off, the CPU taking the card's ReLU
+    and max-pool decisions: the loss, every gradient and every running
+    statistic within GAN_POSE_CHECK_TOL (card_cpu_shares)."""
+    import copy
+    import dataclasses
+
+    from deep_vision_tpu_torch.configs import get_config
+    from deep_vision_tpu_torch.losses import (
+        centernet_loss_fn,
+        hourglass_loss_fn,
+    )
+    from deep_vision_tpu_torch.models import get_model
+    from deep_vision_tpu_torch.ops.cuda.norm import batch_moments
+    from deep_vision_tpu_torch.train_cli import FAKE_DATA
+
+    cfg = dataclasses.replace(get_config(name), batch_size=1)
+    host = FAKE_DATA[cfg.task](cfg, 1)[0]
+    loss_fn = (hourglass_loss_fn if cfg.task == "pose"
+               else centernet_loss_fn)
+    cpu = get_model(cfg.model, device="cpu", seed=0, train=True,
+                    num_classes=cfg.num_classes, **cfg.model_kwargs)
+    card_model = copy.deepcopy(cpu).to(dev)
+    runs, branches = [], BranchReplay(torch)
+    t0 = time.perf_counter()
+    for model in (card_model, cpu):
+        where = next(model.parameters()).device
+        before = (batch_moments.launches, batch_moments.backward_launches)
+        batch = {k: torch.from_numpy(v).to(where) for k, v in host.items()}
+        loss, _ = branches.run(model, lambda: loss_fn(
+            model(batch["image"]), batch), replay=model is cpu)
+        loss.backward()
+        runs.append((float(loss.detach()),
+                     {k: p.grad.detach().cpu() for k, p in
+                      model.named_parameters()},
+                     {k: b.detach().cpu() for k, b in model.named_buffers()},
+                     (batch_moments.launches - before[0],
+                      batch_moments.backward_launches - before[1])))
+    (lk, gk, sk, nk), (lp, gp, sp, np_) = runs
+    n_bn = GAN_POSE_BN[name]
+    check(nk == (n_bn, n_bn) and np_ == (0, 0),
+          f"{name}: moments launches card {nk}, cpu {np_}")
+    check(branches.i == len(branches.taken) > 0,
+          f"{name}: replayed {branches.i} of {len(branches.taken)} "
+          f"decisions")
+    share, at = card_cpu_shares(lk, lp, (gk, gp), (sk, sp),
+                                GAN_POSE_CHECK_TOL)
+    print(f"[gan_pose] {name} float32 batch 1 at "
+          f"{'x'.join(map(str, cfg.input_shape))}, card vs CPU "
+          f"({len(branches.taken)} ReLU and max-pool decisions replayed) in "
+          f"{time.perf_counter() - t0:.1f} s: loss {lk:.6f} vs {lp:.6f}; "
+          f"the worst error as a share of its tolerance "
+          f"{ {k: float(f'{v:.3e}') for k, v in share.items()} } at {at}; "
+          f"tolerances {GAN_POSE_CHECK_TOL}")
+    for kind, e in share.items():
+        check(e <= 1.0, f"{name}: card vs CPU {kind} error {e:.3f} of its "
+              f"tolerance ({at.get(kind, kind)})")
+    del cpu, card_model, runs
+    torch.cuda.empty_cache()
+
+
+def gan_against_cpu(torch, dev, name):
+    """Phase 10c for the GANs: one float32 step through the GAN trainer
+    on the card and on the CPU from the same seeded weights, TF32 off:
+    DCGAN at GAN_CHECK_BATCH with numpy-seeded noise and dropout masks
+    passed in, CycleGAN at CYCLEGAN_CHECK_SIZE (G step, pool, D step);
+    the CPU takes the card's ReLU and leaky-ReLU decisions. The losses,
+    every sub-network's gradients (read where the trainer applies them)
+    and DCGAN G's running statistics within GAN_POSE_CHECK_TOL; a
+    CycleGAN bias that a `_Norm` normalises away against its kernel's
+    largest gradient."""
+    import dataclasses
+
+    from deep_vision_tpu_torch.configs import get_config
+    from deep_vision_tpu_torch.train import gan
+    from deep_vision_tpu_torch.train_cli import build_gan_trainer
+
+    cfg = get_config(name)
+    rng = np.random.RandomState(0)
+    if name == "dcgan_mnist":
+        b = GAN_CHECK_BATCH
+        real = rng.uniform(-1, 1, (b, 28, 28, 1)).astype(np.float32)
+        noise = rng.randn(b, 100).astype(np.float32)
+        masks = [[torch.from_numpy(rng.rand(b, c, s, s) < 0.7)
+                  for c, s in ((64, 14), (128, 7))] for _ in range(3)]
+    else:
+        size = CYCLEGAN_CHECK_SIZE
+        cfg = dataclasses.replace(cfg, input_shape=(size, size, 3))
+        real_a, real_b = (rng.uniform(-1, 1, (1, size, size, 3)).astype(
+            np.float32) for _ in range(2))
+    apply0, runs, branches = gan._apply, [], BranchReplay(torch)
+    t0 = time.perf_counter()
+    try:
+        for replay, where in ((False, dev), (True, torch.device("cpu"))):
+            trainer = build_gan_trainer(cfg, device=where)
+            names = {id(s): k for k, s in trainer.states().items()}
+            grads = {}
+
+            def record(state, g):
+                params = [n for n, _ in state.model.named_parameters()]
+                grads[names[id(state)]] = {
+                    n: t.detach().cpu() for n, t in zip(params, g)}
+                return apply0(state, g)
+
+            gan._apply = record
+            if name == "dcgan_mnist":
+                metrics = branches.run(
+                    trainer.g_state.model, lambda: trainer.train_step(
+                        real, noise=noise, dropout_masks=masks),
+                    replay=replay)
+                stats = {k: v.detach().cpu() for k, v in
+                         trainer.g_state.model.named_buffers()}
+            else:
+                metrics = branches.run(
+                    trainer.gab.model, lambda: trainer.train_step(
+                        real_a, real_b), replay=replay)
+                stats = {}
+            runs.append(({k: float(v) for k, v in metrics.items()}, grads,
+                         stats))
+            del trainer
+    finally:
+        gan._apply = apply0
+    (mk, gk, sk), (mp, gp, sp) = runs
+    check(branches.i == len(branches.taken) > 0,
+          f"{name}: replayed {branches.i} of {len(branches.taken)} "
+          f"decisions")
+    tol = GAN_POSE_CHECK_TOL
+    share = {"loss": max(abs(mk[k] - mp[k]) / abs(mp[k]) for k in mp)
+             / tol["loss"], "grad": 0.0, "stats": 0.0}
+    at = {}
+    for net, want in gp.items():
+        kind = "generator" if net.startswith("g") else "discriminator"
+        for k, w in want.items():
+            scale = float(w.abs().max())
+            layer = k.rsplit(".", 2)[-2] if "." in k else ""
+            if (name == "cyclegan" and k.endswith(".bias")
+                    and layer in CYCLEGAN_NORMED[kind]):
+                scale = float(want[k[:-len("bias")] + "weight"].abs().max())
+            e = float((gk[net][k] - w).abs().max()) / (
+                tol["grad"] * max(scale, 1e-30))
+            if e > share["grad"]:
+                share["grad"], at["grad"] = e, f"{net}.{k}"
+    if sp:  # DCGAN G's running statistics
+        stats_share, stats_at = card_cpu_shares(1.0, 1.0, ({}, {}),
+                                                (sk, sp), tol)
+        share["stats"] = stats_share["stats"]
+        at.update(stats_at)
+    print(f"[gan_pose] {name} float32 card vs CPU "
+          f"({len(branches.taken)} ReLU decisions replayed) in "
+          f"{time.perf_counter() - t0:.1f} s: losses card "
+          f"{ {k: round(v, 6) for k, v in mk.items()} }, CPU "
+          f"{ {k: round(v, 6) for k, v in mp.items()} }; the worst error "
+          f"as a share of its tolerance "
+          f"{ {k: float(f'{v:.3e}') for k, v in share.items()} } at {at}; "
+          f"tolerances {tol}")
+    for kind, e in share.items():
+        check(e <= 1.0, f"{name}: card vs CPU {kind} error {e:.3f} of its "
+              f"tolerance ({at.get(kind, kind)})")
+    torch.cuda.empty_cache()
+
+
+def gan_pose_records(tmp):
+    """The CLI runs' records under `tmp`: seeded MPII-layout people and
+    COCO-layout images through `tools/convert.py mpii` / `coco`, and
+    CycleGAN image folders through `convert.py cyclegan`. -> {config:
+    data dir}."""
+    from deep_vision_tpu_torch.tools import convert
+    from deep_vision_tpu_torch.tools.synth_records import (
+        write_synth_coco,
+        write_synth_image_folder,
+        write_synth_mpii,
+    )
+
+    t0 = time.perf_counter()
+    dirs = {k: os.path.join(tmp, f"gp_{k}") for k in
+            ("hourglass_mpii", "centernet_coco", "cyclegan")}
+    for split, n, seed in (("train", POSE_TRAIN, 0), ("val", POSE_VAL, 1)):
+        js, images = write_synth_mpii(os.path.join(tmp, "mpii", split),
+                                      split, n, POSE_SIZE, seed=seed)
+        check(convert.main(["mpii", "--json", js, "--images-dir", images,
+                            "--out-dir", dirs["hourglass_mpii"], "--prefix",
+                            split, "--num-shards", "2", "--workers",
+                            "1"]) == 0, f"tools/convert.py mpii {split}")
+    for split, n, seed in (("train", CN_TRAIN, 0), ("val", CN_VAL, 1)):
+        js, images = write_synth_coco(os.path.join(tmp, "cn_coco"), split,
+                                      n, 512, seed=seed)
+        check(convert.main(["coco", "--instances-json", js, "--images-dir",
+                            images, "--out-dir", dirs["centernet_coco"],
+                            "--prefix", split, "--num-shards", "2",
+                            "--workers", "1"]) == 0,
+              f"tools/convert.py coco {split}")
+    for i, (folder, n) in enumerate((("trainA", CYC_IMAGES),
+                                     ("trainB", CYC_IMAGES),
+                                     ("val", CYC_VAL))):
+        images = os.path.join(tmp, "cyc_images", folder)
+        write_synth_image_folder(images, n, CYC_SIZE, seed=i)
+        check(convert.main(["cyclegan", "--images-dir", images, "--out-dir",
+                            dirs["cyclegan"], "--prefix", folder,
+                            "--workers", "1"]) == 0,
+              f"tools/convert.py cyclegan {folder}")
+    print(f"[gan_pose] wrote and converted {POSE_TRAIN} + {POSE_VAL} MPII "
+          f"people ({POSE_SIZE}x{POSE_SIZE * 5 // 4}), {CN_TRAIN} + {CN_VAL} "
+          f"COCO-layout 512x512 images and 2 x {CYC_IMAGES} + {CYC_VAL} "
+          f"CycleGAN {CYC_SIZE}x{CYC_SIZE} images in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return dirs
+
+
+def gan_pose_cli(torch, card, tmp, env):
+    """Phase 10d: the four configs through `train_cli` in subprocesses,
+    as a user runs them: hourglass_mpii POSE_EPOCHS epochs on the MPII
+    records, then `--eval-only` (its PCK line); centernet_coco one epoch
+    on the COCO records, then `--eval-only` (mAP); cyclegan `--batch-size 2` two epochs on the
+    image-only records, then `-c` to a third; dcgan_mnist `--fake-data`
+    one epoch, then `-c` to a second. The hook counts each run's
+    launches. -> {config: the train run's launches}."""
+    from deep_vision_tpu_torch.configs import get_config
+    from deep_vision_tpu_torch.obs.journal import read_journal
+
+    dirs = gan_pose_records(tmp)
+    launches = {}
+
+    def path(name):
+        return os.path.join(tmp, "gp_" + name)
+
+    def run(name, tag, args):
+        log = path(f"{tag}.log")
+        run_cli([sys.executable, "-m", "deep_vision_tpu_torch.train_cli",
+                 "-m", name, *args],
+                dict(env, SMOKE_BATCH_LOG=path(f"{tag}.json")), log,
+                f"{name} {tag}")
+        for line in open(log).read().splitlines():
+            if line.startswith(("model ", "peak device", "resumed",
+                                "eval:")):
+                print(f"[gan_pose] {name} {tag} says: {line}")
+        return (open(log).read().splitlines(),
+                json.load(open(path(f"{tag}.json"))))
+
+    for name, epochs, images in (
+            ("hourglass_mpii", POSE_EPOCHS, POSE_TRAIN),
+            ("centernet_coco", 1, CN_TRAIN)):
+        batch = get_config(name).batch_size
+        base = ["--data-dir", dirs[name]]
+        _, hooked = run(name, "train", base + [
+            "--ckpt-dir", path(f"{name}_ck"), "--epochs", str(epochs),
+            "--journal", path(f"{name}.jsonl")])
+        steps, _ = cli_report(read_journal(path(f"{name}.jsonl")),
+                              f"{name} run", card, tag="[gan_pose]",
+                              metric="loss")
+        n_steps = epochs * (images // batch)
+        n_bn = GAN_POSE_BN[name]
+        check(len(steps) == n_steps
+              and all(np.isfinite(r["loss"]) for r in steps),
+              f"{name}: {len(steps)} steps, want {n_steps}, all finite")
+        want = {"bn_act_fwd": 0, "bn_act_bwd": 0,
+                "bn_moments_fwd": n_bn * n_steps,
+                "bn_moments_bwd": n_bn * n_steps}
+        check(hooked["launches"] == want, f"{name}: launches "
+              f"{hooked['launches']}, want {want}")
+        launches[name] = hooked["launches"]
+        lines, hooked = run(name, "eval", base + [
+            "-c", path(f"{name}_ck"), "--eval-only"])
+        said = [line for line in lines if line.startswith("eval: ")]
+        val = POSE_VAL if name == "hourglass_mpii" else CN_VAL
+        if name == "hourglass_mpii":
+            check(len(said) == 1 and said[0].startswith("eval: PCK@0.05="),
+                  f"{name} --eval-only printed {said}")
+        else:
+            check(len(said) == 1 and said[0].startswith("eval: mAP@.5=")
+                  and "mAP@[.5:.95]=" in said[0]
+                  and said[0].endswith(f"images={val // batch * batch}"),
+                  f"{name} --eval-only printed {said}")
+        check(hooked["launches"]["bn_moments_fwd"] == 0,
+              f"{name} --eval-only took batch moments")
+    for name, first, extra in (
+            ("cyclegan", ["--data-dir", dirs["cyclegan"], "--batch-size",
+                          "2"], 2),
+            ("dcgan_mnist", ["--fake-data", "--fake-batches",
+                             str(DCGAN_FAKE_BATCHES)], 1)):
+        ck, journal = path(f"{name}_ck"), path(f"{name}.jsonl")
+        base = first + ["--ckpt-dir", ck, "--journal", journal]
+        _, hooked = run(name, "train", base + ["--epochs", str(extra)])
+        lines, _ = run(name, "resume", base + ["--epochs", str(extra + 1),
+                                                "-c", "auto"])
+        check(f"resumed GAN training at epoch {extra}" in lines,
+              f"{name}: the resume did not restore epoch {extra}")
+        rows = read_journal(journal)
+        steps, _ = cli_report(rows, f"{name} runs", card, tag="[gan_pose]",
+                              metric="loss")
+        per_epoch = (2 * CYC_IMAGES // 2 if name == "cyclegan"
+                     else DCGAN_FAKE_BATCHES)
+        summaries = [r["summary"] for r in rows if r["event"] == "epoch"]
+        check(len(steps) == (extra + 1) * per_epoch
+              and len(summaries) == extra + 1
+              and all(np.isfinite(list(s.values())).all()
+                      for s in summaries),
+              f"{name}: {len(steps)} steps, epochs {summaries}")
+        n_bn = GAN_POSE_BN[name]
+        want = {"bn_act_fwd": 0, "bn_act_bwd": 0,
+                "bn_moments_fwd": n_bn * extra * per_epoch,
+                "bn_moments_bwd": n_bn * extra * per_epoch}
+        check(hooked["launches"] == want, f"{name}: launches "
+              f"{hooked['launches']}, want {want}")
+        launches[name] = hooked["launches"]
+        print(f"[gan_pose] {name}: epoch summaries {summaries}")
+    return launches
+
+
+def gan_pose_phase(torch, dev, card, tmp, env):
+    """Phase 10: GAN, pose and CenterNet training. Returns the kernels
+    line's entries for its path (the moments at the new shapes)."""
+    t0 = time.perf_counter()
+    timed, sums = gan_pose_steps(torch, dev, card)
+    for name in ("hourglass_mpii", "centernet_coco"):
+        pose_against_cpu(torch, dev, name)
+    for name in ("dcgan_mnist", "cyclegan"):
+        gan_against_cpu(torch, dev, name)
+    launches = gan_pose_cli(torch, card, tmp, env)
+    entries = []
+    for config, tot in sums.items():
+        for name in ("bn_moments_fwd", "bn_moments_bwd"):
+            row = tot[name]
+            bound_ms, bound_by = bound_of(row["bytes"], row["ops"])
+            entries.append({
+                "name": f"{name}[{config}]", "route": "cuda",
+                "source": "deep_vision_tpu_torch/csrc/norm.cu",
+                "replaces": "deep_vision_tpu/nn/layers.py:129",
+                "launches": launches[config][name],
+                "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": row["library_ms"]})
+    print(f"[gan_pose] {len(timed)} configs stepped at registered width, "
+          f"their moments held against plain, each step against the CPU, "
+          f"and each trained through the CLI in "
+          f"{time.perf_counter() - t0:.1f} s; ms/step "
+          f"{ {k: round(v[0], 3) for k, v in timed.items()} } ({card})")
     return entries
 
 
@@ -3467,6 +4016,10 @@ def main():
         vmoe_launches, vmoe_rows = vmoe_phase(torch, dev, card)
         det_entries = det_phase(torch, dev, card, tmp, env)
         elapsed("phases 8-9 (vmoe, det) done")
+        torch.cuda.empty_cache()
+        # -- 10. GAN, pose and CenterNet training ----------------------
+        gan_pose_entries = gan_pose_phase(torch, dev, card, tmp, env)
+        elapsed("phase 10 (gan_pose) done")
     for name, n in launches.items():
         if name not in bn_rows:
             continue
@@ -3495,9 +4048,9 @@ def main():
         kernels.append({"name": f"{name}[vmoe_s16]", "route": "cuda",
                         "source": "deep_vision_tpu_torch/csrc/norm.cu",
                         "launches": vmoe_launches[name], **vmoe_rows[name]})
-    kernels += det_entries
+    kernels += det_entries + gan_pose_entries
 
-    # -- 10. report ----------------------------------------------------------
+    # -- 11. report ----------------------------------------------------------
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

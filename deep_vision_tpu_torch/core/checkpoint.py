@@ -75,6 +75,31 @@ def state_arrays(state) -> dict:
             "generator": state.generator.get_state()}
 
 
+def _check_state(state, loaded: dict) -> None:
+    """Raise unless `loaded` (a state_arrays dict) has the model's keys
+    and shapes."""
+    model_sd = state.model.state_dict()
+    got = loaded["model"]
+    if set(got) != set(model_sd):
+        raise KeyError(
+            f"model state mismatch: missing "
+            f"{sorted(set(model_sd) - set(got))[:5]}, unexpected "
+            f"{sorted(set(got) - set(model_sd))[:5]}")
+    for k, v in got.items():
+        if v.shape != model_sd[k].shape:
+            raise ValueError(f"{k}: saved shape {tuple(v.shape)}, "
+                             f"model {tuple(model_sd[k].shape)}")
+
+
+def _load_state(state, loaded: dict) -> None:
+    """Load a checked state_arrays dict into a TrainState, in place."""
+    state.model.load_state_dict(loaded["model"])
+    state.optimizer.load_state_dict(loaded["optimizer"])
+    state.step = int(loaded["step"])
+    if loaded.get("generator") is not None:
+        state.generator.set_state(loaded["generator"])
+
+
 def _to_host(obj, pinned: List[torch.Tensor]):
     """A copy of `obj` with every tensor copied to host memory: CUDA
     tensors into pinned buffers, asynchronously on the current stream
@@ -406,28 +431,48 @@ class CheckpointManager:
                 "cross-mesh restore is not ported: one device has no mesh")
 
         def apply(loaded: dict):
-            model_sd = state.model.state_dict()
-            got = loaded["model"]
-            if set(got) != set(model_sd):
-                raise KeyError(
-                    f"model state mismatch: missing "
-                    f"{sorted(set(model_sd) - set(got))[:5]}, unexpected "
-                    f"{sorted(set(got) - set(model_sd))[:5]}")
-            for k, v in got.items():
-                if v.shape != model_sd[k].shape:
-                    raise ValueError(f"{k}: saved shape {tuple(v.shape)}, "
-                                     f"model {tuple(model_sd[k].shape)}")
-            state.model.load_state_dict(got)
-            state.optimizer.load_state_dict(loaded["optimizer"])
-            state.step = int(loaded["step"])
-            if loaded.get("generator") is not None:
-                state.generator.set_state(loaded["generator"])
+            _check_state(state, loaded)
+            _load_state(state, loaded)
             return state
 
         found, restored, host_state = self._restore_with_fallback(apply,
                                                                   step)
         if found is None:
             return state, None
+        self._last_saved = found
+        return restored, host_state
+
+    def save_states(self, step: int, states: dict,
+                    host_state: Optional[dict] = None) -> bool:
+        """Save several TrainStates as one step (a GAN's sub-networks):
+        `{name: state_arrays(state)}`, asynchronously, with the JSON host
+        state. Returns False when the step is already saved."""
+        if step == self._last_saved:
+            return False
+        faults.fire("ckpt.save")
+        self._start_write(step, {k: state_arrays(v) for k, v in
+                                 states.items()}, host_state)
+        return True
+
+    def restore_states(self, states: dict, step: Optional[int] = None):
+        """Restore a `save_states` step into `states` ({name:
+        TrainState}, in place, each checked before any is changed);
+        returns (states, host_state), or (None, None) when nothing valid
+        is saved. The fallback chain is `restore`'s."""
+        def apply(loaded: dict):
+            if set(loaded) != set(states):
+                raise KeyError(f"saved states {sorted(loaded)}, want "
+                               f"{sorted(states)}")
+            for k, state in states.items():
+                _check_state(state, loaded[k])
+            for k, state in states.items():
+                _load_state(state, loaded[k])
+            return states
+
+        found, restored, host_state = self._restore_with_fallback(apply,
+                                                                  step)
+        if found is None:
+            return None, None
         self._last_saved = found
         return restored, host_state
 

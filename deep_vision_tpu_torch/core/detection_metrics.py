@@ -1,6 +1,7 @@
 """Detection mAP, VOC and COCO style, the port of
 deep_vision_tpu/core/detection_metrics.py:20-135 (numpy only, on the
-host, over a whole eval pass). `pck` and `pckh` come with the pose task.
+host, over a whole eval pass), and the pose metrics `pck` and `pckh`
+(:137-173).
 
 Inputs follow the predictor's output convention (inference.py): padded
 fixed-size arrays, with class -1 or score 0 marking padding; padded
@@ -129,3 +130,33 @@ class DetectionEvaluator:
             for t in np.arange(0.5, 1.0, 0.05)
         ]
         return {"mAP@[.5:.95]": float(np.mean(aps)), "mAP@.5": aps[0]}
+
+
+def pck(pred_kpts, gt_kpts, visible, norm_lengths,
+        alpha: float = 0.5) -> Dict:
+    """PCK (detection_metrics.py:137-167): the share of visible keypoints
+    within alpha * norm of the ground truth. pred/gt (N, J, 2+), visible
+    (N, J) boolean, norm_lengths (N,) (the head segment for MPII's PCKh).
+    -> {f"PCK@{alpha}", "per_joint", "num_visible"}."""
+    pred = np.asarray(pred_kpts, np.float32)[..., :2]
+    gt = np.asarray(gt_kpts, np.float32)[..., :2]
+    vis = np.asarray(visible, bool)
+    norm = np.asarray(norm_lengths, np.float32).reshape(-1, 1)
+    dist = np.linalg.norm(pred - gt, axis=-1)  # (N, J)
+    correct = (dist <= alpha * np.maximum(norm, 1e-9)) & vis
+    total = vis.sum()
+    per_joint = []
+    for j in range(gt.shape[1]):
+        vj = vis[:, j].sum()
+        per_joint.append(float(correct[:, j].sum() / vj) if vj
+                         else float("nan"))
+    return {f"PCK@{alpha}": float(correct.sum() / total) if total else 0.0,
+            "per_joint": per_joint, "num_visible": int(total)}
+
+
+def pckh(pred_kpts, gt_kpts, visible, head_sizes,
+         alpha: float = 0.5) -> Dict:
+    """MPII PCKh: PCK normalised by the head segment length."""
+    out = pck(pred_kpts, gt_kpts, visible, head_sizes, alpha)
+    out[f"PCKh@{alpha}"] = out.pop(f"PCK@{alpha}")
+    return out

@@ -1,11 +1,21 @@
-"""YOLO prediction path: images -> NMS'd detections
-(deep_vision_tpu/inference.py:68-165, the YOLO part).
+"""Prediction paths: YOLO images -> NMS'd detections, CenterNet's peak
+decode and the pose argmax (deep_vision_tpu/inference.py:68-272).
 
-`yolo_predict_fn(model)` returns the raw `(variables, images) -> dict`
-function that the serving Engine runs per bucket. Variables stay a
-runtime argument (`torch.func.functional_call` over the model's
-state_dict), which is what a weight hot-swap relies on: new variables of
-the same shapes take effect at the next call, with nothing rebuilt.
+`yolo_predict_fn(model)`, `centernet_predict_fn(model)` and
+`pose_predict_fn(model)` return the raw `(variables, images) -> output`
+functions; `make_yolo_detector`, `make_centernet_detector` and
+`make_pose_estimator` wrap them for a device, fenced and timed into
+`inference_latency_ms{task=...}`. Variables stay a runtime argument
+(`torch.func.functional_call` over the model's state_dict), which is
+what a weight hot-swap relies on: new variables of the same shapes take
+effect at the next call, with nothing rebuilt.
+
+CenterNet's decode keeps two of JAX's rules: `reduce_window`'s SAME
+padding is -inf (a peak equals the max of its 3x3 window, edges
+included), and `lax.top_k` returns equal scores lowest index first,
+which `torch.topk` does not promise: the top k come from a stable
+descending sort. The pose argmax takes the first maximum, as
+`jnp.argmax` does.
 """
 from __future__ import annotations
 
@@ -15,6 +25,7 @@ from typing import Callable, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.func import functional_call
 
 from deep_vision_tpu_torch.core.backend import (
@@ -80,22 +91,18 @@ def yolo_predict_fn(model: torch.nn.Module, **kwargs) -> Callable:
     return functools.partial(yolo_detect, model=model, **kwargs)
 
 
-def make_yolo_detector(model: torch.nn.Module, *, device: DeviceLike = None,
-                       registry=None, **kwargs) -> Callable:
-    """A (variables, images) -> detections callable on `device` (default
-    cuda) that moves the images there, waits for the result, and records
-    each call's latency in `inference_latency_ms{task="yolo"}`."""
-    dev = resolve_device(device)
-    model.to(dev)
-    fn = yolo_predict_fn(model, **kwargs)
+def _observed(fn: Callable, task: str, dev: torch.device,
+              registry=None) -> Callable:
+    """fn on `dev`: moves the images there, waits for the result, and
+    records each call's latency in `inference_latency_ms{task=...}`."""
     reg = registry or get_registry()
     hist = reg.histogram("inference_latency_ms",
                          "per-request predictor latency, fenced",
-                         labels={"task": "yolo"})
+                         labels={"task": task})
     count = reg.counter("inference_requests_total", "predictor calls",
-                        labels={"task": "yolo"})
+                        labels={"task": task})
 
-    def detect(variables, images):
+    def call(variables, images):
         t0 = time.perf_counter()
         out = fn(variables, torch.as_tensor(images, device=dev))
         synchronize(dev)
@@ -103,4 +110,124 @@ def make_yolo_detector(model: torch.nn.Module, *, device: DeviceLike = None,
         count.inc()
         return out
 
+    return call
+
+
+def make_yolo_detector(model: torch.nn.Module, *, device: DeviceLike = None,
+                       registry=None, **kwargs) -> Callable:
+    """A (variables, images) -> detections callable on `device` (default
+    cuda), observed as task "yolo"."""
+    dev = resolve_device(device)
+    model.to(dev)
+    return _observed(yolo_predict_fn(model, **kwargs), "yolo", dev,
+                     registry)
+
+
+def top_k_lowest_index_first(x: torch.Tensor, k: int):
+    """(values, indices) of the k largest of each row, equal values
+    lowest index first, as lax.top_k orders them."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+@torch.inference_mode()
+def centernet_decode(head: Dict[str, torch.Tensor], *,
+                     max_detections: int = 100,
+                     score_threshold: float = 0.1) -> Dict[str, torch.Tensor]:
+    """A CenterNet head dict (NHWC raw 'heatmap', 'wh', 'offset') ->
+    detections: a cell whose sigmoid score equals the max of its 3x3
+    window is a peak, the top `max_detections` peaks over (cell, class)
+    become boxes from the wh and offset branches. -> boxes (B, D, 4) xyxy
+    normalised, scores (B, D), classes (B, D) int32 (-1 below the
+    threshold), num (B,) int32."""
+    heatmap = torch.sigmoid(head["heatmap"])
+    b, h, w, c = heatmap.shape
+    pooled = F.max_pool2d(heatmap.permute(0, 3, 1, 2), 3, 1, padding=1)
+    peaks = torch.where(pooled.permute(0, 2, 3, 1) == heatmap, heatmap, 0.0)
+    flat = peaks.reshape(b, -1)  # index = (y * w + x) * c + class
+    k = min(max_detections, flat.shape[-1])
+    scores, idx = top_k_lowest_index_first(flat, k)
+    if k < max_detections:  # keep the (B, max_detections) contract
+        scores = F.pad(scores, (0, max_detections - k))
+        idx = F.pad(idx, (0, max_detections - k))
+    cls = (idx % c).to(torch.int32)
+    spatial = idx // c
+    ys = (spatial // w).to(torch.float32)
+    xs = (spatial % w).to(torch.float32)
+
+    def gather_spatial(branch):  # (B, h, w, 2) -> (B, k, 2) at the peaks
+        flat_b = branch.reshape(b, -1, branch.shape[-1])
+        return torch.gather(flat_b, 1, spatial[..., None].expand(
+            -1, -1, branch.shape[-1]))
+
+    off = gather_spatial(head["offset"])
+    wh = gather_spatial(head["wh"])
+    cx = (xs + off[..., 0]) / w
+    cy = (ys + off[..., 1]) / h
+    bw = wh[..., 0] / w
+    bh = wh[..., 1] / h
+    boxes = torch.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2,
+                         cy + bh / 2], -1)
+    keep = scores >= score_threshold
+    return {"boxes": torch.where(keep[..., None], boxes, 0.0),
+            "scores": torch.where(keep, scores, 0.0),
+            "classes": torch.where(keep, cls, -1).to(torch.int32),
+            "num": keep.sum(-1).to(torch.int32)}
+
+
+def centernet_predict_fn(model: torch.nn.Module, *, max_detections: int = 100,
+                         score_threshold: float = 0.1) -> Callable:
+    """The raw (variables, images) -> detections fn: the model in eval
+    mode, the last stack's head decoded."""
+    @torch.inference_mode()
+    def detect(variables, images):
+        outputs = functional_call(model, variables, (images,))
+        return centernet_decode(outputs[-1], max_detections=max_detections,
+                                score_threshold=score_threshold)
+
     return detect
+
+
+def make_centernet_detector(model: torch.nn.Module, *,
+                            device: DeviceLike = None, registry=None,
+                            **kwargs) -> Callable:
+    """A (variables, images) -> detections callable on `device` (default
+    cuda), observed as task "centernet"."""
+    dev = resolve_device(device)
+    model.to(dev)
+    return _observed(centernet_predict_fn(model, **kwargs), "centernet",
+                     dev, registry)
+
+
+def heatmaps_to_keypoints(heatmaps: torch.Tensor) -> torch.Tensor:
+    """(B, h, w, J) heatmaps -> (B, J, 3) normalised (x, y, score) at
+    each joint's first maximum."""
+    b, h, w, j = heatmaps.shape
+    flat = heatmaps.permute(0, 3, 1, 2).reshape(b, j, -1)
+    idx = flat.argmax(dim=-1)
+    score = flat.amax(dim=-1)
+    ys = (idx // w).to(torch.float32) / h
+    xs = (idx % w).to(torch.float32) / w
+    return torch.stack([xs, ys, score], dim=-1)
+
+
+def pose_predict_fn(model: torch.nn.Module) -> Callable:
+    """The raw (variables, images) -> (B, J, 3) keypoints fn, from the
+    last stack's heatmaps."""
+    @torch.inference_mode()
+    def estimate(variables, images):
+        outputs = functional_call(model, variables, (images,))
+        heatmaps = (outputs[-1] if isinstance(outputs, (list, tuple))
+                    else outputs)
+        return heatmaps_to_keypoints(heatmaps)
+
+    return estimate
+
+
+def make_pose_estimator(model: torch.nn.Module, *, device: DeviceLike = None,
+                        registry=None) -> Callable:
+    """A (variables, images) -> keypoints callable on `device` (default
+    cuda), observed as task "pose"."""
+    dev = resolve_device(device)
+    model.to(dev)
+    return _observed(pose_predict_fn(model), "pose", dev, registry)

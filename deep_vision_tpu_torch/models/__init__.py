@@ -4,7 +4,10 @@ Only the models of the ported slices are registered: `yolov3` and its
 backbone `darknet53`; the classifiers `lenet5`, `alexnet1`, `alexnet2`,
 `vgg16`, `vgg19`, `inception1`, `inception3`, `resnet34`, `resnet50`,
 `resnet152`, `resnet50v2`, `mobilenet1` and `shufflenet1`; the dense
-ViTs `vit_s16` and `vit_b16`, and the V-MoE `vmoe_s16`. Each registers with its own initialiser,
+ViTs `vit_s16` and `vit_b16`, the V-MoE `vmoe_s16`; the GANs'
+`dcgan_generator`, `dcgan_discriminator`, `cyclegan_generator` and
+`cyclegan_discriminator`; the pose `hourglass` and CenterNet's
+`objects_as_points`. Each registers with its own initialiser,
 which draws the weights as flax draws them from a `torch.Generator`
 seeded with `seed` (the draws differ from JAX's; load the reference's
 numbers through convert.py where they must agree). `get_model` returns
@@ -48,6 +51,10 @@ def get_model(name: str, *, device: DeviceLike = None, seed: int = 0,
 # importing the modules populates the registry
 from deep_vision_tpu_torch.models import (  # noqa: E402,F401
     alexnet,
+    centernet,
+    cyclegan,
+    dcgan,
+    hourglass,
     inception,
     lenet,
     mobilenet,

@@ -1,7 +1,9 @@
 """The port of deep_vision_tpu/nn/layers.py (ConvBN, BatchNorm,
 DepthwiseSeparableConv, LocalResponseNorm, channel_shuffle) and the flax
-layers the models use beside them: Conv, Dense/DenseGeneral, LayerNorm,
-Dropout, and max/avg pooling with flax's padding.
+layers the models use beside them: Conv, ConvTranspose,
+Dense/DenseGeneral, LayerNorm, Dropout, max/avg pooling with flax's
+padding, reflect padding, instance normalisation and nearest 2x
+upsampling.
 
 Layout: modules take and return NCHW-indexed tensors (PyTorch's
 convolution layout), in whatever memory format they are given; the
@@ -31,7 +33,14 @@ Where the port must not follow PyTorch's habits:
 - `Dropout` draws its mask from the `torch.Generator` the caller sets as
   its `generator` (the Trainer derives one a step), as flax's draws from
   an explicit `dropout` rng. It computes flax's
-  `where(uniform < keep, x / keep, 0)`.
+  `where(uniform < keep, x / keep, 0)`. Masks put in its `replay` list
+  are used instead, one a call, in call order.
+- `ConvTranspose` is flax's (`transpose_kernel=False`): the HWIO kernel,
+  not flipped, correlated with the input dilated by the stride, padded
+  by lax's conv-transpose rule (SAME: k 5 s 2 -> (3, 2), k 3 s 2 ->
+  (2, 1), k 5 s 1 -> (2, 2)). `F.conv_transpose2d` flips its kernel and
+  pads symmetrically; the layer hands it the flipped, in/out-swapped
+  kernel with padding `k - 1 - lo` and crops the extra trailing rows.
 - `dtype` follows flax's `Conv`: input and kernel are cast to `dtype`
   (default: the promotion of the two), so f32 master weights get their
   gradients through the cast. No autocast.
@@ -43,7 +52,7 @@ a Pallas kernel.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -93,6 +102,9 @@ def window_pads(x: torch.Tensor, kernel: Tuple[int, int],
 INITIALIZERS = {"he_normal": (2.0, "fan_in"),
                 "lecun_normal": (1.0, "fan_in"),
                 "xavier_normal": (1.0, "fan_avg")}
+#: flax `normal(stddev)` initializers by name: an untruncated normal (the
+#: GANs' `normal(0.02)`, DCGAN's and CycleGAN's papers)
+NORMAL_INITIALIZERS = {"normal_0.02": 0.02}
 
 
 def variance_scaling_(w: torch.Tensor, scale: float, mode: str,
@@ -109,6 +121,16 @@ def variance_scaling_(w: torch.Tensor, scale: float, mode: str,
     std = math.sqrt(scale / fan) / 0.87962566103423978
     return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                                  generator=generator)
+
+
+def init_kernel_(w: torch.Tensor, kernel_init: str,
+                 generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Draw a kernel by its initializer's name: NORMAL_INITIALIZERS or
+    INITIALIZERS (`variance_scaling_`)."""
+    if kernel_init in NORMAL_INITIALIZERS:
+        return nn.init.normal_(w, 0.0, NORMAL_INITIALIZERS[kernel_init],
+                               generator=generator)
+    return variance_scaling_(w, *INITIALIZERS[kernel_init], generator)
 
 
 def trunc_normal_fan_in_(w: torch.Tensor, scale: float,
@@ -220,6 +242,9 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = float(rate)
         self.generator: Optional[torch.Generator] = None
+        #: boolean keep masks of x's shape to take, in call order, instead
+        #: of drawing (a replayed step: the same masks on two devices)
+        self.replay: List[torch.Tensor] = []
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
@@ -227,8 +252,11 @@ class Dropout(nn.Module):
         if self.rate == 1.0:
             return torch.zeros_like(x)
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < keep
+        if self.replay:
+            mask = self.replay.pop(0).to(x.device)
+        else:
+            mask = torch.rand(x.shape, generator=self.generator,
+                              device=x.device) < keep
         return torch.where(mask, x / keep, 0.0)
 
 
@@ -238,15 +266,17 @@ class Conv(nn.Module):
     (features,), added after the convolution in its dtype. `kernel` and
     `strides` are ints or (h, w) pairs; `padding` as `window_pads`;
     `groups` is flax's feature_group_count; `kernel_init` names an
-    INITIALIZERS entry (flax's default: lecun_normal); `dtype` as
-    `flax_cast`."""
+    INITIALIZERS or NORMAL_INITIALIZERS entry (flax's default:
+    lecun_normal); `bias_init` is the bias's constant initial value;
+    `dtype` as `flax_cast`."""
 
     def __init__(self, in_features: int, features: int,
                  kernel: Union[int, Tuple[int, int]] = 3,
                  strides: Union[int, Tuple[int, int]] = 1,
                  padding: Padding = "SAME", groups: int = 1,
                  use_bias: bool = True, kernel_init: str = "lecun_normal",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None,
+                 bias_init: float = 0.0):
         super().__init__()
         if in_features % groups or features % groups:
             raise ValueError(f"{in_features} -> {features} channels do not "
@@ -256,18 +286,18 @@ class Conv(nn.Module):
         self.padding = padding
         self.groups = groups
         self.kernel_init = kernel_init
+        self.bias_init = float(bias_init)
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(
             features, in_features // groups, *self.kernel))
-        self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
-                     else None)
+        self.bias = (nn.Parameter(torch.full((features,), self.bias_init))
+                     if use_bias else None)
 
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
         with torch.no_grad():
-            variance_scaling_(self.weight, *INITIALIZERS[self.kernel_init],
-                              generator)
+            init_kernel_(self.weight, self.kernel_init, generator)
             if self.bias is not None:
-                self.bias.zero_()
+                self.bias.fill_(self.bias_init)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w = flax_cast(x, self.weight, self.dtype)
@@ -277,6 +307,86 @@ class Conv(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(y.dtype).view(1, -1, 1, 1)
         return y
+
+
+def conv_transpose_same_padding(kernel: int,
+                                stride: int) -> Tuple[int, int]:
+    """lax's SAME padding (lo, hi) of the stride-dilated input for a flax
+    ConvTranspose, one spatial dim."""
+    pad_len = kernel + stride - 2
+    lo = kernel - 1 if stride > kernel - 1 else -(-pad_len // 2)
+    return lo, pad_len - lo
+
+
+class ConvTranspose(nn.Module):
+    """flax `nn.ConvTranspose` (transpose_kernel=False, padding "SAME",
+    the models' only) over NCHW-indexed input: the output is the
+    correlation of the input, dilated by `strides` and padded by
+    `conv_transpose_same_padding`, with the kernel as it is; in x stride
+    outputs a dim. `weight` is (features, in_features, kh, kw), flax's
+    HWIO kernel permuted as a Conv's (convert.py maps both alike),
+    unflipped; `bias` (features,) with `use_bias`. The output is
+    channels_last."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel: Union[int, Tuple[int, int]] = 3,
+                 strides: Union[int, Tuple[int, int]] = 1,
+                 use_bias: bool = True, kernel_init: str = "lecun_normal"):
+        super().__init__()
+        self.kernel = pair(kernel)
+        self.strides = pair(strides)
+        self.pads = tuple(conv_transpose_same_padding(k, s)
+                          for k, s in zip(self.kernel, self.strides))
+        self.kernel_init = kernel_init
+        self.weight = nn.Parameter(torch.empty(features, in_features,
+                                               *self.kernel))
+        self.bias = (nn.Parameter(torch.zeros(features)) if use_bias
+                     else None)
+
+    def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
+        with torch.no_grad():
+            init_kernel_(self.weight, self.kernel_init, generator)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # out[y] = sum_t x[j] K[t] where y = j s + lo - t; conv_transpose2d
+        # sums over y = j s - p + t', so t' = k - 1 - t (the flip) and
+        # p = k - 1 - lo; its output is lo - hi longer than lax's (crop)
+        # or hi - lo shorter (output_padding, below the stride)
+        w = self.weight.transpose(0, 1).flip(2, 3)
+        (lo_h, hi_h), (lo_w, hi_w) = self.pads
+        y = F.conv_transpose2d(
+            x, w, self.bias, stride=self.strides,
+            padding=(self.kernel[0] - 1 - lo_h, self.kernel[1] - 1 - lo_w),
+            output_padding=(max(hi_h - lo_h, 0), max(hi_w - lo_w, 0)))
+        h = y.shape[2] - max(lo_h - hi_h, 0)
+        w_ = y.shape[3] - max(lo_w - hi_w, 0)
+        return y[:, :, :h, :w_].contiguous(memory_format=torch.channels_last)
+
+
+def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """`jnp.pad(mode="reflect")` of H and W by `pad` (edge not repeated)
+    on NCHW-indexed x, channels_last out."""
+    return F.pad(x, (pad, pad, pad, pad), mode="reflect").contiguous(
+        memory_format=torch.channels_last)
+
+
+def instance_norm(x: torch.Tensor, epsilon: float = 1e-5) -> torch.Tensor:
+    """Per-sample, per-channel `(x - mean) / sqrt(var + eps)` over H and
+    W, the population variance `mean((x - mean)^2)`, as jnp.mean and
+    jnp.var compute them (CycleGAN's `_Norm`, models/cyclegan.py:24-37
+    of the reference)."""
+    mean = x.mean(dim=(2, 3), keepdim=True)
+    var = torch.square(x - mean).mean(dim=(2, 3), keepdim=True)
+    return (x - mean) / torch.sqrt(var + epsilon)
+
+
+def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest 2x of H and W: output pixel (i, j) reads (i // 2, j // 2),
+    `jnp.repeat` twice (models/hourglass.py:70 of the reference)."""
+    return F.interpolate(x, scale_factor=2, mode="nearest").contiguous(
+        memory_format=torch.channels_last)
 
 
 class BatchNorm(nn.Module):
@@ -446,16 +556,18 @@ class DenseGeneral(nn.Module):
     `(..., *in_shape) -> (..., *features)`. The kernel is kept as one 2-D
     (prod(features), prod(in_shape)) `weight`, as `F.linear` takes it
     (convert.py flattens flax's (*in_shape, *features) kernel into it),
-    and the bias as (prod(features),). As `flax_cast` does, input and
+    and the bias, unless `use_bias` is False, as (prod(features),). As
+    `flax_cast` does, input and
     kernel are cast to `dtype` (default: their promotion), and the bias
     is added after the product, in the product's dtype, as flax adds
     it. `kernel_init` names an INITIALIZERS entry (flax's default:
-    lecun_normal), over the flattened fans."""
+    lecun_normal), over the flattened fans, or a NORMAL_INITIALIZERS
+    one."""
 
     def __init__(self, in_shape: Union[int, Sequence[int]],
                  features: Union[int, Sequence[int]],
                  dtype: Optional[torch.dtype] = None,
-                 kernel_init: str = "lecun_normal"):
+                 kernel_init: str = "lecun_normal", use_bias: bool = True):
         super().__init__()
         self.kernel_init = kernel_init
         self.in_shape = ((in_shape,) if isinstance(in_shape, int)
@@ -465,28 +577,32 @@ class DenseGeneral(nn.Module):
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(math.prod(self.features),
                                                math.prod(self.in_shape)))
-        self.bias = nn.Parameter(torch.zeros(math.prod(self.features)))
+        self.bias = (nn.Parameter(torch.zeros(math.prod(self.features)))
+                     if use_bias else None)
 
     def reset_parameters(self, generator: Optional[torch.Generator]) -> None:
         """`kernel_init` over the flattened fans, zero bias."""
         with torch.no_grad():
-            variance_scaling_(self.weight, *INITIALIZERS[self.kernel_init],
-                              generator)
-            self.bias.zero_()
+            init_kernel_(self.weight, self.kernel_init, generator)
+            if self.bias is not None:
+                self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:x.dim() - len(self.in_shape)]
         x, w = flax_cast(x.reshape(*lead, -1), self.weight, self.dtype)
-        y = F.linear(x, w) + self.bias.to(w.dtype)
+        y = F.linear(x, w)
+        if self.bias is not None:
+            y = y + self.bias.to(w.dtype)
         return y.reshape(*lead, *self.features)
 
 
 def Dense(in_features: int, features: int,
           dtype: Optional[torch.dtype] = None,
-          kernel_init: str = "lecun_normal") -> DenseGeneral:
+          kernel_init: str = "lecun_normal",
+          use_bias: bool = True) -> DenseGeneral:
     """flax `nn.Dense`: a DenseGeneral over the last axis."""
     return DenseGeneral(in_features, features, dtype=dtype,
-                        kernel_init=kernel_init)
+                        kernel_init=kernel_init, use_bias=use_bias)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
@@ -519,12 +635,13 @@ def calibrate_batch_stats(model: nn.Module, images: torch.Tensor) -> None:
 def reset_flax_parameters(model: nn.Module,
                           generator: Optional[torch.Generator]) -> None:
     """Draw every weight of `model` as flax initializes it, in module
-    order from `generator`: each Conv and Dense by its `kernel_init`
+    order from `generator`: each Conv, ConvTranspose and Dense by its
+    `kernel_init`
     with a zero bias, each BatchNorm at its init (running statistics 0 /
     1). Then the 4-D weights go to channels_last memory, so cuDNN's NHWC
     convolutions keep the activations channels_last end to end."""
     for m in model.modules():
-        if isinstance(m, (Conv, DenseGeneral)):
+        if isinstance(m, (Conv, ConvTranspose, DenseGeneral)):
             m.reset_parameters(generator)
         elif isinstance(m, BatchNorm):
             m.reset_parameters()

@@ -5,14 +5,19 @@ deep_vision_tpu/tools/convert.py for VOC, COCO and ImageNet:
         --split train|val|trainval|test --out-dir D [--num-shards 15]
     python -m deep_vision_tpu_torch.tools.convert coco --instances-json J \\
         --images-dir I --out-dir D [--prefix train] [--num-shards 64]
+    python -m deep_vision_tpu_torch.tools.convert mpii --json J \\
+        --images-dir I --out-dir D [--prefix train] [--num-shards 16]
     python -m deep_vision_tpu_torch.tools.convert imagenet --root R \\
         --synsets S --out-dir D [--prefix train] [--num-shards 1024]
+    python -m deep_vision_tpu_torch.tools.convert cyclegan --images-dir I \\
+        --out-dir D [--prefix trainA]
 
 Each subcommand takes `--workers N` (default: one process a shard, at
 most one a core). Shards are named `{prefix}_{i:04d}_of_{n:04d}.tfrecord`
-(VOC: the split is the prefix), which `train_cli`'s detection configs
-read as `D/train*` and `D/val*`. The reference's mpii, cyclegan, celeba,
-prepare-imagenet and imagenet_bboxes subcommands are not ported yet.
+(VOC: the split is the prefix), which `train_cli`'s records configs
+read as `D/train*` and `D/val*`; cyclegan writes one shard a domain
+folder. The reference's celeba, prepare-imagenet and imagenet_bboxes
+subcommands are not ported yet.
 """
 from __future__ import annotations
 
@@ -41,6 +46,13 @@ def main(argv=None) -> int:
     # MSCOCO/tfrecords.py:13-14: 64 train / 8 val shards
     coco.add_argument("--num-shards", type=int, default=64)
 
+    mpii = sub.add_parser("mpii", help="MPII preprocessed json -> records")
+    mpii.add_argument("--json", required=True)
+    mpii.add_argument("--images-dir", required=True)
+    mpii.add_argument("--out-dir", required=True)
+    mpii.add_argument("--prefix", default="train")
+    mpii.add_argument("--num-shards", type=int, default=16)
+
     imagenet = sub.add_parser("imagenet", help="flattened ImageNet -> records")
     imagenet.add_argument("--root", required=True)
     imagenet.add_argument("--synsets", required=True)
@@ -49,7 +61,12 @@ def main(argv=None) -> int:
     # build_imagenet_tfrecord.py:104-160: 1024 train / 128 val shards
     imagenet.add_argument("--num-shards", type=int, default=1024)
 
-    for sp in (voc, coco, imagenet):
+    cyc = sub.add_parser("cyclegan", help="image folder -> one record file")
+    cyc.add_argument("--images-dir", required=True)
+    cyc.add_argument("--out-dir", required=True)
+    cyc.add_argument("--prefix", default="trainA")
+
+    for sp in (voc, coco, mpii, imagenet, cyc):
         sp.add_argument("--workers", type=int, default=None)
     args = p.parse_args(argv)
 
@@ -61,10 +78,18 @@ def main(argv=None) -> int:
         annos = C.coco_annotations(args.instances_json, args.images_dir)
         C.build_shards(annos, C.detection_example, args.out_dir, args.prefix,
                        args.num_shards, num_workers=args.workers)
-    else:
+    elif args.dataset == "mpii":
+        annos = C.mpii_annotations(args.json, args.images_dir)
+        C.build_shards(annos, C.mpii_example, args.out_dir, args.prefix,
+                       args.num_shards, num_workers=args.workers)
+    elif args.dataset == "imagenet":
         annos = C.imagenet_annotations(args.root, args.synsets)
         C.build_shards(annos, C.imagenet_example, args.out_dir, args.prefix,
                        args.num_shards, num_workers=args.workers)
+    else:
+        annos = C.cyclegan_examples(args.images_dir)
+        C.build_shards(annos, C.image_only_example, args.out_dir,
+                       args.prefix, num_shards=1, num_workers=args.workers)
     return 0
 
 

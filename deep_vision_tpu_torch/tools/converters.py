@@ -1,7 +1,8 @@
 """Dataset -> sharded record conversion, the port of
-deep_vision_tpu/tools/converters.py:43-215 and :498-565: the VOC, COCO
-and ImageNet converters, with the reference's field names, so shards
-interoperate both ways, written through the port's `RecordWriter`.
+deep_vision_tpu/tools/converters.py:43-273 and :498-584: the VOC, COCO,
+MPII, ImageNet and CycleGAN converters, with the reference's field
+names, so shards interoperate both ways, written through the port's
+`RecordWriter`.
 
 - VOC: XML parse and a normalized-bbox Example (Datasets/VOC2007/
   tfrecords.py:38-95, 124-155), splits from ImageSets/Main (:163-175).
@@ -9,11 +10,14 @@ interoperate both ways, written through the port's `RecordWriter`.
   (Datasets/MSCOCO/tfrecords.py:135+), the same Example.
 - ImageNet: the synset label from the flattened file name and a label
   Example (Datasets/ILSVRC2012/build_imagenet_tfrecord.py:184+).
+- MPII: a preprocessed people JSON -> keypoint Examples
+  (Datasets/MPII/tfrecords_mpii.py:65-84).
+- CycleGAN: a domain folder's images -> image-only Examples.
 
 Shards are written by `multiprocessing.Pool` workers started with
 `spawn` (forking a process that runs threads can deadlock), one shard a
-chunk. The MPII, CelebA/CycleGAN, ImageNet-preparation and bbox-CSV
-converters are not ported yet.
+chunk. The CelebA split, ImageNet preparation and bbox-CSV converters
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -257,3 +261,67 @@ def imagenet_example(anno: dict) -> Optional[dict]:
         "image/encoded": [content],
     }
     return ex
+
+
+# -- MPII -----------------------------------------------------------------
+
+def mpii_annotations(json_path: str, images_dir: str) -> List[dict]:
+    """Preprocessed MPII train/validation.json (a list of people:
+    `image`, `joints` [[x, y]] * 16 in pixels, `joints_vis`, optional
+    `center` and `scale`), the input Datasets/MPII/tfrecords_mpii.py
+    reads."""
+    with open(json_path) as f:
+        people = json.load(f)
+    return [{"filename": p["image"],
+             "filepath": os.path.join(images_dir, p["image"]),
+             "joints": p["joints"], "joints_vis": p["joints_vis"],
+             # the person scale (x 200 px = body height) drives CropRoi;
+             # optional in older preprocessed jsons
+             "center": p.get("center"), "scale": p.get("scale")}
+            for p in people]
+
+
+def mpii_example(anno: dict) -> Optional[dict]:
+    """Keypoint Example (tfrecords_mpii.py:65-84): x and y normalised by
+    the decoded image's width and height, the visibility, the person
+    scale and, normalised, its centre where the annotation has them."""
+    from deep_vision_tpu_torch.data.datasets import decode_image
+
+    with open(anno["filepath"], "rb") as f:
+        content = f.read()
+    h, w = decode_image(content).shape[:2]
+    ex = {
+        "image/height": [h],
+        "image/width": [w],
+        "image/person/keypoints/x": [float(j[0]) / w for j in anno["joints"]],
+        "image/person/keypoints/y": [float(j[1]) / h for j in anno["joints"]],
+        "image/person/keypoints/visibility": [int(v) for v in
+                                              anno["joints_vis"]],
+        "image/encoded": [content],
+        "image/filename": [anno["filename"].encode()],
+    }
+    if anno.get("scale") is not None:
+        ex["image/person/scale"] = [float(anno["scale"])]
+    if anno.get("center") is not None:
+        cx, cy = anno["center"]
+        ex["image/person/center/x"] = [float(cx) / w]
+        ex["image/person/center/y"] = [float(cy) / h]
+    return ex
+
+
+# -- CycleGAN ---------------------------------------------------------------
+
+def cyclegan_examples(images_dir: str) -> List[dict]:
+    """Image-only annotations for one domain folder, sorted by name
+    (CycleGAN/tensorflow/tfrecords.py): .jpg, .jpeg and .png files."""
+    return [{"filepath": os.path.join(images_dir, n), "filename": n}
+            for n in sorted(os.listdir(images_dir))
+            if n.lower().endswith((".jpg", ".jpeg", ".png"))]
+
+
+def image_only_example(anno: dict) -> Optional[dict]:
+    """The file's bytes as they are, and its name."""
+    with open(anno["filepath"], "rb") as f:
+        content = f.read()
+    return {"image/encoded": [content],
+            "image/filename": [anno["filename"].encode()]}

@@ -5,8 +5,8 @@ the card.
         [--records DIR]
 
 NAME is `resnet50` (the default), `vit_s16` or any other registered
-classification or detection config (`lenet5`, `vmoe_s16`,
-`yolov3_coco`, ...).
+config (`lenet5`, `vmoe_s16`, `yolov3_coco`, `hourglass_mpii`,
+`centernet_coco`, `dcgan_mnist`, `cyclegan`, ...).
 
 `make_train_parts` is the port of bench.py:432-498: ResNet-50 with the
 space-to-depth stem, 1000 classes, bf16 convolutions, softmax cross
@@ -29,6 +29,14 @@ batch, float32, optimizer and schedule (`build_trainer`), on the CLI's
 seeded fake batch, under the CLI's precision (PyTorch's defaults: cuDNN
 TF32 on, matmuls float32). Its groups are ResNet-50's (a ViT's: the
 flash and LayerNorm groups).
+
+`make_gan_parts` is a GAN config as `train_cli` builds it
+(`build_gan_trainer`) and a step on its seeded fake batch: DCGAN's
+whole batch of 256, CycleGAN's one A and one B image. Its groups are
+ResNet-50's and `gan_pool`: what runs inside CycleGAN's host image-pool
+query (train/gan.py `GAN_POOL_RANGE`: the fakes' copy to the host and
+the pooled batch's copy back; the host time there is printed with the
+other ranges).
 
 `make_record_loader` is the fed ResNet step's input: record shards
 (tools/synth_records.py) through a `RecordDataset`, the reference's
@@ -90,6 +98,7 @@ from deep_vision_tpu_torch.obs.registry import get_registry
 from deep_vision_tpu_torch.models import get_model
 from deep_vision_tpu_torch.nn.layers import BN_STATS_RANGE, LAYERNORM_RANGE
 from deep_vision_tpu_torch.train import Trainer, build_optimizer
+from deep_vision_tpu_torch.train.gan import GAN_POOL_RANGE
 from deep_vision_tpu_torch.train.optimizers import make_schedule
 from deep_vision_tpu_torch.tools.synth_records import raw_schema
 
@@ -138,6 +147,13 @@ class Grouping(NamedTuple):
 
 RESNET_GROUPING = Grouping({**BN_ACT_KERNELS, **BN_STATS_KERNELS},
                            {BN_STATS_RANGE: "bn_stats"}, "conv", GROUPS)
+#: the GAN configs: ResNet's groups and `gan_pool`, the kernels and copies
+#: inside CycleGAN's host image-pool query (train/gan.py GAN_POOL_RANGE:
+#: the fakes to the host and the pooled batch back)
+GAN_GROUPING = Grouping({**BN_ACT_KERNELS, **BN_STATS_KERNELS},
+                        {BN_STATS_RANGE: "bn_stats",
+                         GAN_POOL_RANGE: "gan_pool"}, "conv",
+                        GROUPS[:-1] + ("gan_pool", "other"))
 VIT_GROUPING = Grouping({**FLASH_KERNELS, **LAYERNORM_KERNELS},
                         {LAYERNORM_RANGE: "layernorm"}, "matmul", VIT_GROUPS)
 STEPS = 5
@@ -198,6 +214,29 @@ def make_zoo_parts(name: str, device: DeviceLike = None):
     host = FAKE_DATA[cfg.task](cfg, 1)[0]
     trainer = build_trainer(cfg, lambda: [host], None, device=dev)
     return trainer, {k: torch.as_tensor(v).to(dev) for k, v in host.items()}
+
+
+def make_gan_parts(name: str, device: DeviceLike = None):
+    """(trainer, step): a registered GAN config (`dcgan_mnist`,
+    `cyclegan`) through train_cli's `build_gan_trainer`, and a function
+    that takes one step on its first seeded fake batch on the trainer's
+    device: DCGAN the whole batch, CycleGAN one A and one B image (the
+    reference's feed; its registered batch of 1 leaves the CLI's B half
+    empty)."""
+    import dataclasses
+
+    from deep_vision_tpu_torch.configs import get_config
+    from deep_vision_tpu_torch.train_cli import FAKE_DATA, build_gan_trainer
+
+    dev = resolve_device(device)
+    cfg = get_config(name)
+    if name == "cyclegan":
+        cfg = dataclasses.replace(cfg, batch_size=2)
+    images = torch.as_tensor(FAKE_DATA[cfg.task](cfg, 1)[0]["image"]).to(dev)
+    trainer = build_gan_trainer(cfg, device=dev)
+    if name == "cyclegan":
+        return trainer, lambda: trainer.train_step(images[:1], images[1:2])
+    return trainer, lambda: trainer.train_step(images)
 
 
 def imagenet_train_transform(rescale: Optional[int] = 256) -> Compose:
@@ -369,6 +408,8 @@ def main() -> None:
     from deep_vision_tpu_torch.models.vit import ViT
     from deep_vision_tpu_torch.train_cli import FAKE_DATA
 
+    from deep_vision_tpu_torch.train_cli import GAN_TASKS
+
     own = ("resnet50", "vit_s16")  # the flagship steps above
     registered = tuple(name for name, cfg in CONFIG_REGISTRY.items()
                        if cfg.task in FAKE_DATA and name not in own)
@@ -379,10 +420,20 @@ def main() -> None:
                         help="feed the ResNet step from the record shards "
                              "in DIR (tools/synth_records.py, raw)")
     args = parser.parse_args()
+    gan_step = None
     if args.model == "vit_s16":
         trainer, batch = make_vit_train_parts()
         grouping = VIT_GROUPING
         label = f"ViT-S/16 {VIT_IMAGE_SIZE} bf16 batch {VIT_BATCH_PER_CHIP}"
+    elif CONFIG_REGISTRY.get(args.model) and \
+            CONFIG_REGISTRY[args.model].task in GAN_TASKS:
+        trainer, gan_step = make_gan_parts(args.model)
+        n_images = 2 if args.model == "cyclegan" else \
+            CONFIG_REGISTRY[args.model].batch_size
+        batch = {"image": torch.empty(n_images)}  # images a step
+        grouping = GAN_GROUPING
+        label = (f"{args.model} float32, {n_images} images a step (the "
+                 f"registered config)")
     elif args.model in registered:
         trainer, batch = make_zoo_parts(args.model)
         grouping = (VIT_GROUPING if isinstance(trainer.model, ViT)
@@ -395,6 +446,12 @@ def main() -> None:
         grouping = RESNET_GROUPING
         label = f"ResNet-50 s2d bf16 batch {BATCH_PER_CHIP}"
     n = len(batch["image"])
+
+    def take_step(item):
+        if gan_step is not None:
+            return gan_step()
+        return trainer.train_step(item)
+
     if args.records:
         if args.model != "resnet50":
             parser.error("--records feeds the ResNet step")
@@ -417,11 +474,11 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     for _ in range(3):
-        trainer.train_step(next_batch())
+        take_step(next_batch())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(STEPS):
-        trainer.train_step(next_batch())
+        take_step(next_batch())
     torch.cuda.synchronize()
     queued_ms = (time.perf_counter() - t0) * 1e3 / STEPS
     walls = []
@@ -429,7 +486,7 @@ def main() -> None:
         item = next_batch()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        trainer.train_step(item)
+        take_step(item)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall_ms = statistics.median(walls)
@@ -438,7 +495,7 @@ def main() -> None:
         item = next_batch()
         torch.cuda.synchronize()
         t0, c0 = time.perf_counter(), time.thread_time()
-        trainer.train_step(item)
+        take_step(item)
         enqueue.append((time.perf_counter() - t0) * 1e3)
         cpu.append((time.thread_time() - c0) * 1e3)
     torch.cuda.synchronize()
@@ -447,7 +504,7 @@ def main() -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(STEPS):
-            trainer.train_step(next_batch())
+            take_step(next_batch())
         torch.cuda.synchronize()
     events = prof.events()
     named = kernels_by_group(events, grouping)

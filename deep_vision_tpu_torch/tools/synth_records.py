@@ -2,7 +2,7 @@
 
     python -m deep_vision_tpu_torch.tools.synth_records DIR [--count 2048]
         [--size 256] [--shards 8] [--encoding raw|jpeg] [--seed 0]
-        [--schema imagenet|coco|voc]
+        [--schema imagenet|coco|voc|mpii|image_only]
 
 With the default `imagenet` schema it writes `DIR/train-0000i-of-0000k`:
 `count` uniform-noise uint8 RGB images of `size` x `size` from
@@ -19,6 +19,18 @@ and ImageSets split lists), `count` train and `count // 4` val images of
 `DIR/train_*.tfrecord` and `DIR/val_*.tfrecord`, the files the detection
 configs read. Each image is noise with 1-4 filled rectangles, each in
 its class's colour, and the boxes are those rectangles.
+
+With `mpii` it writes a seeded MPII-layout tree under `DIR/tree`
+(`write_synth_mpii`: JPEG files of `size` x `size * 5 // 4` and a
+preprocessed people JSON, 16 joints in pixels inside a person box, a
+fifth of them unlabelled at (-1, -1) with visibility 0, the person's
+centre and scale, box height / 200), `count` train and `count // 4` val
+people, converted into `DIR/train_*.tfrecord` and `DIR/val_*.tfrecord`
+(the pose config's records). With `image_only` it writes image folders
+`DIR/tree/trainA`, `trainB` (`count` JPEGs each) and `val` (`count //
+4`), converted one record file a folder into `DIR/trainA_*`,
+`DIR/trainB_*` and `DIR/val_*` (CycleGAN's records; its config reads
+`train*`, A and B together, and splits each batch in halves).
 
 Two encodings:
 
@@ -235,6 +247,112 @@ def write_synth_box_records(directory: str, schema: str, count: int = 256,
     return paths
 
 
+#: MPII's 16 joints (r ankle ... l wrist), as (x, y) fractions of a
+#: standing person's box: the synthetic people stand in this pose,
+#: jittered
+MPII_POSE = ((0.35, 0.98), (0.38, 0.75), (0.42, 0.52), (0.58, 0.52),
+             (0.62, 0.75), (0.65, 0.98), (0.5, 0.5), (0.5, 0.28),
+             (0.5, 0.18), (0.5, 0.02), (0.2, 0.5), (0.28, 0.4),
+             (0.38, 0.22), (0.62, 0.22), (0.72, 0.4), (0.8, 0.5))
+
+
+def write_synth_mpii(root: str, split: str, count: int, size: int = 256,
+                     seed: int = 0):
+    """A seeded MPII-layout tree: `root/images/*.jpg` (noise with a
+    person box and a dot on each labelled joint) and `root/<split>.json`,
+    one person an image. -> (the JSON's path, the images' directory)."""
+    rng = np.random.default_rng(seed)
+    images_dir = os.path.join(root, "images")
+    os.makedirs(images_dir, exist_ok=True)
+    height, width = size, size * 5 // 4
+    people = []
+    for i in range(count):
+        image = rng.integers(0, 256, (height, width, 3), dtype=np.uint8)
+        bh = float(rng.uniform(0.5, 0.9) * height)
+        bw = bh * 0.5
+        x0 = float(rng.uniform(0, width - bw))
+        y0 = float(rng.uniform(0, height - bh))
+        image[int(y0):int(y0 + bh), int(x0):int(x0 + bw)] //= 2
+        vis = (rng.random(len(MPII_POSE)) >= 0.2).astype(int)
+        joints = []
+        for (fx, fy), v in zip(MPII_POSE, vis):
+            x = x0 + (fx + rng.normal(0, 0.03)) * bw
+            y = y0 + (fy + rng.normal(0, 0.02)) * bh
+            x = float(np.clip(x, 0, width - 1))
+            y = float(np.clip(y, 0, height - 1))
+            if v:
+                image[max(int(y) - 2, 0):int(y) + 3,
+                      max(int(x) - 2, 0):int(x) + 3] = 255
+                joints.append([x, y])
+            else:
+                joints.append([-1.0, -1.0])
+        name = f"{seed:04d}{i:08d}.jpg"
+        with open(os.path.join(images_dir, name), "wb") as f:
+            f.write(encode_jpeg(image))
+        people.append({"image": name, "joints": joints,
+                       "joints_vis": vis.tolist(),
+                       "center": [x0 + bw / 2, y0 + bh / 2],
+                       "scale": bh / 200.0})
+    path = os.path.join(root, f"{split}.json")
+    with open(path, "w") as f:
+        json.dump(people, f)
+    return path, images_dir
+
+
+def write_synth_image_folder(folder: str, count: int, size: int = 256,
+                             seed: int = 0) -> List[str]:
+    """`count` seeded `size` x `size` noise JPEGs in `folder`, each with a
+    filled rectangle. -> their paths."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(folder, exist_ok=True)
+    paths = []
+    for i in range(count):
+        image, _, _ = box_image(rng, size, size, 8)
+        path = os.path.join(folder, f"{seed:04d}{i:08d}.jpg")
+        with open(path, "wb") as f:
+            f.write(encode_jpeg(image))
+        paths.append(path)
+    return paths
+
+
+def write_synth_pose_records(directory: str, count: int = 256,
+                             size: int = 256, shards: int = 2,
+                             seed: int = 0) -> List[str]:
+    """`count` train and `count // 4` val people as MPII trees under
+    `directory/tree`, converted into `directory/train_*` and
+    `directory/val_*` keypoint records. -> the shard paths."""
+    from deep_vision_tpu_torch.tools import converters as C
+
+    paths = []
+    for split, n, split_seed in (("train", count, seed),
+                                 ("val", count // 4, seed + 1)):
+        js, images = write_synth_mpii(os.path.join(directory, "tree", split),
+                                      split, n, size, seed=split_seed)
+        paths += C.build_shards(C.mpii_annotations(js, images),
+                                C.mpii_example, directory, split, shards,
+                                num_workers=1)
+    return paths
+
+
+def write_synth_image_only_records(directory: str, count: int = 256,
+                                   size: int = 256,
+                                   seed: int = 0) -> List[str]:
+    """Image folders trainA and trainB (`count` each) and val (`count //
+    4`) under `directory/tree`, each converted into one image-only record
+    file `directory/<folder>_0000_of_0001.tfrecord`. -> the paths."""
+    from deep_vision_tpu_torch.tools import converters as C
+
+    paths = []
+    for i, (folder, n) in enumerate((("trainA", count), ("trainB", count),
+                                     ("val", count // 4))):
+        images = os.path.join(directory, "tree", folder)
+        write_synth_image_folder(images, n, size, seed=seed + i)
+        paths += C.build_shards(C.cyclegan_examples(images),
+                                C.image_only_example, directory, folder,
+                                num_shards=1, num_workers=1)
+    return paths
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("directory")
@@ -243,9 +361,22 @@ def main() -> None:
     parser.add_argument("--shards", type=int, default=8)
     parser.add_argument("--encoding", choices=("raw", "jpeg"), default="raw")
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--schema", choices=("imagenet", "coco", "voc"),
+    parser.add_argument("--schema", choices=("imagenet", "coco", "voc",
+                                             "mpii", "image_only"),
                         default="imagenet")
     args = parser.parse_args()
+    if args.schema == "mpii":
+        paths = write_synth_pose_records(args.directory, args.count,
+                                         args.size, args.shards, args.seed)
+        print(f"wrote {args.count} + {args.count // 4} mpii keypoint "
+              f"records in {len(paths)} shards under {args.directory}")
+        return
+    if args.schema == "image_only":
+        paths = write_synth_image_only_records(args.directory, args.count,
+                                               args.size, args.seed)
+        print(f"wrote 2 x {args.count} + {args.count // 4} image-only "
+              f"records in {len(paths)} files under {args.directory}")
+        return
     if args.schema != "imagenet":
         paths = write_synth_box_records(args.directory, args.schema,
                                         args.count, args.size, args.shards,

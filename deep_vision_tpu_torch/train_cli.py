@@ -3,15 +3,19 @@
     python -m deep_vision_tpu_torch.train_cli -m resnet50 --data-dir D \\
         --ckpt-dir C [-c auto|DIR] [--epochs N] [--device cuda|cpu]
 
-trains a registered config (configs/__init__.py) and evaluates it every
-epoch. Classification reads ImageNet-layout records `D/tfrecord_train/*`
+trains a registered config (configs/__init__.py), every one of them, and
+evaluates it every epoch where the task has a Trainer.
+Classification reads ImageNet-layout records `D/tfrecord_train/*`
 and `D/tfrecord_val/*` (the flattened-folder layout `D/train_flatten`,
 `D/val_flatten` where no train records exist; MNIST idx files
 `D/train-images-idx3-ubyte`, `D/train-labels-idx1-ubyte`,
 `D/t10k-images-idx3-ubyte` and `D/t10k-labels-idx1-ubyte` for the
-`mnist` kind of lenet5). Detection (`yolov3_coco`, `yolov3_voc`) reads
-box records `D/train*` and `D/val*` in the config's schema, as
-`python -m deep_vision_tpu_torch.tools.convert voc|coco` writes them.
+`mnist` kind of lenet5 and dcgan_mnist). Every `records` config reads
+`D/train*` and `D/val*` in its schema: detection (`yolov3_coco`,
+`yolov3_voc`) and CenterNet (`centernet_coco`) box records as
+`python -m deep_vision_tpu_torch.tools.convert voc|coco` writes them,
+pose (`hourglass_mpii`) MPII keypoint records (`convert mpii`) and
+CycleGAN's image-only records (`convert cyclegan`).
 `--fake-data` takes the reference's seeded fake batches instead. It
 runs the config's optimizer, schedule or plateau, a checkpoint
 with its crc32c sidecar after each epoch, a SIGTERM save at the next
@@ -21,19 +25,25 @@ the step counter, the plateau, the loggers and, with `--data-snapshot`,
 the batch stream. `--eval-only` evaluates a checkpoint: loss and top-k
 for classification; for detection, mAP@.5 and mAP@[.5:.95] over the
 val split through the YOLO detector at score 0.1, whose NMS runs on the
-card. It runs on the card unless `--device cpu` is given, and raises
-without one.
+card, and for CenterNet through its peak decode; for pose, PCKh@0.5
+where the records carry head sizes, else PCK@0.05 of the image side.
+The GAN tasks (`dcgan_mnist`, `cyclegan`) train through their own
+trainers (train/gan.py) as the reference's GAN branch does: per-epoch
+means of the G and D losses, a checkpoint of every sub-network each
+epoch (DCGAN, the newest 3 kept) or every 2 (CycleGAN), `-c` resuming
+at the next epoch, a SIGTERM save that re-runs the interrupted epoch;
+they refuse `--eval-only` and `--data-snapshot`. CycleGAN splits each
+batch into its A and B halves; at its registered batch of 1 the B half
+is empty and the image pool raises, as in the reference. It runs on the
+card unless `--device cpu` is given, and raises without one.
 
-Ported: `model_input_shape`, `_fake_classification`, `_fake_detection`,
-`build_dataloaders` (fake, mnist, imagenet, and the records kind of the
-detection task, with both `--preprocessing` chains and the s2d host
-transform), `_steps_per_epoch`, `_build_schedule`, `build_trainer` and
-`run_eval_only` for the classification and detection tasks, and `main`
-with the flags below. Every other reference flag is unknown here, so
-argparse fails on it loudly; the pose, centernet, dcgan and cyclegan
-tasks, the GAN trainers and the requeue exit code after a preemption are
-not ported yet. Every registered classification and detection config
-trains.
+Ported: `model_input_shape`, the fake-data makers, `build_dataloaders`
+(fake, mnist, imagenet, and the records kind of every task, with both
+`--preprocessing` chains and the s2d host transform), `_steps_per_epoch`,
+`_build_schedule`, `build_trainer`, `build_gan_trainer`,
+`run_eval_only` and `main` with the flags below. Every other reference
+flag is unknown here, so argparse fails on it loudly; the requeue exit
+code after a preemption is not ported yet.
 
 Float32 precision: the CLI keeps PyTorch's defaults, which no registered
 config overrides, and prints them at start-up: cuDNN convolutions may
@@ -109,9 +119,59 @@ def _fake_detection(cfg: ExperimentConfig, n_batches: int,
     return out
 
 
-#: the fake-data makers of the ported tasks
+def _fake_pose(cfg: ExperimentConfig, n_batches: int, hm_size: int = 64):
+    """The reference's seeded fake pose batches: uniform keypoints, all
+    visible, their heatmaps, and uniform images."""
+    from deep_vision_tpu_torch.data.labels import make_pose_heatmaps
+
+    rng = np.random.RandomState(0)
+    h, w, c = cfg.input_shape
+    out = []
+    for _ in range(n_batches):
+        hms, kps, viss = [], [], []
+        for _b in range(cfg.batch_size):
+            s = {"keypoints": rng.rand(cfg.num_classes, 2).astype(
+                     np.float32),
+                 "visibility": np.ones((cfg.num_classes,), np.float32)}
+            hms.append(make_pose_heatmaps(s, size=hm_size,
+                                          num_joints=cfg.num_classes)[
+                                              "heatmap"])
+            kps.append(s["keypoints"])
+            viss.append(s["visibility"])
+        out.append({"image": rng.rand(cfg.batch_size, h, w, c).astype(
+                        np.float32),
+                    "heatmap": np.stack(hms), "keypoints": np.stack(kps),
+                    "visibility": np.stack(viss)})
+    return out
+
+
+def _fake_centernet(cfg: ExperimentConfig, n_batches: int):
+    """The fake detection batches with their CenterNet targets at a
+    quarter of the input; the raw boxes ride along for --eval-only."""
+    from deep_vision_tpu_torch.data.labels import make_centernet_targets
+
+    out_size = cfg.input_shape[0] // 4
+    out = []
+    for batch in _fake_detection(cfg, n_batches):
+        tgts = [make_centernet_targets(
+            {"boxes": batch["boxes"][b], "classes": batch["classes"][b]},
+            out_size=out_size, num_classes=cfg.num_classes)
+            for b in range(len(batch["image"]))]
+        out.append({"image": batch["image"], "boxes": batch["boxes"],
+                    "classes": batch["classes"],
+                    **{k: np.stack([t[k] for t in tgts])
+                       for k in ("heatmap", "wh", "offset", "mask")}})
+    return out
+
+
+#: the fake-data makers by task (the GANs take the classification
+#: batches' images)
 FAKE_DATA = {"classification": _fake_classification,
-             "detection": _fake_detection}
+             "detection": _fake_detection,
+             "pose": _fake_pose,
+             "centernet": _fake_centernet,
+             "dcgan": _fake_classification,
+             "cyclegan": _fake_classification}
 
 
 def imagenet_transforms(cfg: ExperimentConfig, preprocessing: str = "torch"):
@@ -150,21 +210,16 @@ def build_dataloaders(cfg: ExperimentConfig, data_dir: str, fake: bool,
                       preprocessing: str = "torch", num_procs: int = 0):
     """(train_fn, eval_fn) thunks yielding batch dicts per epoch: the
     reference's fake batches, its ImageNet records (folder where
-    `tfrecord_train` holds no shard), MNIST, or a detection config's box
-    records, through the port's data layer."""
+    `tfrecord_train` holds no shard), MNIST, or a records config's
+    shards (`records_dataloaders`), through the port's data layer."""
     if fake or cfg.dataset.get("kind") == "fake":
-        if cfg.task not in FAKE_DATA:
-            raise NotImplementedError(
-                f"fake {cfg.task} data is not ported yet")
         data = FAKE_DATA[cfg.task](cfg, fake_batches)
         return (lambda: data), (lambda: data)
     kind = cfg.dataset["kind"]
     if kind == "records":
-        return detection_dataloaders(cfg, data_dir, num_workers, num_procs)
+        return records_dataloaders(cfg, data_dir, num_workers, num_procs)
     if kind not in ("imagenet", "mnist"):
-        raise NotImplementedError(
-            f"dataset kind {kind!r} is not ported yet (imagenet, mnist, "
-            f"records and fake are)")
+        raise ValueError(f"unknown dataset kind {kind!r}")
     from deep_vision_tpu_torch.data import (
         DataLoader,
         MnistDataset,
@@ -209,26 +264,51 @@ def build_dataloaders(cfg: ExperimentConfig, data_dir: str, fake: bool,
     return (lambda: train), (lambda: evl)
 
 
-def detection_dataloaders(cfg: ExperimentConfig, data_dir: str,
-                          num_workers: int, num_procs: int = 0):
-    """The records kind for the detection task (train_cli.py:245-300):
-    `train_glob` / `val_glob` (default train*, val*) under `data_dir` in
-    the config's schema; the train chain flips, crops around the boxes,
-    resizes to the input, scales to [0, 1] and pads the boxes to 100;
-    the eval chain only resizes, scales and pads. Partial batches are
+def records_dataloaders(cfg: ExperimentConfig, data_dir: str,
+                        num_workers: int, num_procs: int = 0):
+    """The records kind (train_cli.py:245-300): `train_glob` /
+    `val_glob` (default train*, val*) under `data_dir` in the config's
+    schema, through the task's chains. Detection: flip, crop around the
+    boxes, resize, scale to [0, 1], pad the boxes to 100 (eval: resize,
+    scale, pad). Pose: the keypoint-driven person crop with a margin
+    drawn from [0.1, 0.3) (eval: 0.2), the MPII left/right-swapping flip,
+    resize, scale and the 64x64 heatmaps. CenterNet: flip, resize, scale,
+    pad and the targets at a quarter of the input (eval: no flip). Any
+    other task (the GANs' image-only records): resize and scale to
+    [-1, 1], the same chain for both splits. Partial batches are
     dropped."""
-    if cfg.task != "detection":
-        raise NotImplementedError(
-            f"the records kind for task {cfg.task!r} is not ported yet "
-            f"(detection is)")
     from deep_vision_tpu_torch.data import Compose, DataLoader, RecordDataset
     from deep_vision_tpu_torch.data import transforms as T
+    from deep_vision_tpu_torch.data.labels import (
+        MakeCenternetTargets,
+        MakePoseHeatmaps,
+    )
 
     size = cfg.input_shape[0]
     schema = cfg.dataset["schema"]
-    train_chain = [T.RandomHorizontalFlip(), T.RandomCropWithBoxes(),
-                   T.Resize(size), T.ToFloat(), T.PadBoxes(100)]
-    eval_chain = [T.Resize(size), T.ToFloat(), T.PadBoxes(100)]
+    if cfg.task == "detection":
+        train_chain = [T.RandomHorizontalFlip(), T.RandomCropWithBoxes(),
+                       T.Resize(size), T.ToFloat(), T.PadBoxes(100)]
+        eval_chain = [T.Resize(size), T.ToFloat(), T.PadBoxes(100)]
+    elif cfg.task == "pose":
+        train_chain = [T.CropRoi(margin=(0.1, 0.3)),
+                       T.RandomHorizontalFlip(
+                           keypoint_swap_pairs=T.MPII_FLIP_PAIRS),
+                       T.Resize(size), T.ToFloat(),
+                       MakePoseHeatmaps(num_joints=cfg.num_classes)]
+        eval_chain = [T.CropRoi(margin=0.2), T.Resize(size), T.ToFloat(),
+                      MakePoseHeatmaps(num_joints=cfg.num_classes)]
+    elif cfg.task == "centernet":
+        targets = MakeCenternetTargets(size // 4, cfg.num_classes)
+        train_chain = [T.RandomHorizontalFlip(), T.Resize(size),
+                       T.ToFloat(), T.PadBoxes(100), targets]
+        eval_chain = [T.Resize(size), T.ToFloat(), T.PadBoxes(100),
+                      targets]
+    else:  # image_only (GANs): scale to [-1, 1]
+        train_chain = [T.Resize(size), T.ToFloat(),
+                       T.Normalize(mean=[0.5] * cfg.input_shape[2],
+                                   std=[0.5] * cfg.input_shape[2])]
+        eval_chain = train_chain
     train_ds = RecordDataset(
         os.path.join(data_dir, cfg.dataset.get("train_glob", "train*")),
         schema, shuffle_shards=True)
@@ -284,14 +364,17 @@ def build_trainer(cfg: ExperimentConfig, train_fn, ckpt_dir: Optional[str],
                   opt_state_dtype: Optional[str] = None, data_loader=None,
                   steps_per_epoch: Optional[int] = None,
                   device: DeviceLike = None):
-    """The reference's build_trainer for the classification and detection
-    tasks, on `device` (default cuda, raising without a card). Detection
-    trains on `yolo_train_loss_fn` with the grids of the input size
-    (s/32, s/16, s/8)."""
+    """The reference's build_trainer, on `device` (default cuda, raising
+    without a card). Detection trains on `yolo_train_loss_fn` with the
+    grids of the input size (s/32, s/16, s/8), pose on
+    `hourglass_loss_fn`, CenterNet on `centernet_loss_fn`; the GAN tasks
+    raise ValueError (`build_gan_trainer` builds theirs)."""
     from deep_vision_tpu_torch.core.checkpoint import CheckpointManager
     from deep_vision_tpu_torch.core.metrics import MetricLogger
     from deep_vision_tpu_torch.losses import (
+        centernet_loss_fn,
         classification_loss_fn,
+        hourglass_loss_fn,
         yolo_train_loss_fn,
     )
     from deep_vision_tpu_torch.obs.registry import get_registry
@@ -299,10 +382,9 @@ def build_trainer(cfg: ExperimentConfig, train_fn, ckpt_dir: Optional[str],
     from deep_vision_tpu_torch.train.optimizers import ReduceLROnPlateau
 
     dev = resolve_device(device)
-    if cfg.task not in ("classification", "detection"):
-        raise NotImplementedError(
-            f"task {cfg.task!r} is not ported yet (classification and "
-            f"detection are)")
+    if cfg.task in GAN_TASKS:
+        raise ValueError(f"task {cfg.task!r} uses a GAN trainer, not "
+                         f"Trainer")
     steps = (steps_per_epoch if steps_per_epoch is not None
              else _steps_per_epoch(cfg, train_fn))
     opt_kw = dict(cfg.optimizer)
@@ -319,8 +401,10 @@ def build_trainer(cfg: ExperimentConfig, train_fn, ckpt_dir: Optional[str],
             yolo_train_loss_fn, grid_sizes=(size // 32, size // 16, size // 8),
             num_classes=cfg.num_classes, **cfg.loss_kwargs)
     else:
-        loss_fn = functools.partial(classification_loss_fn,
-                                    **cfg.loss_kwargs)
+        loss_fn = functools.partial(
+            {"classification": classification_loss_fn,
+             "pose": hourglass_loss_fn,
+             "centernet": centernet_loss_fn}[cfg.task], **cfg.loss_kwargs)
     plateau = ReduceLROnPlateau(**cfg.plateau) if cfg.plateau else None
     ckpt = CheckpointManager(ckpt_dir, journal=journal) if ckpt_dir else None
     sample = torch.ones((2, *model_input_shape(cfg)), dtype=torch.float32)
@@ -337,29 +421,79 @@ def build_trainer(cfg: ExperimentConfig, train_fn, ckpt_dir: Optional[str],
                    journal=journal, health=health, data_loader=data_loader)
 
 
+#: the tasks trained by train/gan.py's trainers, not by Trainer
+GAN_TASKS = ("dcgan", "cyclegan")
+
+
+def build_gan_trainer(cfg: ExperimentConfig, health=None,
+                      device: DeviceLike = None):
+    """The reference's build_gan_trainer (train_cli.py:435-466): a
+    DcganTrainer or a CycleGanTrainer on `device` (default cuda), each
+    sub-network with its own optimizer from the config's (name, learning
+    rate and the rest), and seeded weights (seeds 0, 1, ... in the
+    reference's order of sub-networks). As in the reference, the
+    config's `schedule` is not applied: the learning rate stays the
+    config's."""
+    from deep_vision_tpu_torch.models import get_model
+    from deep_vision_tpu_torch.train import build_optimizer
+    from deep_vision_tpu_torch.train.gan import CycleGanTrainer, DcganTrainer
+
+    dev = resolve_device(device)
+    opt_kw = dict(cfg.optimizer)
+    name = opt_kw.pop("name")
+    lr = opt_kw.pop("learning_rate")
+
+    def model(kind, seed):
+        return get_model(kind, device=dev, seed=seed, train=True)
+
+    def tx_fn():
+        return build_optimizer(name, lr, **opt_kw)
+
+    if cfg.task == "dcgan":
+        return DcganTrainer(
+            model("dcgan_generator", 0), model("dcgan_discriminator", 1),
+            tx_fn(), tx_fn(), image_shape=cfg.input_shape, device=dev,
+            health=health)
+    if cfg.task != "cyclegan":
+        raise ValueError(f"task {cfg.task!r} has no GAN trainer")
+    return CycleGanTrainer(
+        model("cyclegan_generator", 0), model("cyclegan_generator", 1),
+        model("cyclegan_discriminator", 2),
+        model("cyclegan_discriminator", 3), tx_fn, tx_fn,
+        image_shape=cfg.input_shape, device=dev, health=health)
+
+
 def run_eval_only(cfg: ExperimentConfig, trainer, eval_fn) -> dict:
-    """Evaluate the (restored) state on the val split: classification
-    loss and top-k; detection mAP@.5 and mAP@[.5:.95] from the YOLO
-    detector (score 0.1, NMS on the trainer's device) and
-    `DetectionEvaluator` (train_cli.py:469-507). Pose PCK is not ported
-    yet."""
+    """Evaluate the (restored) state on the val split
+    (train_cli.py:469-538): classification loss and top-k; detection
+    mAP@.5 and mAP@[.5:.95] from the YOLO detector (score 0.1, NMS on
+    the trainer's device) or CenterNet's peak decode, with
+    `DetectionEvaluator`; pose PCKh@0.5 when every val batch carries a
+    head size, image-normalised PCK@0.05 when none does."""
     if cfg.task == "classification":
         summary = trainer.evaluate(eval_fn())
         print("eval: " + " ".join(f"{k}={v:.4f}"
                                   for k, v in summary.items()))
         return summary
-    if cfg.task != "detection":
-        raise NotImplementedError(
-            f"--eval-only for task {cfg.task!r} is not ported yet")
-    from deep_vision_tpu_torch.core.detection_metrics import (
-        DetectionEvaluator,
-    )
-    from deep_vision_tpu_torch.inference import make_yolo_detector
+    if cfg.task not in ("detection", "centernet", "pose"):
+        raise ValueError(f"--eval-only unsupported for task {cfg.task!r}")
+    from deep_vision_tpu_torch import inference
 
     model = trainer.model.eval()
     variables = dict(model.state_dict())
-    detect = make_yolo_detector(model, device=trainer.device,
-                                score_threshold=0.1)
+    if cfg.task == "pose":
+        return _eval_pose(inference.make_pose_estimator(
+            model, device=trainer.device), variables, eval_fn)
+    from deep_vision_tpu_torch.core.detection_metrics import (
+        DetectionEvaluator,
+    )
+
+    if cfg.task == "detection":
+        detect = inference.make_yolo_detector(model, device=trainer.device,
+                                              score_threshold=0.1)
+    else:
+        detect = inference.make_centernet_detector(model,
+                                                   device=trainer.device)
     ev = DetectionEvaluator(cfg.num_classes)
     for batch in eval_fn():
         out = {k: v.cpu().numpy() for k, v in
@@ -373,6 +507,34 @@ def run_eval_only(cfg: ExperimentConfig, trainer, eval_fn) -> dict:
           f"mAP@[.5:.95]={coco['mAP@[.5:.95]']:.4f} "
           f"images={res['num_images']}")
     return {"mAP@.5": res["mAP"], **coco}
+
+
+def _eval_pose(estimate, variables, eval_fn) -> dict:
+    """PCK over the val split from the last stack's argmax keypoints;
+    PCKh@0.5 with the batches' `head_size`, else PCK@0.05 (coordinates
+    in [0, 1], so a norm of 1 is the image side)."""
+    from deep_vision_tpu_torch.core.detection_metrics import pck
+
+    preds, gts, viss, norms = [], [], [], []
+    head_flags = set()
+    for batch in eval_fn():
+        kpts = estimate(variables, batch["image"]).cpu().numpy()
+        preds.append(kpts[..., :2])
+        gts.append(np.asarray(batch["keypoints"]))
+        viss.append(np.asarray(
+            batch.get("visibility", np.ones(kpts.shape[:2]))) > 0)
+        head_flags.add("head_size" in batch)
+        norms.append(np.asarray(batch.get("head_size", np.ones(len(kpts)))))
+    if len(head_flags) > 1:
+        raise ValueError(
+            "eval batches are inconsistent: some carry 'head_size', some "
+            "don't — PCKh and image-normalized PCK cannot be mixed")
+    alpha = 0.5 if head_flags == {True} else 0.05
+    out = pck(np.concatenate(preds), np.concatenate(gts),
+              np.concatenate(viss), np.concatenate(norms), alpha=alpha)
+    key = [k for k in out if k.startswith("PCK")][0]
+    print(f"eval: {key}={out[key]:.4f} visible={out['num_visible']}")
+    return out
 
 
 def _deterministic() -> str:
@@ -493,6 +655,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ckpt_dir = args.ckpt_dir or os.path.join("checkpoints", cfg.name)
     if args.checkpoint and args.checkpoint != "auto":
         ckpt_dir = args.checkpoint  # saves follow the resume dir
+    if cfg.task in GAN_TASKS:
+        return gan_main(parser, args, cfg, train_fn, ckpt_dir, device)
     journal = _make_journal(args, cfg)
     health = _make_health(args, journal)
     data_loader = None
@@ -527,6 +691,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         trainer.fit(train_fn, eval_fn, epochs=cfg.epochs,
                     start_epoch=start_epoch, eval_first=args.eval_first)
     trainer.close()
+    _finish(device, journal)
+    return 0
+
+
+def _finish(device: torch.device, journal) -> None:
+    """Print (and journal) the peak device memory; close the journal."""
     if device.type == "cuda":
         peak = torch.cuda.max_memory_allocated(device)
         print(f"peak device memory: {peak} bytes "
@@ -535,6 +705,104 @@ def main(argv: Optional[List[str]] = None) -> int:
             journal.write("note", note="peak_memory", bytes=int(peak))
     if journal is not None:
         journal.close()
+
+
+def gan_main(parser, args, cfg: ExperimentConfig, train_fn, ckpt_dir: str,
+             device: torch.device) -> int:
+    """The reference's GAN branch of main (train_cli.py:1110-1265): the
+    G/D parameter counts, restore-or-initialize from `-c`, then epochs
+    of steps under a PreemptionGuard, each epoch's mean metrics printed,
+    journaled and checked by the health monitor, a checkpoint every
+    epoch (DCGAN, the newest 3 kept) or every 2 (CycleGAN). On SIGTERM
+    the state is saved at the next step boundary, marked so that a
+    resume re-runs the interrupted epoch, and the run ends (exit 0).
+    Every step journals a `step` event (the step, the epoch, its images
+    and the first sub-network's learning rate); the metrics stay on the
+    device until the epoch ends."""
+    from deep_vision_tpu_torch.core.checkpoint import CheckpointManager
+    from deep_vision_tpu_torch.core.summary import count_params
+    from deep_vision_tpu_torch.parallel.multihost import PreemptionGuard
+
+    if args.eval_only:
+        parser.error(f"--eval-only is not supported for GAN task "
+                     f"{cfg.task!r} (no scalar quality metric; use the "
+                     f"sample grids instead)")
+    if args.data_snapshot:
+        parser.error(f"--data-snapshot rides the standard Trainer "
+                     f"checkpoint/resume path; GAN task {cfg.task!r} has its "
+                     f"own loop without it")
+    journal = _make_journal(args, cfg)
+    health = _make_health(args, journal)
+    trainer = build_gan_trainer(cfg, health=health, device=device)
+    names = ({"G": "g", "D": "d"} if cfg.task == "dcgan" else
+             {"G_ab": "gab", "G_ba": "gba", "D_a": "da", "D_b": "db"})
+    states = trainer.states()
+    print(f"model {cfg.model}: " + " ".join(
+        f"{k}={count_params(states[v].model):,}" for k, v in names.items())
+        + " trainable params", flush=True)
+    save_every = 2 if cfg.task == "cyclegan" else 1
+    ckpt = CheckpointManager(ckpt_dir,
+                             max_to_keep=3 if cfg.task == "dcgan" else None,
+                             journal=journal)
+    start_epoch = 0
+    if args.checkpoint:
+        start_epoch = trainer.restore(ckpt)
+        if start_epoch:
+            print(f"resumed GAN training at epoch {start_epoch}",
+                  flush=True)
+    first = next(iter(states.values()))
+    if health is not None:
+        health.start_watchdog()  # no-op without --watchdog-timeout
+    with PreemptionGuard() as guard:
+        for epoch in range(start_epoch, cfg.epochs):
+            collected: list = []
+            interrupted = False
+            for batch_i, batch in enumerate(train_fn()):
+                if guard.agreed(step=batch_i):
+                    interrupted = True
+                    break
+                images = batch["image"]
+                if cfg.task == "dcgan":
+                    metrics = trainer.train_step(images)
+                else:
+                    half = len(images) // 2 or 1
+                    metrics = trainer.train_step(images[:half],
+                                                 images[half:half * 2])
+                collected.append(metrics)
+                if journal is not None:
+                    journal.step(first.step, epoch=epoch,
+                                 examples=len(images),
+                                 lr=first.optimizer.param_groups[0]["lr"])
+            if collected and not interrupted:
+                summary = {k: sum(float(m[k]) for m in collected)
+                           / len(collected) for k in sorted(collected[0])}
+                print(f"epoch {epoch}: " + " ".join(
+                    f"{k}={v:.4f}" for k, v in summary.items()), flush=True)
+                if journal is not None:
+                    journal.write("epoch", name="gan", epoch=epoch,
+                                  summary=summary)
+                if health is not None:
+                    health.check_summary(epoch, summary)
+            if guard.agreed(force=True):
+                done = epoch if not interrupted else epoch - 1
+                saved = trainer.save(ckpt, epoch, completed_epoch=done)
+                ckpt.wait()
+                print(f"preempted in epoch {epoch}: "
+                      + ("checkpoint written" if saved
+                         else "checkpoint DECLINED (nothing new to save)"),
+                      flush=True)
+                if journal is not None:
+                    journal.write("preempt_checkpoint",
+                                  step=int(ckpt.latest_step() or 0),
+                                  epoch=epoch, saved=bool(saved),
+                                  dir=ckpt_dir)
+                break
+            if (epoch + 1) % save_every == 0:
+                trainer.save(ckpt, epoch)
+    ckpt.wait()
+    if health is not None:
+        health.stop()
+    _finish(device, journal)
     return 0
 
 

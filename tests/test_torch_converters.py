@@ -181,7 +181,7 @@ def test_imagenet_converter_equals_the_references(tmp_path):
 
 def test_unported_subcommands_are_unknown():
     with pytest.raises(SystemExit):
-        convert.main(["mpii", "--json", "x", "--images-dir", "y",
+        convert.main(["celeba", "--attr-file", "x", "--images-dir", "y",
                       "--out-dir", "z"])
 
 

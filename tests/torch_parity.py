@@ -1,7 +1,9 @@
-"""Shared helpers of the zoo's parity tests (tests/test_torch_zoo_*.py):
-the JAX package's variables drawn with numpy and bridged into the port,
-one training step's outputs, batch statistics and gradients on both
-sides, and the comparison.
+"""Shared helpers of the zoo's parity tests (tests/test_torch_zoo_*.py,
+and the GAN, Hourglass and CenterNet ones): the JAX package's variables
+drawn with numpy and bridged into the port, one training step's
+outputs, batch statistics and gradients on both sides, and the
+comparison; the JAX run's ReLU and leaky-ReLU decisions recorded and
+replayed on the port (ActivationReplay).
 
 JAX variables come from `jax.eval_shape` of the module's init (no
 forward, no compile) and are filled from a numpy seed: kernels at
@@ -9,6 +11,8 @@ forward, no compile) and are filled from a numpy seed: kernels at
 ~ 0.1 N(0, 1). The port's module goes to channels_last memory first, as
 its initialiser leaves it, so the parity runs the layout the card runs.
 """
+import contextlib
+
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
@@ -118,6 +122,8 @@ def apply_masks(tm, captured, relu_module=None):
             continue
         mask = torch.from_numpy(captured[name] != 0)
         if isinstance(m, Dropout):
+            if mask.dim() == 4:  # the port's NCHW indexing of an NHWC map
+                mask = mask.permute(0, 3, 1, 2)
             keep = 1.0 - m.rate
 
             def hook(mod, args, out, mask=mask, keep=keep):
@@ -137,7 +143,7 @@ def apply_masks(tm, captured, relu_module=None):
 
 
 def check_train(jm, tm, v, x, cots, rtol, dropout_seed=0, grads=True,
-                cancelled=None, relu_modules=(None, None)):
+                cancelled=None, relu_modules=(None, None), grad_rtol=None):
     """Outputs, updated batch statistics and (with `grads`) every
     parameter's gradient of one training step, port against JAX, within
     `rtol`. `cancelled` maps a parameter-name suffix whose gradient is
@@ -146,7 +152,7 @@ def check_train(jm, tm, v, x, cots, rtol, dropout_seed=0, grads=True,
     gradient is rounding noise on both sides, held at rtol x that
     parameter's largest gradient. `relu_modules`: a (JAX, port) pair of
     module classes whose ReLU decisions the port takes from the JAX run
-    (apply_masks)."""
+    (apply_masks). `grad_rtol` (default: rtol) holds the gradients."""
     want_out, want_stats, want_grads, captured = jax_train(
         jm, v, x, cots, dropout_seed, relu_modules[0], grads)
     handles = apply_masks(tm, captured, relu_modules[1])
@@ -163,7 +169,7 @@ def check_train(jm, tm, v, x, cots, rtol, dropout_seed=0, grads=True,
     for i, (g, w) in enumerate(zip(out, want_out)):
         close(g.detach().numpy(), w, rtol, f"output {i}")
     if grads:
-        compare_grads(tm, want_grads, rtol, cancelled or {})
+        compare_grads(tm, want_grads, grad_rtol or rtol, cancelled or {})
     buffers = dict(tm.named_buffers())
     stats = variables_from_jax({"batch_stats": want_stats})
     assert sorted(stats) == sorted(buffers)
@@ -211,3 +217,125 @@ def check_eval(jm, tm, v, x, cot, rtol, relu_modules=(None, None)):
             h.remove()
     close(got.detach().numpy(), np.asarray(want), rtol, "eval output")
     compare_grads(tm, jax.device_get(want_grads), rtol, {})
+
+
+@contextlib.contextmanager
+def recording_activations():
+    """Record the input of every `nn.relu` and `nn.leaky_relu` call made
+    inside the block, in call order, into the yielded list. The
+    reference's modules look these functions up on flax.linen at call
+    time, so wrapping them there sees every call; under a trace the
+    entries are tracers, for the traced function to return (as an
+    output, or as aux of a gradient)."""
+    seen = []
+    saved = {name: getattr(fnn, name) for name in ("relu", "leaky_relu")}
+
+    def recorder(fn):
+        def wrapped(y, *args, **kwargs):
+            seen.append(y)
+            return fn(y, *args, **kwargs)
+        return wrapped
+
+    try:
+        for name, fn in saved.items():
+            setattr(fnn, name, recorder(fn))
+        yield seen
+    finally:
+        for name, fn in saved.items():
+            setattr(fnn, name, fn)
+
+
+def activation_inputs(jm, v, x, dropout_seed=0):
+    """The inputs of every relu and leaky relu of one jitted training
+    forward of `jm`, in call order, as numpy (NHWC, or (B, F) after a
+    Dense)."""
+    def f(v, x):
+        with recording_activations() as seen:
+            jm.apply(v, x, train=True,
+                     rngs={"dropout": jax.random.PRNGKey(dropout_seed)},
+                     mutable=["batch_stats"])
+        return list(seen)
+
+    return [np.asarray(a) for a in jax.jit(f)(v, x)]
+
+
+class ActivationReplay:
+    """Makes the port's `F.relu` and `F.leaky_relu` take the JAX run's
+    decisions (activation_inputs), in call order: kept where the JAX
+    input was > 0 (relu) or >= 0 (leaky, jnp.where(x >= 0, ...)), so an
+    input within rounding of zero cannot fall the other way on one side
+    alone. `flips` counts the decisions the port's own input would have
+    taken otherwise; `left` what was not consumed."""
+
+    def __init__(self, inputs):
+        self.inputs = list(inputs)
+        self.flips = 0
+        self.calls = 0
+
+    @property
+    def left(self):
+        return len(self.inputs)
+
+    def _mask(self, x, leaky):
+        a = self.inputs.pop(0)
+        mask = torch.from_numpy(a >= 0 if leaky else a > 0)
+        if mask.dim() == 4:
+            mask = mask.permute(0, 3, 1, 2)
+        assert tuple(mask.shape) == tuple(x.shape), (mask.shape, x.shape)
+        own = (x >= 0) if leaky else (x > 0)
+        self.flips += int((own != mask).sum())
+        self.calls += 1
+        return mask
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        self._saved = (F.relu, F.leaky_relu)
+
+        def relu(x, inplace=False):
+            return torch.where(self._mask(x, False), x, 0.0)
+
+        def leaky_relu(x, negative_slope=0.01, inplace=False):
+            return torch.where(self._mask(x, True), x, negative_slope * x)
+
+        F.relu, F.leaky_relu = relu, leaky_relu
+        return self
+
+    def __exit__(self, *exc):
+        import torch.nn.functional as F
+
+        F.relu, F.leaky_relu = self._saved
+        return False
+
+
+def check_train_replayed(jm, tm, v, x, cots, rtol, dropout_seed=0,
+                         cancelled=None, grad_rtol=None):
+    """check_train with the port taking the JAX run's ReLU and leaky-ReLU
+    decisions (ActivationReplay); every recorded decision is used.
+    -> the replay (its `flips` and `calls`)."""
+    replay = ActivationReplay(activation_inputs(jm, v, x, dropout_seed))
+    with replay:
+        check_train(jm, tm, v, x, cots, rtol, dropout_seed=dropout_seed,
+                    cancelled=cancelled, grad_rtol=grad_rtol)
+    assert replay.left == 0 and replay.calls > 0
+    return replay
+
+
+def damp_residual_branches(v, block="HgBottleneck", conv="Conv_2",
+                           factor=0.1):
+    """Scale the last kernel of every residual branch (`conv` inside a
+    `block`) by `factor`, in place: the residual sums then keep
+    activations of order 1 down a deep hourglass, as a trained one's
+    are, instead of growing until the few-row normalisations of its
+    deepest levels amplify float32 rounding (JAX's own float32 outputs
+    then stray from float64 by percents). -> v."""
+    def walk(t, path):
+        for k, a in t.items():
+            if isinstance(a, dict):
+                walk(a, path + (k,))
+            elif (k == "kernel" and len(path) >= 2 and path[-1] == conv
+                  and path[-2].startswith(block)):
+                t[k] = (a * factor).astype(a.dtype)
+
+    walk(v["params"], ())
+    return v
