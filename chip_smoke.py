@@ -169,10 +169,36 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            a second, each run's moments launches counted by the hook;
            the kernels line gains `bn_moments_*[hourglass_mpii]`,
            `[centernet_coco]` and `[dcgan_mnist]`;
-11. report the card line, the kernels line, and the final status line.
+11. infer  the inference CLI, `deep_vision_tpu_torch.tools.infer.main`
+           in this process, INFER_CALLS times for each family on
+           INFER_IMAGES seeded JPEGs: resnet50 with -c on run T's
+           checkpoint of phase 6, vit_s16 and the GANs from the seeded
+           init, yolov3_voc with -c on the seeded weights with running
+           statistics calibrated on the JPEGs and its heads set to
+           overlapping boxes (YOLO_HEAD_WH), hourglass_mpii and
+           centernet_coco with -c on phase 10's checkpoints; each call's
+           NMS, bn_act and LayerNorm launches against INFER_LAUNCHES
+           (48 bn_act for resnet50, 25 LayerNorm for vit_s16, one NMS
+           for yolov3_voc, no flash, moments or backward), the results
+           and files each family writes, the same printed results on
+           every call, and the first call's and the steady state's wall
+           time per image; resnet50 and yolov3_voc once more on the
+           card and with `--device cpu`, their model outputs caught by
+           a forward hook and held against each other within
+           INFER_RTOL, and yolov3_voc's detections within
+           INFER_DET_TOL; then the path's bn_act forward calls
+           (resnet50's eval forward) and its LayerNorm shape against
+           their plain versions with times and bounds, and NMS at
+           yolov3_voc's inputs at score 0.3; the kernels line gains
+           `bn_act_fwd[infer -m resnet50]`, `layer_norm_fwd[infer -m
+           vit_s16]` and `nms[infer -m yolov3_voc]`;
+12. report the card line, the kernels line, and the final status line.
 """
+import contextlib
+import io
 import json
 import os
+import re
 import signal
 import statistics
 import subprocess
@@ -1893,6 +1919,25 @@ def cli_report(rows, label, card, tag="[cli]", metric="top1"):
     return steps, ms
 
 
+def bn_act_fwd_case(torch, x, a, b, r, tag):
+    """One bn_act forward call against its plain version, bit for bit,
+    both timed. -> (the plain result, kernel ms, plain ms, bytes, ops)."""
+    from deep_vision_tpu_torch.ops.cuda.bn_act import (
+        bn_act_forward,
+        bn_act_plain,
+    )
+
+    y, yp = bn_act_forward(x, a, b, r, "relu"), bn_act_plain(
+        x, a, b, r, "relu")
+    check(torch.equal(y, yp),
+          f"{tag} bn_act forward differs: {tuple(x.shape)}")
+    t, t_plain = (time_cuda(torch, fn, runs=10)[0] for fn in (
+        lambda: bn_act_forward(x, a, b, r, "relu"),
+        lambda: bn_act_plain(x, a, b, r, "relu")))
+    nbytes = (2 + (r is not None)) * x.numel() * 4 + 8 * x.shape[1]
+    return yp, t, t_plain, nbytes, BN_FWD_OPS * x.numel()
+
+
 def f32_step_kernels(torch, dev, model, images, card, counts=(48, 53),
                      tag="[cli]"):
     """A float32 step's kernel instances at its batch: every bn_act and
@@ -1909,8 +1954,6 @@ def f32_step_kernels(torch, dev, model, images, card, counts=(48, 53),
     from deep_vision_tpu_torch.ops.cuda.bn_act import (
         bn_act_backward,
         bn_act_bwd_plain,
-        bn_act_forward,
-        bn_act_plain,
     )
     from deep_vision_tpu_torch.ops.cuda.norm import (
         bn_moments_backward,
@@ -1949,9 +1992,8 @@ def f32_step_kernels(torch, dev, model, images, card, counts=(48, 53),
         r = draw(shape) if res else None
         a = torch.rand(c, generator=gen, device=dev) + 0.5
         b = torch.randn(c, generator=gen, device=dev)
-        y, yp = bn_act_forward(x, a, b, r, "relu"), bn_act_plain(
-            x, a, b, r, "relu")
-        check(torch.equal(y, yp), f"f32 bn_act forward differs: {shape}")
+        yp, *fwd = bn_act_fwd_case(torch, x, a, b, r, "f32")
+        add("bn_act_fwd", n, *fwd)
         got = bn_act_backward(x, a, yp, g, "relu", res)
         want = bn_act_bwd_plain(x, a, yp, g, "relu", res)
         check(torch.equal(got[0], want[0])
@@ -1967,16 +2009,11 @@ def f32_step_kernels(torch, dev, model, images, card, counts=(48, 53),
                 tot["bn_act_bwd"]["max_abs_err"],
                 float((got[k] - want[k]).abs().max()))
         times = [time_cuda(torch, fn, runs=10)[0] for fn in (
-            lambda: bn_act_forward(x, a, b, r, "relu"),
-            lambda: bn_act_plain(x, a, b, r, "relu"),
             lambda: bn_act_backward(x, a, yp, g, "relu", res),
             lambda: bn_act_bwd_plain(x, a, yp, g, "relu", res))]
-        size, vec = x.numel() * 4, 4 * c
-        add("bn_act_fwd", n, times[0], times[1], (2 + res) * size + 2 * vec,
-            BN_FWD_OPS * x.numel())
-        add("bn_act_bwd", n, times[2], times[3], (4 + res) * size + 3 * vec,
+        add("bn_act_bwd", n, *times, (4 + res) * x.numel() * 4 + 12 * c,
             BN_BWD_OPS * x.numel())
-        del x, g, r, y, yp, got, want, gf
+        del x, g, r, yp, got, want, gf
     for shape, n in sorted(moments.items()):
         x = draw(shape)
         rows, c = moments_rows(x), shape[1]
@@ -3058,11 +3095,13 @@ def det_cli(torch, card, tmp, data, env):
             train["launches"], evaluated["nms"])
 
 
-def nms_at_eval(torch, dev, model, images, card):
+def nms_at_eval(torch, dev, model, images, card, score=DET_SCORE_THR,
+                tag="[det]", what="--eval-only's inputs"):
     """Phase 9c: NMS at --eval-only's inputs, the class-shifted boxes of
-    one val batch through the trained model at score DET_SCORE_THR:
-    kernel against plain version (equal), candidates per image, passes,
-    kernel, plain and bound times. -> the kernels line's fields."""
+    one val batch through the trained model at `score`: kernel against
+    plain version (equal), candidates per image, passes, kernel, plain
+    and bound times (phase 11 calls it at infer's inputs). -> the kernels
+    line's fields."""
     from deep_vision_tpu_torch.inference import yolo_decode_outputs
     from deep_vision_tpu_torch.ops.cuda.nms import (
         PASS_CANDIDATES,
@@ -3076,19 +3115,19 @@ def nms_at_eval(torch, dev, model, images, card):
         best, cls = scores.max(dim=-1)
     shifted = (boxes + cls.to(boxes.dtype)[..., None] * 2.0).contiguous()
     best = best.contiguous()
-    args = (shifted, best, MAX_DET, IOU_THR, DET_SCORE_THR)
+    args = (shifted, best, MAX_DET, IOU_THR, score)
     k_out, p_out = greedy_nms(*args), nms_plain(*args)
     check(all(torch.equal(a, b) for a, b in zip(k_out, p_out)),
-          "nms differs from its plain version at --eval-only's inputs")
-    ms, passes, chunks = selection_plan(best, k_out[1], DET_SCORE_THR,
+          f"nms differs from its plain version at {what}")
+    ms, passes, chunks = selection_plan(best, k_out[1], score,
                                         PASS_CANDIDATES)
     plain_ms, _ = time_cuda(torch, lambda: nms_plain(*args), runs=10)
     nms_ms, nms_us = time_cuda(torch, lambda: greedy_nms(*args))
     nb, n = best.shape
     bound_ms, bound_by, nbytes, ops, rounds, picks = nms_bound(
-        torch, best, k_out[1], DET_SCORE_THR)
-    print(f"[det] nms at --eval-only's inputs (B={nb}, N={n}, D={MAX_DET}, "
-          f"score {DET_SCORE_THR}): candidates above the score per image "
+        torch, best, k_out[1], score)
+    print(f"{tag} nms at {what} (B={nb}, N={n}, D={MAX_DET}, "
+          f"score {score}): candidates above the score per image "
           f"{ms}, passes {passes}, 64-candidate chunks {chunks}, keeps "
           f"{picks.tolist()}; equal to the plain version; kernel "
           f"{nms_ms:.4f} ms (host {nms_us:.1f} us), plain {plain_ms:.4f} "
@@ -3734,6 +3773,424 @@ def gan_pose_phase(torch, dev, card, tmp, env):
     return entries
 
 
+#: phase 11: the inference CLI, `deep_vision_tpu_torch.tools.infer.main`
+#: in this process, INFER_CALLS calls a family on INFER_IMAGES seeded
+#: JPEGs; the kernel launches each call must make: (NMS, bn_act forward,
+#: LayerNorm forward). resnet50's eval BatchNorms with ReLU or a residual
+#: take bn_act (48 a forward), vit_s16's 25 LayerNorms the LayerNorm
+#: kernel (T = 196 takes the dense attention: no flash), yolov3_voc's
+#: detector one NMS; the rest launch none of the three
+INFER_LAUNCHES = {"resnet50": (0, 48, 0), "vit_s16": (0, 0, 25),
+                  "yolov3_voc": (1, 0, 0), "hourglass_mpii": (0, 0, 0),
+                  "centernet_coco": (0, 0, 0), "cyclegan": (0, 0, 0),
+                  "dcgan_mnist": (0, 0, 0)}
+INFER_IMAGES, INFER_CALLS = 2, 3
+#: the card against `--device cpu` on the same checkpoint and JPEGs, on
+#: the tensors themselves (caught by a forward hook): resnet50's logits
+#: and each YOLOv3 head within INFER_RTOL of the tensor's largest
+#: magnitude (float32 sums in cuDNN's and the CPU's orders, TF32 off);
+#: yolov3_voc's detections matched by class in any order, each score
+#: within INFER_DET_TOL and each box corner within INFER_DET_TOL of
+#: max(1, the box's width, its height) (float32 on the CPU against
+#: float64 there: 1.7e-5 to 3.3e-5); a detection one side kept and the
+#: other dropped at an IoU within INFER_IOU_MARGIN of IOU_THR (boxes
+#: within INFER_DET_TOL move an IoU by a few 1e-4) is a flip at the
+#: threshold's edge, not a fault
+INFER_RTOL, INFER_DET_TOL, INFER_IOU_MARGIN = 1e-4, 1e-4, 1e-3
+#: the seeded yolov3_voc's head outputs, set per channel over the JPEGs
+#: to what a detector shows on a photo of a few large objects: (tx, ty)
+#: mean 0, spread 1; (tw, th) mean YOLO_HEAD_WH[level], spread 0.3
+#: (boxes 1.6-20x their anchors, 100-600 pixels of 416); objectness mean
+#: 0, spread 1; class k mean -k, spread 1 (a few classes lead). Then
+#: boxes of a class overlap and NMS suppresses: the 100 keeps come from
+#: the best 223 and 319 candidates (seeded init, on the CPU)
+YOLO_HEAD_WH = (0.5, 1.5, 3.0)
+
+
+def infer_jpegs(tmp):
+    """INFER_IMAGES seeded 480x640 JPEGs: a smooth colour gradient with
+    seeded noise and a bright rectangle, so the decoders and resizes see
+    edges and texture."""
+    from deep_vision_tpu_torch.tools.synth_records import encode_jpeg
+
+    rng = np.random.RandomState(11)
+    yy, xx = np.mgrid[0:480, 0:640].astype(np.float32)
+    paths = []
+    for i in range(INFER_IMAGES):
+        img = np.stack([xx / 640 * 255, yy / 480 * 255,
+                        np.full_like(xx, 80 + 60 * i)], -1)
+        img += rng.randn(480, 640, 3) * 20
+        y0, x0 = rng.randint(0, 300), rng.randint(0, 400)
+        img[y0:y0 + 150, x0:x0 + 200] = 230
+        path = os.path.join(tmp, f"infer_{i}.jpg")
+        with open(path, "wb") as f:
+            f.write(encode_jpeg(np.clip(img, 0, 255).astype(np.uint8)))
+        paths.append(path)
+    return paths
+
+
+def standardise_yolo_heads(torch, model, images):
+    """Rescale each YOLOv3 head's last 1x1 conv so that its outputs on
+    `images` take the per-channel means and spreads YOLO_HEAD_WH's
+    comment gives."""
+    heads = [getattr(model, f"YoloHead_{i}") for i in range(3)]
+    seen = {}
+    hooks = [h.Conv_0.register_forward_hook(
+        lambda m, i, o, k=k: seen.__setitem__(k, o.double()))
+        for k, h in enumerate(heads)]
+    with torch.no_grad():
+        model.eval()(images)
+        for h in hooks:
+            h.remove()
+        for k, head in enumerate(heads):
+            out, c = seen[k], head.num_classes
+            mean, std = out.mean((0, 2, 3)), out.std((0, 2, 3))
+            want_mean, want_std = (torch.tensor(
+                v * head.num_anchors, dtype=torch.float64,
+                device=out.device) for v in (
+                [0.0, 0.0, YOLO_HEAD_WH[k], YOLO_HEAD_WH[k], 0.0]
+                + [-float(j) for j in range(c)],
+                [1.0, 1.0, 0.3, 0.3, 1.0] + [1.0] * c))
+            scale = want_std / std
+            conv = head.Conv_0
+            conv.weight.mul_(scale.view(-1, 1, 1, 1).float())
+            conv.bias.copy_(((conv.bias.double() - mean) * scale
+                             + want_mean).float())
+
+
+def run_infer(torch, argv):
+    """One `infer.main(argv)` in this process, its kernel counters set to
+    0 just before it and read just after. -> (stdout lines, seconds,
+    launches)."""
+    from deep_vision_tpu_torch.ops.cuda.bn_act import fused_scale_bias_act
+    from deep_vision_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention,
+    )
+    from deep_vision_tpu_torch.ops.cuda.nms import greedy_nms
+    from deep_vision_tpu_torch.ops.cuda.norm import batch_moments, layer_norm
+    from deep_vision_tpu_torch.tools import infer
+
+    counters = ((greedy_nms, "launches", "nms"),
+                (fused_scale_bias_act, "launches", "bn_act_fwd"),
+                (layer_norm, "launches", "layer_norm_fwd"),
+                (fused_scale_bias_act, "backward_launches", "bn_act_bwd"),
+                (layer_norm, "backward_launches", "layer_norm_bwd"),
+                (flash_attention, "launches", "flash_fwd"),
+                (batch_moments, "launches", "bn_moments_fwd"))
+    for fn, attr, _ in counters:
+        setattr(fn, attr, 0)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = infer.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"infer {argv} returned {rc}")
+    return (out.getvalue().splitlines(), seconds,
+            {name: getattr(fn, attr) for fn, attr, name in counters})
+
+
+def run_infer_caught(torch, argv):
+    """run_infer with the model's outputs caught by a forward hook and
+    the YOLO detector's results by a wrapper, both copied to the host in
+    float64. -> (stdout lines, launches, [model outputs], [detections])."""
+    import deep_vision_tpu_torch.inference as inference
+    import deep_vision_tpu_torch.models as models
+
+    outputs, detections = [], []
+    get_model, make = models.get_model, inference.make_yolo_detector
+
+    def host(t):
+        return t.detach().double().cpu().numpy()
+
+    def hooked(*args, **kwargs):
+        model = get_model(*args, **kwargs)
+        model.register_forward_hook(lambda m, i, o: outputs.append(
+            [host(t) for t in (o if isinstance(o, tuple) else (o,))]))
+        return model
+
+    def detector(*args, **kwargs):
+        detect = make(*args, **kwargs)
+
+        def call(variables, images):
+            out = detect(variables, images)
+            detections.append({k: host(v) for k, v in out.items()})
+            return out
+
+        return call
+
+    models.get_model, inference.make_yolo_detector = hooked, detector
+    try:
+        lines, _, launches = run_infer(torch, argv)
+    finally:
+        models.get_model, inference.make_yolo_detector = get_model, make
+    return lines, launches, outputs, detections
+
+
+def outputs_alike(got, want, label):
+    """Each tensor of `got` within INFER_RTOL x the largest |value| of
+    its `want`. -> the worst share of that tolerance."""
+    check(len(got) == len(want) and all(g.shape == w.shape
+                                        for g, w in zip(got, want)),
+          f"{label}: shapes {[g.shape for g in got]} | "
+          f"{[w.shape for w in want]}")
+    share = max(float(np.abs(g - w).max() / (INFER_RTOL * np.abs(w).max()))
+                for g, w in zip(got, want))
+    check(share <= 1.0, f"{label}: {share:.3g} of the tolerance")
+    return share
+
+
+def detections_alike(torch, card, cpu, label):
+    """yolov3_voc's detections on the card against the CPU's, image by
+    image: the same count; each detection matched to one of the other
+    side's of its class with score and box within INFER_DET_TOL (the box
+    against its extent), in any order (two scores closer than that may
+    swap places). One left unmatched must have been dropped by the other
+    side at a threshold's edge: a kept box there of its class and at
+    least its score overlaps it at an IoU within INFER_IOU_MARGIN of
+    IOU_THR (float32 sums in other orders put it on the other side of
+    the threshold), or beyond IOU_THR - INFER_IOU_MARGIN where that box
+    is itself unmatched (a suppression that follows from such a flip),
+    or its score ties the other side's lowest kept score within
+    INFER_DET_TOL (the last pick at max_detections). -> (the worst share
+    of the tolerance among the matched, {reason: the count left
+    unmatched})."""
+    from deep_vision_tpu_torch.ops.boxes import broadcast_iou
+
+    worst, loose = 0.0, {"at an IoU edge": 0, "the last pick": 0}
+    for i, n in enumerate(card["num"].astype(int)):
+        check(n == int(cpu["num"][i]), f"{label}: image {i}: {n} "
+              f"detections on the card, {int(cpu['num'][i])} on the CPU")
+        dets = {side: [(int(d["classes"][i, j]), d["scores"][i, j],
+                        d["boxes"][i, j]) for j in range(n)]
+                for side, d in (("card", card), ("CPU", cpu))}
+        matched = {"card": [False] * n, "CPU": [False] * n}
+        for a, (cls, score, box) in enumerate(dets["card"]):
+            shares = [max(abs(score - s), float(np.abs(box - b).max()) / max(
+                1.0, b[2] - b[0], b[3] - b[1])) / INFER_DET_TOL
+                if c == cls and not matched["CPU"][j] else np.inf
+                for j, (c, s, b) in enumerate(dets["CPU"])]
+            j = int(np.argmin(shares)) if shares else -1
+            if j >= 0 and shares[j] <= 1.0:
+                matched["card"][a] = matched["CPU"][j] = True
+                worst = max(worst, shares[j])
+        iou = broadcast_iou(*(torch.from_numpy(d["boxes"][i, :n])
+                              for d in (card, cpu))).numpy()
+        for side, other, table in (("card", "CPU", iou),
+                                   ("CPU", "card", iou.T)):
+            low = min(s for _, s, _ in dets[other]) if n else 0.0
+            for a, (cls, score, box) in enumerate(dets[side]):
+                if matched[side][a]:
+                    continue
+                ious = [(table[a, k], matched[other][k])
+                        for k, (c, s, _) in enumerate(dets[other])
+                        if c == cls and s >= score - INFER_DET_TOL]
+                edge = any(abs(iou - IOU_THR) <= INFER_IOU_MARGIN
+                           or (iou > IOU_THR - INFER_IOU_MARGIN and not m)
+                           for iou, m in ious)
+                check(edge or score <= low + INFER_DET_TOL,
+                      f"{label}: image {i}: the {side}'s class "
+                      f"{cls} at score {score:.6f}, box {box}, has no "
+                      f"match; IoUs with the {other}'s kept boxes of its "
+                      f"class at a higher score {ious}")
+                loose["at an IoU edge" if edge else "the last pick"] += 1
+    return worst, loose
+
+
+def check_infer_output(name, lines, jpegs, out_dir):
+    """The family's printed results and files: a top-5 line an image
+    (finite probabilities); a count line, its lines and a sidecar (and
+    an overlay) an image; 16 finite joints and an overlay an image; a
+    decodable generated JPEG an image."""
+    from deep_vision_tpu_torch.configs import get_config
+    from deep_vision_tpu_torch.data.datasets import decode_image
+
+    task = get_config(name).task
+    stems = [os.path.splitext(os.path.basename(f))[0] for f in jpegs]
+    lines = [line for line in lines if not line.startswith("warning: ")]
+    numbers = [[float(v) for v in re.findall(r"-?\d+\.\d+", line)]
+               for line in lines]
+    check(all(np.isfinite(v).all() for v in numbers),
+          f"{name}: non-finite output {lines}")
+    if task == "classification":
+        check([line.split(": ")[0] for line in lines] == jpegs
+              and all(len(v) == 5 for v in numbers), f"{name}: {lines}")
+    elif task in ("detection", "centernet"):
+        for f, stem in zip(jpegs, stems):
+            head = [line for line in lines if line.startswith(f"{f}: ")]
+            check(len(head) == 1 and head[0].endswith(" detections"),
+                  f"{name}: {lines}")
+            n = int(head[0].split(": ")[1].split()[0])
+            side = open(os.path.join(out_dir, f"{stem}_boxes.txt")).read()
+            check(len([s for s in side.splitlines() if s]) == n,
+                  f"{name}: {stem}_boxes.txt has not {n} lines")
+            check(os.path.exists(os.path.join(out_dir,
+                                              f"{stem}_detected.jpg")),
+                  f"{name}: no {stem}_detected.jpg")
+    elif task == "pose":
+        check(sum(line.startswith("  joint ") for line in lines)
+              == 16 * len(jpegs), f"{name}: {lines}")
+        for stem in stems:
+            check(os.path.exists(os.path.join(out_dir, f"{stem}_pose.jpg")),
+                  f"{name}: no {stem}_pose.jpg")
+    else:
+        for stem in stems:
+            with open(os.path.join(out_dir, f"{stem}_generated.jpg"),
+                      "rb") as f:
+                shape = decode_image(f.read()).shape
+            size = get_config(name).input_shape[0]
+            check(shape == (size, size, 3), f"{name}: generated {shape}")
+
+
+def infer_against_cpu(torch, name, argv, tmp):
+    """`infer.main` once more on the card and once with `--device cpu`,
+    their model outputs (and yolov3_voc's detections) caught and held
+    against each other (the timed calls' printed lines are checked for
+    their format only)."""
+    card_argv = argv + ["-o", os.path.join(tmp, f"infer_hooked_{name}")]
+    cpu_argv = argv + ["-o", os.path.join(tmp, f"infer_cpu_{name}"),
+                       "--device", "cpu"]
+    _, _, out_card, det_card = run_infer_caught(torch, card_argv)
+    t0 = time.perf_counter()
+    _, got, out_cpu, det_cpu = run_infer_caught(torch, cpu_argv)
+    cpu_s = time.perf_counter() - t0
+    check(not any(got.values()), f"--device cpu launched {got}")
+    check(len(out_card) == len(out_cpu) == 1,
+          f"{name}: {len(out_card)} and {len(out_cpu)} forwards caught")
+    share = outputs_alike(out_card[0], out_cpu[0], f"{name} card vs CPU")
+    said = (f"{name}: the card's model outputs "
+            f"{[o.shape for o in out_card[0]]} equal the CPU's within "
+            f"{share:.3g} of {INFER_RTOL} x each tensor's largest |value|")
+    if det_card:
+        worst, loose = detections_alike(torch, det_card[0], det_cpu[0],
+                                        f"{name} card vs CPU")
+        said += (f"; detections {det_card[0]['num'].astype(int).tolist()} "
+                 f"an image matched within {worst:.3g} of {INFER_DET_TOL}; "
+                 f"unmatched {loose}")
+    print(f"[infer] {said} (the CPU call {cpu_s:.2f} s)")
+
+
+def infer_phase(torch, dev, card, tmp, ckpts):
+    """Phase 11: the inference CLI as a user runs it, each family
+    INFER_CALLS times on the card (`ckpts`: config -> a checkpoint dir
+    for -c), resnet50 and yolov3_voc once more on the card and with
+    --device cpu, and the path's kernels at its shapes. Returns the
+    kernels line's entries."""
+    from deep_vision_tpu_torch.configs import get_config
+    from deep_vision_tpu_torch.core.checkpoint import CheckpointManager
+    from deep_vision_tpu_torch.data.transforms import space_to_depth
+    from deep_vision_tpu_torch.models import get_model
+    from deep_vision_tpu_torch.nn.layers import calibrate_batch_stats
+    from deep_vision_tpu_torch.tools import infer
+
+    t_phase = time.perf_counter()
+    jpegs = infer_jpegs(tmp)
+    # yolov3_voc: the seeded weights with every BatchNorm's running
+    # statistics calibrated on these images (init statistics let the
+    # residual adds saturate every score) and its heads set so that
+    # NMS suppresses (YOLO_HEAD_WH), saved for -c
+    yolo = get_model("yolov3", num_classes=20, device=dev)
+    x_yolo = torch.as_tensor(np.stack([infer._load_image(f, 416, "unit")
+                                       for f in jpegs]), device=dev)
+    calibrate_batch_stats(yolo, x_yolo)
+    standardise_yolo_heads(torch, yolo, x_yolo)
+    ckpts = dict(ckpts, yolov3_voc=os.path.join(tmp, "infer_yolov3_ck"))
+    mgr = CheckpointManager(ckpts["yolov3_voc"])
+    mgr.save_tree(0, {"model": yolo.state_dict()})
+    mgr.close()
+    launches = {}
+    for name, (n_nms, n_bn, n_ln) in INFER_LAUNCHES.items():
+        out_dir = os.path.join(tmp, f"infer_{name}")
+        argv = ["-m", name, "-o", out_dir, *jpegs]
+        if name in ckpts:
+            argv[2:2] = ["-c", ckpts[name]]
+        want = {"nms": n_nms, "bn_act_fwd": n_bn, "layer_norm_fwd": n_ln,
+                "bn_act_bwd": 0, "layer_norm_bwd": 0, "flash_fwd": 0,
+                "bn_moments_fwd": 0}
+        seconds, printed, total = [], [], {}
+        for _ in range(INFER_CALLS):
+            lines, dt, got = run_infer(torch, argv)
+            check(got == want, f"infer -m {name}: launches {got}, want "
+                  f"{want}")
+            check(not printed or lines == printed,
+                  f"infer -m {name}: a call printed other results than "
+                  f"the first")
+            printed = lines
+            seconds.append(dt)
+            total = {k: total.get(k, 0) + v for k, v in got.items()}
+        launches[name] = total
+        check_infer_output(name, printed, jpegs, out_dir)
+        restored = (f"-c {os.path.relpath(ckpts[name], tmp)}"
+                    if name in ckpts else "seeded init")
+        steady = statistics.median(seconds[1:])
+        print(f"[infer] {name} ({restored}): {INFER_IMAGES} images a call;"
+              f" first call {1e3 * seconds[0] / INFER_IMAGES:.1f} ms/image,"
+              f" steady {1e3 * steady / INFER_IMAGES:.1f}"
+              f" ms/image (median of {INFER_CALLS - 1} calls; wall time of "
+              f"main: model build, restore, decode, forward, output; each "
+              f"call printed the same); launches a call nms {n_nms}, bn_act "
+              f"{n_bn}, layer_norm {n_ln} ({card})")
+        for line in printed[:3]:
+            print(f"[infer] {name} says: {line}")
+    for name in ("resnet50", "yolov3_voc"):
+        infer_against_cpu(torch, name, ["-m", name, "-c", ckpts[name],
+                                        *jpegs], tmp)
+    # the path's kernels at its shapes
+    resnet = get_model("resnet50", num_classes=1000, stem="s2d", device=dev)
+    resnet.load_state_dict(CheckpointManager(ckpts["resnet50"])
+                           .restore_variables(device=dev))
+    cfg = get_config("resnet50")
+    x_res = torch.as_tensor(np.stack([space_to_depth(infer._load_image(
+        f, cfg.eval_crop, "imagenet", rescale=cfg.train_resize))
+        for f in jpegs]), device=dev)
+    calls, _ = batchnorm_calls(torch, resnet, x_res)
+    check(sum(calls.values()) == INFER_LAUNCHES["resnet50"][1],
+          f"resnet50's eval forward makes {calls} bn_act calls")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    bn_row = dict(calls=0, ms=0.0, plain_ms=0.0, bytes=0, ops=0)
+    for (shape, res), n in sorted(calls.items()):
+        x = torch.randn(shape, generator=gen, device=dev).contiguous(
+            memory_format=torch.channels_last)
+        r = torch.randn_like(x) if res else None
+        a = torch.rand(shape[1], generator=gen, device=dev) + 0.5
+        b = torch.randn(shape[1], generator=gen, device=dev)
+        case = bn_act_fwd_case(torch, x, a, b, r, "[infer]")[1:]
+        for key, v in zip(("calls", "ms", "plain_ms", "bytes", "ops"),
+                          (1, *case)):
+            bn_row[key] += n * v
+    bound_ms, bound_by = bound_of(bn_row["bytes"], bn_row["ops"])
+    print(f"[infer] bn_act_fwd over one forward's {bn_row['calls']} calls "
+          f"at {len(calls)} shapes: equal to the plain version; kernel "
+          f"{bn_row['ms']:.4f} ms, plain {bn_row['plain_ms']:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}), "
+          f"{100 * bound_ms / bn_row['ms']:.1f}% of the bound; library none "
+          f"({card})")
+    bn_row = {"replaces": "deep_vision_tpu/ops/pallas/bn_act.py:78",
+              "max_abs_err": 0.0, "ms": bn_row["ms"],
+              "plain_ms": bn_row["plain_ms"], "bound_ms": bound_ms,
+              "bound_by": bound_by, "library_ms": None}
+    ln_row = layer_norm_cases(torch, dev, card, cases=[
+        ((INFER_IMAGES, 196, 384), torch.float32, torch.float32, "normal",
+         INFER_LAUNCHES["vit_s16"][2])], tag="[infer]")["layer_norm_fwd"]
+    nms_row = nms_at_eval(torch, dev, yolo, x_yolo, card, score=0.3,
+                          tag="[infer]", what="infer -m yolov3_voc's inputs")
+    del yolo, resnet, x_yolo, x_res
+    torch.cuda.empty_cache()
+    nms_row["replaces"] = "deep_vision_tpu/ops/pallas/nms.py:42"
+    entries = [{"name": f"{kernel}[infer -m {config}]", "route": "cuda",
+                "source": f"deep_vision_tpu_torch/csrc/{source}",
+                "launches": launches[config][kernel], **row}
+               for kernel, source, row, config in (
+                   ("bn_act_fwd", "bn_act.cu", bn_row, "resnet50"),
+                   ("layer_norm_fwd", "norm.cu", ln_row, "vit_s16"),
+                   ("nms", "nms.cu", nms_row, "yolov3_voc"))]
+    print(f"[infer] {len(INFER_LAUNCHES)} families through infer.main, "
+          f"resnet50 and yolov3_voc against --device cpu, the path's "
+          f"kernels at its shapes in {time.perf_counter() - t_phase:.1f} s "
+          f"({card})")
+    return entries
+
+
 def main():
     import torch
 
@@ -4020,6 +4477,13 @@ def main():
         # -- 10. GAN, pose and CenterNet training ----------------------
         gan_pose_entries = gan_pose_phase(torch, dev, card, tmp, env)
         elapsed("phase 10 (gan_pose) done")
+        torch.cuda.empty_cache()
+        # -- 11. the inference CLI on the checkpoints of phases 6 and 10 -
+        infer_entries = infer_phase(torch, dev, card, tmp, {
+            "resnet50": os.path.join(tmp, "ck_t"),
+            "hourglass_mpii": os.path.join(tmp, "gp_hourglass_mpii_ck"),
+            "centernet_coco": os.path.join(tmp, "gp_centernet_coco_ck")})
+        elapsed("phase 11 (infer) done")
     for name, n in launches.items():
         if name not in bn_rows:
             continue
@@ -4048,9 +4512,9 @@ def main():
         kernels.append({"name": f"{name}[vmoe_s16]", "route": "cuda",
                         "source": "deep_vision_tpu_torch/csrc/norm.cu",
                         "launches": vmoe_launches[name], **vmoe_rows[name]})
-    kernels += det_entries + gan_pose_entries
+    kernels += det_entries + gan_pose_entries + infer_entries
 
-    # -- 11. report ----------------------------------------------------------
+    # -- 12. report ----------------------------------------------------------
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,31 +1,43 @@
 """Dataset -> sharded record conversion, the port of
-deep_vision_tpu/tools/converters.py:43-273 and :498-584: the VOC, COCO,
-MPII, ImageNet and CycleGAN converters, with the reference's field
-names, so shards interoperate both ways, written through the port's
-`RecordWriter`.
+deep_vision_tpu/tools/converters.py: the VOC, COCO, MPII, ImageNet and
+CycleGAN converters, with the reference's field names, so shards
+interoperate both ways, written through the port's `RecordWriter`, and
+the steps before them that write no records (ImageNet's bbox CSV and
+flattened layout, the CelebA domain split).
 
 - VOC: XML parse and a normalized-bbox Example (Datasets/VOC2007/
   tfrecords.py:38-95, 124-155), splits from ImageSets/Main (:163-175).
 - COCO: instances JSON -> per-image annotations with dense category ids
   (Datasets/MSCOCO/tfrecords.py:135+), the same Example.
 - ImageNet: the synset label from the flattened file name and a label
-  Example (Datasets/ILSVRC2012/build_imagenet_tfrecord.py:184+).
+  Example (Datasets/ILSVRC2012/build_imagenet_tfrecord.py:184+), with
+  the boxes of a bbox CSV where one is given; the CSV from the bbox
+  XMLs (process_bounding_boxes.py) and the flattened train/val layout
+  from the raw download (untar-script.sh, flatten-script.sh,
+  flatten-val-script.sh).
 - MPII: a preprocessed people JSON -> keypoint Examples
   (Datasets/MPII/tfrecords_mpii.py:65-84).
-- CycleGAN: a domain folder's images -> image-only Examples.
+- CycleGAN: a domain folder's images -> image-only Examples, and
+  CelebA split into trainA/trainB by a binary attribute
+  (CycleGAN/tensorflow/celeba.py).
 
 Shards are written by `multiprocessing.Pool` workers started with
 `spawn` (forking a process that runs threads can deadlock), one shard a
-chunk. The CelebA split, ImageNet preparation and bbox-CSV converters
-are not ported yet.
+chunk.
 """
 from __future__ import annotations
 
+import csv
+import glob
 import json
 import multiprocessing as mp
 import os
+import re
+import shutil
+import tarfile
 import xml.etree.ElementTree as ET
-from typing import Callable, Dict, List, Optional, Sequence
+from collections import defaultdict
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from deep_vision_tpu_torch.data.example_codec import encode_example
 from deep_vision_tpu_torch.data.records import RecordWriter
@@ -211,14 +223,201 @@ def coco_annotations(instances_json: str, images_dir: str) -> List[dict]:
 
 # -- ImageNet -------------------------------------------------------------
 
-def imagenet_annotations(root: str, synsets_path: str) -> List[dict]:
+def imagenet_bbox_csv(xml_dir: str, out_csv: str,
+                      synsets_path: Optional[str] = None) -> dict:
+    """ImageNet bbox XMLs -> one CSV line per box: `file,xmin,ymin,xmax,ymax`
+    (Datasets/ILSVRC2012/process_bounding_boxes.py).
+
+    Walks `<xml_dir>/nXXXXXXXX/nXXXXXXXX_YYYY.xml` (or a flat dir of
+    XMLs), normalises each pixel box by the annotator's displayed <size>
+    (not the downloadable image's, hence relative coordinates), clamps to
+    [0, 1], swaps inverted min/max and, with `synsets_path`, keeps the
+    challenge synsets only. A malformed XML is counted and skipped.
+    Returns the counters of the reference's summary.
+    """
+    keep = None
+    if synsets_path:
+        with open(synsets_path) as f:
+            keep = {line.strip().split()[0] for line in f if line.strip()}
+    xmls = sorted(glob.glob(os.path.join(xml_dir, "*", "*.xml"))
+                  + glob.glob(os.path.join(xml_dir, "*.xml")))
+    n_files = n_boxes = n_skipped_files = n_skipped_boxes = 0
+    n_malformed = 0
+    os.makedirs(os.path.dirname(os.path.abspath(out_csv)), exist_ok=True)
+    with open(out_csv, "w", newline="") as out:
+        w = csv.writer(out)
+        for path in xmls:
+            n_files += 1
+            synset = os.path.basename(path).split("_")[0]
+            if keep is not None and synset not in keep:
+                n_skipped_files += 1
+                continue
+            try:
+                root = ET.parse(path).getroot()
+                size = root.find("size")
+                width = float(size.findtext("width"))
+                height = float(size.findtext("height"))
+                if width <= 0 or height <= 0:
+                    raise ValueError(f"degenerate size {width}x{height}")
+                # an XML without <filename> is named after its image
+                fname = (root.findtext("filename")
+                         or os.path.splitext(os.path.basename(path))[0])
+                if not fname.lower().endswith((".jpeg", ".jpg")):
+                    fname += ".JPEG"
+                rows = []
+                for obj in root.iter("object"):
+                    name = obj.findtext("name")
+                    if keep is not None and name not in keep:
+                        n_skipped_boxes += 1
+                        continue
+                    bb = obj.find("bndbox")
+                    x1 = min(max(float(bb.findtext("xmin")) / width, 0.0), 1.0)
+                    y1 = min(max(float(bb.findtext("ymin")) / height, 0.0), 1.0)
+                    x2 = min(max(float(bb.findtext("xmax")) / width, 0.0), 1.0)
+                    y2 = min(max(float(bb.findtext("ymax")) / height, 0.0), 1.0)
+                    if x1 > x2:  # an inverted human annotation
+                        x1, x2 = x2, x1
+                    if y1 > y2:
+                        y1, y2 = y2, y1
+                    rows.append([fname, f"{x1:.4f}", f"{y1:.4f}",
+                                 f"{x2:.4f}", f"{y2:.4f}"])
+            except Exception as e:
+                n_malformed += 1
+                print(f"imagenet_bbox_csv: skipping malformed {path}: "
+                      f"{type(e).__name__}: {e}")
+                continue
+            for row in rows:
+                w.writerow(row)
+                n_boxes += 1
+    return {"files": n_files, "boxes": n_boxes,
+            "skipped_files": n_skipped_files,
+            "skipped_boxes": n_skipped_boxes,
+            "malformed_files": n_malformed}
+
+
+def load_bbox_csv(csv_path: str) -> dict:
+    """A CSV from `imagenet_bbox_csv` -> {file stem: [[x1, y1, x2, y2],
+    ...]}, keyed on the stem so that .jpg/.png files on disk match the
+    CSV's .JPEG names."""
+    boxes = defaultdict(list)
+    with open(csv_path, newline="") as f:
+        for row in csv.reader(f):
+            if len(row) != 5:
+                continue
+            boxes[os.path.splitext(row[0])[0]].append(
+                [float(v) for v in row[1:]])
+    return dict(boxes)
+
+
+def _place(src: str, dst: str, move: bool) -> None:
+    """Hardlink (same filesystem, no extra disk), else copy; or move."""
+    if move:
+        shutil.move(src, dst)
+        return
+    try:
+        os.link(src, dst)
+    except OSError:
+        shutil.copy2(src, dst)
+
+
+def prepare_imagenet(out_dir: str,
+                     train_tars: Optional[str] = None,
+                     train_dir: Optional[str] = None,
+                     val_dir: Optional[str] = None,
+                     val_synsets: Optional[str] = None,
+                     move: bool = False) -> Dict[str, int]:
+    """The raw ILSVRC2012 download -> the flattened layout that
+    `imagenet_annotations` reads (untar-script.sh, flatten-script.sh and
+    flatten-val-script.sh, without their second copy on disk).
+
+    - `train_tars`: a directory of per-synset `nXXXXXXXX.tar` files,
+      whose `nXXXXXXXX_*.JPEG` members extract straight into
+      `<out_dir>/train_flatten/`;
+    - `train_dir`: or an untarred tree of per-synset folders, whose files
+      are hardlinked (moved with `move=True`) into `train_flatten/`;
+    - `val_dir` with `val_synsets`: the flat `ILSVRC2012_val_*.JPEG`
+      folder and imagenet_2012_validation_synset_labels.txt (line i =
+      the synset of image i + 1); files land in `<out_dir>/val_flatten/`
+      as `<synset>_<name>`, paired by the index parsed from each name.
+
+    Returns the files a split; existing destinations are kept.
+    """
+    stats = {"train": 0, "val": 0}
+    if train_tars or train_dir:
+        tdst = os.path.join(out_dir, "train_flatten")
+        os.makedirs(tdst, exist_ok=True)
+    if train_tars:
+        for t in sorted(t for t in os.listdir(train_tars)
+                        if t.endswith(".tar")):
+            with tarfile.open(os.path.join(train_tars, t)) as tf:
+                for m in tf.getmembers():
+                    if not m.isfile():
+                        continue
+                    dst = os.path.join(tdst, os.path.basename(m.name))
+                    if not os.path.exists(dst):
+                        with tf.extractfile(m) as src, open(dst, "wb") as f:
+                            shutil.copyfileobj(src, f)
+                    stats["train"] += 1
+    if train_dir:
+        for synset in sorted(os.listdir(train_dir)):
+            sdir = os.path.join(train_dir, synset)
+            if not os.path.isdir(sdir):
+                continue
+            for name in sorted(os.listdir(sdir)):
+                dst = os.path.join(tdst, name)
+                if not os.path.exists(dst):
+                    _place(os.path.join(sdir, name), dst, move)
+                stats["train"] += 1
+    if val_dir:
+        if not val_synsets:
+            raise ValueError(
+                "val_dir requires val_synsets "
+                "(imagenet_2012_validation_synset_labels.txt)")
+        with open(val_synsets) as f:
+            labels = [line.strip() for line in f if line.strip()]
+        vdst = os.path.join(out_dir, "val_flatten")
+        os.makedirs(vdst, exist_ok=True)
+        names = [n for n in os.listdir(val_dir)
+                 if n.lower().endswith((".jpeg", ".jpg", ".png"))]
+
+        # paired by the parsed index, never by name order: a renamed file
+        # would shift every later label while the counts still agree
+        def val_index(name: str) -> int:
+            m = re.match(r"ILSVRC2012_val_(\d{8})\.", name)
+            if not m:
+                raise ValueError(
+                    f"unrecognized validation image name {name!r} in "
+                    f"{val_dir}: expected ILSVRC2012_val_NNNNNNNN.<ext>; "
+                    "refusing to pair images with synset labels")
+            return int(m.group(1))
+
+        names.sort(key=val_index)
+        if len(names) != len(labels):
+            raise ValueError(
+                f"{len(names)} val images but {len(labels)} synset labels")
+        for i, name in enumerate(names):
+            if val_index(name) != i + 1:
+                raise ValueError(
+                    f"validation set has a gap: expected index {i + 1}, "
+                    f"found {name!r} — labels would misalign from here on")
+        for name, synset in zip(names, labels):
+            dst = os.path.join(vdst, f"{synset}_{name}")
+            if not os.path.exists(dst):
+                _place(os.path.join(val_dir, name), dst, move)
+            stats["val"] += 1
+    return stats
+
+
+def imagenet_annotations(root: str, synsets_path: str,
+                         bbox_csv: Optional[str] = None) -> List[dict]:
     """Flattened `nXXXXXXXX_*.JPEG` folder -> annotations with 1-based labels
     (0 reserved for background, build_imagenet_tfrecord.py convention).
-    The reference's `bbox_csv` option, which attaches boxes per filename,
-    waits for the bbox-CSV converter."""
+    With `bbox_csv` (from imagenet_bbox_csv), each file's boxes attach by
+    its stem and land in the Example's image/object/bbox/* fields."""
     with open(synsets_path) as f:
         synsets = [line.strip().split()[0] for line in f if line.strip()]
     label_of = {s: i + 1 for i, s in enumerate(synsets)}
+    boxes_of = load_bbox_csv(bbox_csv) if bbox_csv else {}
     annos = []
     for name in sorted(os.listdir(root)):
         if not name.lower().endswith((".jpeg", ".jpg", ".png")):
@@ -230,6 +429,7 @@ def imagenet_annotations(root: str, synsets_path: str) -> List[dict]:
                 "filepath": os.path.join(root, name),
                 "synset": synset,
                 "label": label_of[synset],
+                "bboxes": boxes_of.get(os.path.splitext(name)[0], []),
             }
         )
     return annos
@@ -260,6 +460,16 @@ def imagenet_example(anno: dict) -> Optional[dict]:
         "image/filename": [anno["filename"].encode()],
         "image/encoded": [content],
     }
+    # the boxes of a bbox CSV (build_imagenet_tfrecord.py:184-254): min
+    # and max lists and the image's label once a box; the classifiers'
+    # read path ignores them
+    if anno.get("bboxes"):
+        bbs = anno["bboxes"]
+        ex["image/object/bbox/xmin"] = [float(b[0]) for b in bbs]
+        ex["image/object/bbox/ymin"] = [float(b[1]) for b in bbs]
+        ex["image/object/bbox/xmax"] = [float(b[2]) for b in bbs]
+        ex["image/object/bbox/ymax"] = [float(b[3]) for b in bbs]
+        ex["image/object/bbox/label"] = [anno["label"]] * len(bbs)
     return ex
 
 
@@ -325,3 +535,47 @@ def image_only_example(anno: dict) -> Optional[dict]:
         content = f.read()
     return {"image/encoded": [content],
             "image/filename": [anno["filename"].encode()]}
+
+
+def celeba_split(attr_file: str, images_dir: str, out_dir: str,
+                 attribute: str = "Male", copy: bool = True
+                 ) -> Tuple[int, int]:
+    """Split CelebA into trainA/trainB domain folders by a binary
+    attribute, looked up by name in list_attr_celeba.txt's header
+    (CycleGAN/tensorflow/celeba.py, which hardcodes the gender column's
+    byte offsets): +1 -> trainA, -1 -> trainB. Rows whose image is
+    missing are skipped; none found raises. -> (n_trainA, n_trainB)."""
+    with open(attr_file) as fp:
+        fp.readline()  # line 1: the image count
+        names = fp.readline().split()  # line 2: the attribute names
+        if attribute not in names:
+            raise ValueError(f"attribute {attribute!r} not in {names}")
+        col = names.index(attribute)
+        rows = [line.split() for line in fp if line.strip()]
+
+    dir_a = os.path.join(out_dir, "trainA")
+    dir_b = os.path.join(out_dir, "trainB")
+    os.makedirs(dir_a, exist_ok=True)
+    os.makedirs(dir_b, exist_ok=True)
+    counts = [0, 0]
+    n_skipped = 0
+    for row in rows:
+        filename, flags = row[0], row[1:]
+        value = int(flags[col])
+        if value not in (-1, 1):
+            raise ValueError(f"bad attribute value {value} for {filename}")
+        src = os.path.join(images_dir, filename)
+        if not os.path.exists(src):
+            n_skipped += 1
+            continue
+        dst_dir = dir_a if value == 1 else dir_b
+        if copy:
+            shutil.copyfile(src, os.path.join(dst_dir, filename))
+        counts[0 if value == 1 else 1] += 1
+    if rows and not (counts[0] or counts[1]):
+        raise FileNotFoundError(
+            f"none of the {len(rows)} listed images exist under "
+            f"{images_dir!r} — wrong --images-dir?")
+    if n_skipped:
+        print(f"celeba_split: skipped {n_skipped} rows with missing images")
+    return counts[0], counts[1]

@@ -163,8 +163,7 @@ def test_imagenet_converter_equals_the_references(tmp_path):
                                             str(tmp_path / "synsets.txt"))
     want_annos = ref_converters.imagenet_annotations(
         str(root), str(tmp_path / "synsets.txt"))
-    assert annos == [{k: v for k, v in a.items() if k != "bboxes"}
-                     for a in want_annos]
+    assert annos == want_annos
     assert convert.main(["imagenet", "--root", str(root), "--synsets",
                          str(tmp_path / "synsets.txt"), "--out-dir",
                          str(tmp_path / "port"), "--num-shards", "2",
@@ -179,10 +178,21 @@ def test_imagenet_converter_equals_the_references(tmp_path):
     assert labels == [synsets.index(a["synset"]) for a in annos]
 
 
-def test_unported_subcommands_are_unknown():
-    with pytest.raises(SystemExit):
-        convert.main(["celeba", "--attr-file", "x", "--images-dir", "y",
-                      "--out-dir", "z"])
+def test_unported_subcommands_are_unknown(capsys):
+    """Every subcommand of the reference's CLI is known to the port's
+    (`--help` exits 0), and one that neither has is refused (exit 2)."""
+    from deep_vision_tpu.tools.convert import main as ref_main
+
+    for name in ("voc", "coco", "mpii", "imagenet", "prepare-imagenet",
+                 "imagenet_bboxes", "cyclegan", "celeba"):
+        for main in (convert.main, ref_main):
+            with pytest.raises(SystemExit) as e:
+                main([name, "--help"])
+            assert e.value.code == 0, name
+    with pytest.raises(SystemExit) as e:
+        convert.main(["imagenet21k", "--out-dir", "z"])
+    assert e.value.code == 2
+    assert "invalid choice: 'imagenet21k'" in capsys.readouterr().err
 
 
 # -- the variable bridge ------------------------------------------------------
