@@ -45,13 +45,24 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            stream, response checks, the NMS launch count against the
            batch count, one batch against the same predictor with the
            plain NMS, per-bucket latency, SLO quantiles, drain ledger;
+           the Server runs under its black box (a journal, an installed
+           Tracer and FlightRecorder, the lock sanitizer armed by
+           DVT_LOCKSMITH=1): the stream's serve_batch rows, serve/batch
+           spans and NMS launches equal in count, a trace id a request,
+           no lock-order violation, no bundle after the clean close;
+           then a second short Server drained on SIGTERM leaves one
+           `preempt` bundle that validate_bundle accepts (its bytes, and
+           a manual dump's bytes and ms);
            then NMS at the served batch's inputs: M per image, passes,
            one call under CUDA's sync debug mode (a host sync raises),
            kernel and plain times at B = 8 and the kernel's at B = 1;
 5. train   the flagship step (ResNet-50, s2d stem, bf16, batch 128,
            SGD) through the port's Trainer: warm-up and timed steps,
            48 + 48 bn_act and 53 + 53 moments launches per step, a finite
-           and falling loss;
+           and falling loss; the step as fit runs it
+           (`_single_step_and_log`: the step, its train/step span, the
+           host read of its metrics) timed with a Tracer installed and
+           without, alternated (TRACED_STEPS);
            then one float32 step at batch 8 on the card (kernels)
            against the same step on the CPU (plain versions); then
            ViT-S/16 at 512x512 (bf16, batch 64, AdamW + warmup-cosine)
@@ -68,7 +79,7 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            imports, whose chain adds the Rescale), read through a
            RecordDataset, the reference's ImageNet train chain and a
            DataLoader of batch 128; the host chain's images/s with 8 and
-           16 thread workers, and for JPEG records also 4 and 8 worker
+           16 thread workers, and for JPEG records also 4 worker
            processes (feed_modes); then
            Trainer(device_prefetch=2).fit over the loader: a checked
            epoch (48 + 48 bn_act and 53 + 53 moments launches a step, a
@@ -93,8 +104,11 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            trains 2 epochs and run B 1 epoch, then `-c` to 2 in a fresh
            process: B's second epoch must read A's batches (checksums
            from a sitecustomize hook) and its final checkpoint must equal
-           A's bitwise; run S gets SIGTERM mid-epoch, must exit 0 after a
-           preempt save, and its `-c` resume must finish every step; then
+           A's bitwise; run S, with --trace and --flight-dir, gets
+           SIGTERM mid-epoch and must exit 75 (the requeue code) after a
+           preempt save, with a trace of one train/step span a step and
+           one valid `preempt` bundle, and its `-c` resume must finish
+           every step; then
            in this process the CLI's route (build_dataloaders,
            build_trainer) on the first batch: its step loss against run
            A's first step, every float32 bn_act and moments call of the
@@ -199,6 +213,7 @@ import io
 import json
 import os
 import re
+import shutil
 import signal
 import statistics
 import subprocess
@@ -286,6 +301,11 @@ SPIN_CYCLES = 50_000_000
 L2_FLUSH_BYTES = 100 * 2**20
 TRAIN_BATCH = 128
 WARMUP_STEPS, TIMED_STEPS = 3, 10
+#: phase 5: the flagship step through Trainer._single_step_and_log, as
+#: fit runs it, with a Tracer installed and without: runs alternated
+#: untraced, traced, traced, untraced, TRACED_STEPS steps each, the
+#: first TRACED_WARMUP of each run left out of its median
+TRACED_STEPS, TRACED_WARMUP = 12, 2
 CHECK_BATCH = 8
 #: the float32 batch-8 step, card (kernels) against CPU (plain versions):
 #: loss and grad norm relative; each parameter's update and each running
@@ -297,13 +317,15 @@ CHECK_TOL = {"loss": 1e-4, "grad_norm": 1e-3, "update": 2e-2, "stats": 1e-3}
 #: phase 5b: one epoch of the fed step, 8 batches of 128
 FEED_IMAGES, FEED_SHARDS, FEED_SIZE = 1024, 8, 256
 FEED_DEPTH = 2
-#: the feed's worker modes, measured alone and in the fed step: all four
+#: the feed's worker modes, measured alone and in the fed step: all three
 #: for JPEG records, the thread modes for raw ones (each worker-process
 #: mode costs ~12 s of spawning a reading, and the decode-free raw
-#: records are not what a process pool is for)
+#: records are not what a process pool is for). One process mode: the
+#: 8-process one took ~40 s of a run near its 1,200 s limit (PERF.md
+#: keeps its last readings)
 HOST_CHAIN_MODES = ({"num_workers": 8, "num_procs": 0},
                     {"num_workers": 16, "num_procs": 0},
-                    {"num_procs": 4}, {"num_procs": 8})
+                    {"num_procs": 4})
 
 
 def feed_modes(encoding):
@@ -1441,6 +1463,243 @@ def train_phase(torch, trainer, batch, card):
     return launches, step_ms, wall_ms
 
 
+def serve_black_box(tmp):
+    """Phase 4's black box for the serving run: a journal, the lock
+    sanitizer armed by DVT_LOCKSMITH=1 (arm_from_env, as train_cli
+    arms it), an installed Tracer and an installed FlightRecorder that
+    taps the journal. -> (journal, sanitizer, tracer, recorder)."""
+    from deep_vision_tpu_torch.obs import flight, locksmith, trace
+    from deep_vision_tpu_torch.obs.journal import RunJournal
+
+    journal = RunJournal(os.path.join(tmp, "serve.jsonl"), kind="serve")
+    journal.manifest(config={"name": "chip_smoke_serve",
+                             "task": "serving"})
+    prev = os.environ.get("DVT_LOCKSMITH")
+    os.environ["DVT_LOCKSMITH"] = "1"
+    try:
+        sanitizer = locksmith.arm_from_env(journal=journal)
+    finally:  # the CLI subprocesses of later phases run disarmed
+        if prev is None:
+            del os.environ["DVT_LOCKSMITH"]
+        else:
+            os.environ["DVT_LOCKSMITH"] = prev
+    check(sanitizer is not None, "DVT_LOCKSMITH=1 did not arm")
+    tracer = trace.Tracer(os.path.join(tmp, "serve.trace.json"),
+                          run_id=journal.run_id)
+    trace.set_tracer(tracer)
+    recorder = flight.FlightRecorder(os.path.join(tmp, "flight"),
+                                     run_id=journal.run_id)
+    recorder.attach(journal)
+    flight.set_flight(recorder)
+    return journal, sanitizer, tracer, recorder
+
+
+def spans_of(path):
+    """A trace file's complete events, parsed (fails if it is not JSON
+    with a traceEvents list)."""
+    with open(path) as f:
+        doc = json.load(f)
+    check(isinstance(doc.get("traceEvents"), list),
+          f"{path} has no traceEvents list")
+    return [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+
+
+def bundle_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def serve_sigterm_drain(torch, engine, journal, recorder, requests, card):
+    """Phase 4: a second short Server drained on SIGTERM must leave one
+    `preempt` flight bundle that the port's validate_bundle accepts.
+    -> the bundle's path."""
+    from deep_vision_tpu_torch.obs import flight
+    from deep_vision_tpu_torch.serve import Server
+
+    fdir = recorder.flight_dir
+    check(flight.find_bundles(fdir) == [],
+          f"the clean drain left bundles {flight.find_bundles(fdir)}")
+    server = Server(engine, journal=journal, max_wait_ms=60_000).start()
+    prev = signal.getsignal(signal.SIGTERM)
+    try:
+        server.install_sigterm()
+        futs = [server.submit("yolov3", requests[i]) for i in range(2)]
+        os.kill(os.getpid(), signal.SIGTERM)
+        check(server.wait_for_stop(timeout=60), "SIGTERM did not stop the "
+              "second server")
+        t0 = time.perf_counter()
+        summary = server.drain("sigterm")
+        drain_ms = (time.perf_counter() - t0) * 1e3
+        for f in futs:
+            f.result(timeout=300)
+    finally:
+        server.uninstall_sigterm()
+        signal.signal(signal.SIGTERM, prev)
+    bundles = flight.find_bundles(fdir)
+    check(summary["outcome"] == "flushed" and summary["completed"] == 2,
+          f"the SIGTERM drain: {summary}")
+    check(len(bundles) == 1 and bundles == [summary["flight_bundle"]]
+          and bundles[0].endswith("-preempt"),
+          f"the SIGTERM drain left bundles {bundles}")
+    errors = flight.validate_bundle(bundles[0])
+    check(errors == [], f"the preempt bundle is not valid: {errors}")
+    t0 = time.perf_counter()
+    manual = recorder.dump("manual")
+    dump_ms = (time.perf_counter() - t0) * 1e3
+    check(flight.validate_bundle(manual) == [], "the manual bundle")
+    print(f"[serve] SIGTERM drain of a second server: {summary['completed']}"
+          f" requests flushed in {drain_ms:.1f} ms (the preempt dump "
+          f"included); one valid preempt bundle of "
+          f"{bundle_bytes(bundles[0])} B "
+          f"({sorted(os.listdir(bundles[0]))}); a manual dump of the same "
+          f"rings: {bundle_bytes(manual)} B in {dump_ms:.2f} ms, host "
+          f"clock ({card})")
+    return bundles[0]
+
+
+def serve_stream(server, requests):
+    """Phase 4's request stream: the BURSTS, each submitted from this
+    thread and waited for. -> (rows, seconds, median host us a submit)."""
+    rows, submit_us = [], []
+    t0 = time.perf_counter()
+    for burst in BURSTS:
+        t = time.perf_counter()
+        futs = [server.submit("yolov3", requests[i]) for i in range(burst)]
+        submit_us.append((time.perf_counter() - t) / burst * 1e6)
+        rows += [f.result(timeout=300) for f in futs]
+    return rows, time.perf_counter() - t0, statistics.median(submit_us)
+
+
+def bare_stream(engine, requests, armed, card):
+    """Phase 4: the same stream through a Server with no journal, tracer,
+    recorder or sanitizer, in the same process after the armed one, so
+    the two read what the armed black box costs the stream. `armed` is
+    the armed stream's (batches, seconds, us a submit)."""
+    from deep_vision_tpu_torch.serve import Server
+
+    server = Server(engine, max_wait_ms=5.0).start()
+    rows, secs, submit_us = serve_stream(server, requests)
+    summary = server.close()
+    batches = server.slo.report()["yolov3"]["batches"]
+    check(summary["completed"] == len(rows) == sum(BURSTS),
+          f"the bare stream: {summary}")
+    print(f"[serve] the stream without the black box: {batches} batches, "
+          f"{secs:.3f} s, {submit_us:.1f} us a submit; armed (journal, "
+          f"tracer, recorder, lock sanitizer): {armed[0]} batches, "
+          f"{armed[1]:.3f} s, {armed[2]:.1f} us a submit; host clock, "
+          f"max_wait_ms 5 ({card})")
+
+
+def serve_stream_checks(journal, sanitizer, tracer, launches, batches,
+                        card):
+    """Phase 4, after the stream's clean close: its serve_batch rows,
+    serve/batch spans and NMS launches agree in count, each request has
+    its own trace id, and the armed sanitizer has seen no lock-order
+    violation."""
+    from deep_vision_tpu_torch.obs.journal import read_journal
+
+    tracer.flush()
+    rows = read_journal(journal.path)
+    spans = spans_of(tracer.path)
+    report = sanitizer.report()
+    n_rows = sum(r["event"] == "serve_batch" for r in rows)
+    n_spans = sum(e["name"] == "serve/batch" for e in spans)
+    requests = [r for r in rows if r["event"] == "serve_request"]
+    print(f"[serve] black box: {n_rows} serve_batch rows, {n_spans} "
+          f"serve/batch spans, {launches} nms launches, {batches} batches; "
+          f"{len(requests)} serve_request rows with "
+          f"{len({r['trace_id'] for r in requests})} trace ids; "
+          f"{len(spans)} spans in {os.path.getsize(tracer.path)} B of "
+          f"trace; lock sanitizer: {len(report['violations'])} violations,"
+          f" {sum(v['acquisitions'] for v in report['locks'].values())} "
+          f"acquisitions of {sorted(report['locks'])}, longest hold "
+          f"{report['max_hold_ms']} ms ({report['max_hold_lock']}) "
+          f"({card})")
+    check(n_rows == n_spans == launches == batches,
+          f"serve_batch rows {n_rows}, serve/batch spans {n_spans}, nms "
+          f"launches {launches} and batches {batches} differ")
+    check(report["violations"] == [] and not any(
+        r["event"] == "lock_order_violation" for r in rows),
+        f"lock-order violations: {report['violations']}")
+    check(sum(e["name"] == "serve/warmup" for e in spans) == len(BUCKETS),
+          "a serve/warmup span a bucket")
+    check(len({r["trace_id"] for r in requests}) == len(requests),
+          "each request its own trace id")
+
+
+def close_serve_black_box(journal, sanitizer, tracer, recorder):
+    """Phase 4: disarm the sanitizer (still no violation after the
+    SIGTERM drain), close the tracer, the recorder and the journal; the
+    journal has the preempt bundle's flight_dump event."""
+    from deep_vision_tpu_torch.obs import flight, locksmith, trace
+    from deep_vision_tpu_torch.obs.journal import read_journal
+
+    violations = sanitizer.violations()
+    locksmith.disarm()
+    trace.set_tracer(None)
+    tracer.close()
+    recorder.close()
+    journal.close()
+    rows = read_journal(journal.path)
+    check(violations == [] and not any(
+        r["event"] == "lock_order_violation" for r in rows),
+        f"lock-order violations: {violations}")
+    check(any(r["event"] == "flight_dump" and r["reason"] == "preempt"
+              and r["outcome"] == "written" for r in rows),
+          "no flight_dump event for the preempt bundle")
+    check(rows[-1]["event"] == "exit", "the serving journal has no exit")
+    check(flight.get_flight() is None, "the recorder stayed installed")
+    spans_of(tracer.path)
+
+
+def traced_step_times(torch, trainer, batch, card, tmp):
+    """Phase 5: the flagship step through `_single_step_and_log` (the
+    step, its `train/step` span and the one host read of its metrics, as
+    fit runs it) with a Tracer installed and without, alternated in one
+    process: untraced, traced, traced, untraced. -> (untraced ms, traced
+    ms), medians of the wall clock a step."""
+    from deep_vision_tpu_torch.obs import trace
+
+    times = {"untraced": [], "traced": []}
+    spans = 0
+    for i, mode in enumerate(("untraced", "traced", "traced", "untraced")):
+        tracer = None
+        if mode == "traced":
+            tracer = trace.Tracer(os.path.join(tmp, f"step{i}.trace.json"))
+            trace.set_tracer(tracer)
+        trainer.logger.start_epoch()
+        try:
+            torch.cuda.synchronize()
+            for k in range(TRACED_STEPS):
+                t0 = time.perf_counter()
+                trainer._single_step_and_log(batch, epoch=0)
+                if k >= TRACED_WARMUP:
+                    times[mode].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            if tracer is not None:
+                trace.set_tracer(None)
+                tracer.close()
+        if tracer is not None:
+            steps = [e for e in spans_of(tracer.path)
+                     if e["name"] == "train/step"]
+            check(len(steps) == TRACED_STEPS and all(
+                "step" in e["args"] for e in steps),
+                f"{len(steps)} train/step spans over {TRACED_STEPS} steps")
+            spans += len(steps)
+            span_us = statistics.median(e["dur"] for e in steps)
+            size = os.path.getsize(tracer.path)
+    untraced = statistics.median(times["untraced"])
+    traced = statistics.median(times["traced"])
+    print(f"[train] flagship step through _single_step_and_log, wall "
+          f"clock a step (host read of the metrics included), median of "
+          f"{len(times['traced'])}: untraced {untraced:.3f} ms, traced "
+          f"{traced:.3f} ms ({(traced / untraced - 1) * 100:+.2f}%); "
+          f"{spans} train/step spans, median span {span_us:.1f} us (the "
+          f"host's issue time of a step), {size} B of trace a run of "
+          f"{TRACED_STEPS} steps ({card})")
+    return untraced, traced
+
+
 def checksum_weights(n):
     """Position weights of the placement checksums: 1..65521, cycling."""
     return np.arange(n, dtype=np.int64) % 65521 + 1
@@ -2168,9 +2427,35 @@ def cli_records(tmp):
     return data, env, det
 
 
+def run_s_black_box(rows, trace_path, flight_dir, card):
+    """Phase 6: run S's `--trace` file parses with one `train/step` span
+    a journaled step, and its `--flight-dir` holds one `preempt` bundle
+    that the port's validate_bundle accepts."""
+    from deep_vision_tpu_torch.obs.flight import find_bundles, validate_bundle
+
+    spans = spans_of(trace_path)
+    steps = [r for r in rows if r["event"] == "step"]
+    n_spans = sum(e["name"] == "train/step" for e in spans)
+    check(n_spans == len(steps) > 0, f"run S: {n_spans} train/step spans, "
+          f"{len(steps)} steps")
+    bundles = find_bundles(flight_dir)
+    check(len(bundles) == 1 and bundles[0].endswith("-preempt"),
+          f"run S's flight bundles: {bundles}")
+    errors = validate_bundle(bundles[0])
+    check(errors == [], f"run S's preempt bundle: {errors}")
+    check(any(r["event"] == "flight_dump" and r["reason"] == "preempt"
+              for r in rows), "run S journaled no flight_dump")
+    names = sorted({e["name"] for e in spans})
+    print(f"[cli] run S's black box: {len(spans)} spans ({names}) in "
+          f"{os.path.getsize(trace_path)} B of trace, {n_spans} train/step "
+          f"for {len(steps)} steps; one valid preempt bundle of "
+          f"{bundle_bytes(bundles[0])} B ({card})")
+
+
 def cli_phase(torch, dev, card, tmp, data, env, det):
     """Phase 6: the training CLI in subprocesses, as a user runs it, on
     `cli_records`' data under `tmp`."""
+    from deep_vision_tpu_torch.obs.flight import REQUEUE_EXIT_CODE
     from deep_vision_tpu_torch.obs.journal import read_journal
 
     def path(name):
@@ -2262,11 +2547,14 @@ def cli_phase(torch, dev, card, tmp, data, env, det):
           f"{largest}")
     first_loss = next(r["loss"] for r in a_rows if r["event"] == "step")
 
-    # SIGTERM mid-epoch, then a resume that completes
+    # SIGTERM mid-epoch, traced and with a flight recorder, then a resume
+    # that completes
     s_journal = path("s.jsonl")
+    s_trace, s_flight = path("s.trace.json"), path("s_flight")
     with open(path("s.log"), "w") as out:
         proc = subprocess.Popen(
-            cli_command(data, path("ck_s"), s_journal, CLI_EPOCHS),
+            cli_command(data, path("ck_s"), s_journal, CLI_EPOCHS,
+                        "--trace", s_trace, "--flight-dir", s_flight),
             cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), stdout=out,
             stderr=subprocess.STDOUT)
         try:
@@ -2288,12 +2576,13 @@ def cli_phase(torch, dev, card, tmp, data, env, det):
                 proc.kill()
     s_rows = read_journal(s_journal)
     pre = [r for r in s_rows if r["event"] == "preempt_checkpoint"]
-    check(rc == 0 and len(pre) == 1 and pre[0]["saved"],
-          f"SIGTERM run: exit {rc}, preempt events {pre}:\n"
-          f"{open(path('s.log')).read()[-3000:]}")
+    check(rc == REQUEUE_EXIT_CODE and len(pre) == 1 and pre[0]["saved"],
+          f"SIGTERM run: exit {rc} (want {REQUEUE_EXIT_CODE}), preempt "
+          f"events {pre}:\n{open(path('s.log')).read()[-3000:]}")
     print(f"[cli] run S: SIGTERM after {CLI_SIGTERM_AFTER} steps; exit "
-          f"0 after a preempt save at step {pre[0]['step']}, "
-          f"{t_term:.1f} s after the signal")
+          f"{rc} (the requeue code) after a preempt save at step "
+          f"{pre[0]['step']}, {t_term:.1f} s after the signal")
+    run_s_black_box(s_rows, s_trace, s_flight, card)
     run_cli(cli_command(data, path("ck_s"), s_journal, CLI_EPOCHS, "-c",
                         path("ck_s")), dict(os.environ, PYTHONPATH=ROOT),
             path("s2.log"), "S2 (-c after SIGTERM)")
@@ -4290,6 +4579,8 @@ def main():
           f"{n_params} parameters, built in {time.perf_counter() - t0:.2f} s")
     det = dict(max_detections=MAX_DET, iou_threshold=IOU_THR,
                score_threshold=SCORE_THR)
+    serve_tmp = tempfile.mkdtemp(dir=build.BUILD_DIR)
+    journal, sanitizer, tracer, recorder = serve_black_box(serve_tmp)
     engine = Engine()
     engine.register("yolov3", yolo_predict_fn(model, **det),
                     model.state_dict(), input_shape=(IMAGE, IMAGE, 3),
@@ -4297,7 +4588,7 @@ def main():
     warm = engine.warmup()
     print(f"[serve] warmup {warm['pairs']} buckets in "
           f"{warm['warmup_ms_total']:.1f} ms")
-    server = Server(engine, max_wait_ms=5.0).start()
+    server = Server(engine, journal=journal, max_wait_ms=5.0).start()
 
     requests = [rng.rand(IMAGE, IMAGE, 3).astype(np.float32)
                 for _ in range(max(BURSTS))]
@@ -4307,21 +4598,25 @@ def main():
     flash_attention.launches = 0
     batch_moments.launches = 0
     layer_norm.launches = 0
-    t0 = time.perf_counter()
-    rows = []
-    for burst in BURSTS:
-        futs = [server.submit("yolov3", requests[i]) for i in range(burst)]
-        rows += [f.result(timeout=300) for f in futs]
-    stream_s = time.perf_counter() - t0
+    rows, stream_s, submit_us = serve_stream(server, requests)
     launches = greedy_nms.launches  # ... and ends here
     check(fused_scale_bias_act.launches == 0, "YOLOv3 serving ran bn_act")
     check(flash_attention.launches == 0, "YOLOv3 serving ran flash")
     check(batch_moments.launches == layer_norm.launches == 0,
           "YOLOv3 serving took batch moments or ran a LayerNorm")
+    # the drain joins the dispatchers: a batch's SLO count, journal row
+    # and span land after its requests resolve, so they are read after it
+    summary = server.close()
+    print(f"[serve] drain: {summary}")
+    check(summary["outcome"] == "flushed", "drain did not flush")
+    check(summary["accepted"] == summary["completed"] + summary["errors"]
+          + summary["cancelled"] and summary["completed"] == len(rows),
+          "drain ledger does not balance")
+    check("flight_bundle" not in summary, "a clean close dumped a bundle")
     slo = server.slo.report()["yolov3"]
     print(f"[serve] {len(rows)} requests in {len(BURSTS)} bursts, "
-          f"{slo['batches']} batches, {stream_s:.3f} s; nms launches "
-          f"{launches}")
+          f"{slo['batches']} batches, {stream_s:.3f} s, {submit_us:.1f} us "
+          f"a submit (host clock); nms launches {launches}")
     for row in rows:
         check(row["boxes"].shape == (MAX_DET, 4)
               and row["scores"].shape == (MAX_DET,)
@@ -4373,12 +4668,13 @@ def main():
           f"(histogram bucket bounds) over {slo['requests']} requests "
           f"({card})")
 
-    summary = server.close()
-    print(f"[serve] drain: {summary}")
-    check(summary["outcome"] == "flushed", "drain did not flush")
-    check(summary["accepted"] == summary["completed"] + summary["errors"]
-          + summary["cancelled"] and summary["completed"] == len(rows),
-          "drain ledger does not balance")
+    serve_stream_checks(journal, sanitizer, tracer, launches,
+                        slo["batches"], card)
+    serve_sigterm_drain(torch, engine, journal, recorder, requests, card)
+    close_serve_black_box(journal, sanitizer, tracer, recorder)
+    shutil.rmtree(serve_tmp)
+    bare_stream(engine, requests, (slo["batches"], stream_s, submit_us),
+                card)
 
     # NMS at the main path's inputs: the class-shifted boxes of bucket 8
     shifted = (boxes + cls.to(boxes.dtype)[..., None] * 2.0).contiguous()
@@ -4443,6 +4739,9 @@ def main():
     # -- 5. training ---------------------------------------------------------
     launches, step_ms, wall_ms = train_phase(torch, trainer, train_batch,
                                              card)
+    step_tmp = tempfile.mkdtemp(dir=build.BUILD_DIR)
+    traced_step_times(torch, trainer, train_batch, card, step_tmp)
+    shutil.rmtree(step_tmp)
     del trainer, train_batch
     torch.cuda.empty_cache()
     check_against_cpu(torch, dev)

@@ -6,8 +6,10 @@ as its type raises `KnobError` instead of running the default: a routing
 knob must never no-op on a typo. The port reads the flash attention routing floor
 (`DVT_FLASH_MIN_TOKENS`, knobs.py:113), the fault-injection spec and
 seed that spawned data workers inherit (`DVT_FAULT_SPEC`,
-`DVT_FAULT_SEED`, resilience/faults.py), and its own
-`DVT_DETERMINISTIC`, which the training CLI reads.
+`DVT_FAULT_SEED`, resilience/faults.py), the lock sanitizer's switch
+and thresholds (`DVT_LOCKSMITH`, `DVT_LOCKSMITH_HOLD_MS`,
+`DVT_LOCKSMITH_WAIT_MS`, knobs.py:123-131, obs/locksmith.py), and its
+own `DVT_DETERMINISTIC`, which the training CLI reads.
 """
 from __future__ import annotations
 
@@ -40,7 +42,18 @@ KNOBS = {k.name: k for k in (
          "1: train_cli runs under torch.use_deterministic_algorithms(True) "
          "with cudnn.benchmark off and CUBLAS_WORKSPACE_CONFIG=:4096:8 "
          "(set before CUDA starts), so a run repeats bitwise."),
+    Knob("DVT_LOCKSMITH", "flag", False,
+         "Arm the locksmith runtime lock-order sanitizer "
+         "(obs/locksmith.py) at train_cli start-up."),
+    Knob("DVT_LOCKSMITH_HOLD_MS", "float", 1000.0,
+         "Locksmith hold-time outlier threshold in milliseconds; holds "
+         "past this emit a typed lock_contention event."),
+    Knob("DVT_LOCKSMITH_WAIT_MS", "float", 1000.0,
+         "Locksmith acquire-wait outlier threshold in milliseconds."),
 )}
+
+_TRUE = ("1", "true", "on", "yes")
+_FALSE = ("0", "false", "off", "no")
 
 _UNSET = object()
 
@@ -76,3 +89,34 @@ def get_str(name: str, default=_UNSET) -> Optional[str]:
     if v is None or not v.strip():
         return knob.default if default is _UNSET else default
     return v
+
+
+def get_float(name: str, default=_UNSET) -> Optional[float]:
+    """The knob as a float; unset or blank -> `default` (the registered
+    default when not given); anything else that is not a number raises."""
+    knob = _lookup(name, "float")
+    v = os.environ.get(name)
+    if v is None or not v.strip():
+        return knob.default if default is _UNSET else default
+    try:
+        return float(v)
+    except ValueError:
+        raise KnobError(
+            f"{name}={v!r} is not a number — {knob.doc}") from None
+
+
+def get_flag(name: str, default=_UNSET) -> Optional[bool]:
+    """The knob as a bool: 1/true/on/yes or 0/false/off/no, any case;
+    unset or blank -> `default`; any other value raises."""
+    knob = _lookup(name, "flag")
+    v = os.environ.get(name)
+    if v is None or not v.strip():
+        return knob.default if default is _UNSET else default
+    low = v.strip().lower()
+    if low in _TRUE:
+        return True
+    if low in _FALSE:
+        return False
+    raise KnobError(
+        f"{name}={v!r} is not a flag value "
+        f"({'/'.join(_TRUE)} or {'/'.join(_FALSE)}) — {knob.doc}")

@@ -13,9 +13,13 @@ semantics, and batches are collated into fixed-shape numpy dicts, which
 the Trainer's device prefetch (data/device_prefetch.py) places on the
 card.
 
-Left out for now, with the observability and resilience slices: the
-reference's trace spans and events, flight-recorder notes, and the
-lock-order checks on its locks (plain `threading.Lock` here).
+Observability (obs/): each batch's collate runs under a `data/collate`
+span, its decode and augment work (which spans loop iterations) is one
+`data/augment_batch` event, and each batch the consumer takes off the
+prefetch queue is one `data/fetch` event (not the end-of-epoch
+sentinel); a dead worker's restart leaves a `data_worker_restart` flight
+note; the snapshot ring's lock is the locksmith role
+"data.pipeline.snapshot".
 """
 from __future__ import annotations
 
@@ -29,7 +33,9 @@ import numpy as np
 
 # imports no torch: spawned data workers import this module
 from deep_vision_tpu_torch.data import snapshot as _snapshot
+from deep_vision_tpu_torch.obs import locksmith
 from deep_vision_tpu_torch.obs.registry import get_registry
+from deep_vision_tpu_torch.obs.trace import now_us, span, trace_event
 
 
 class Compose:
@@ -189,7 +195,7 @@ class DataLoader:
         # skip-replay for the next epoch iteration (see load_state_dict).
         self._ring: dict = {}
         self._ring_keys: List[tuple] = []
-        self._ring_lock = threading.Lock()
+        self._ring_lock = locksmith.lock("data.pipeline.snapshot")
         self._consumed_key: Optional[tuple] = None
         self._resume: Optional[_snapshot.DataLoaderState] = None
         self._fp: Optional[str] = None
@@ -411,6 +417,18 @@ class DataLoader:
                             "data_worker_restarts_total",
                             "dead data workers replaced",
                             labels={"loader": self.name}).inc()
+                        # a worker that keeps dying is postmortem context
+                        # for the crash or hang that often follows
+                        try:
+                            from deep_vision_tpu_torch.obs import flight
+
+                            flight.note(
+                                "data_worker_restart", loader=self.name,
+                                worker=wid, delivered=delivered[wid],
+                                restart=restarts[wid],
+                                budget=self.worker_restarts)
+                        except Exception:
+                            pass
                         procs[wid] = spawn(wid, skip=delivered[wid])
                     continue
                 kind = classify(item)
@@ -474,17 +492,26 @@ class DataLoader:
                 if resume is not None else 0)
         buf: List[dict] = []
         bi = skip // self.batch_size  # batches already consumed pre-resume
+        # one batch's decode and augment work spans loop iterations, so it
+        # is an explicit event from the request of its first sample
+        t0 = now_us()
         for s in samples:
             buf.append(s)
             if len(buf) == self.batch_size:
-                batch = self.collate_fn(buf)
+                with span("data/collate", loader=self.name):
+                    batch = self.collate_fn(buf)
+                trace_event("data/augment_batch", t0, loader=self.name,
+                            batch_size=len(buf))
                 bi += 1
                 self._record_snapshot(epoch, bi, epoch_seed, epoch_rng,
                                       budget, budget_start)
                 yield batch
                 buf = []
+                t0 = now_us()
         if buf and not self.drop_remainder:
             batch = self.collate_fn(buf)
+            trace_event("data/augment_batch", t0, loader=self.name,
+                        batch_size=len(buf))
             bi += 1
             # the tail batch's entry is the epoch-end state, written
             # BEFORE the yield (handed = consumed, same as _mark_consumed):
@@ -699,9 +726,14 @@ class DataLoader:
         i = base
         while True:
             depth = q.qsize()
+            t0 = now_us()
             item = q.get()
             if item is sentinel:
-                break  # the end-of-epoch wait is not starvation
+                # the end-of-epoch wait is neither starvation nor fetch
+                # time
+                break
+            trace_event("data/fetch", t0, loader=self.name,
+                        prefetch_depth=depth)
             g_depth.set(depth)
             # skip the first get (the producer just started — inevitably
             # empty): counting it would stamp phantom starvation on every

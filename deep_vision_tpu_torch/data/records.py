@@ -33,7 +33,6 @@ import os
 import random
 import struct
 import sys
-import threading
 import time
 from typing import Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
@@ -41,6 +40,7 @@ from deep_vision_tpu_torch.data.native import (
     masked_crc32c as _masked_crc,
     read_records_native,
 )
+from deep_vision_tpu_torch.obs import locksmith
 from deep_vision_tpu_torch.obs.registry import get_registry
 from deep_vision_tpu_torch.resilience import RetryPolicy
 
@@ -144,7 +144,7 @@ class BadRecordBudget:
         # dead-letter row and stderr line — the original run already
         # emitted them for this prefix
         self.replaying = False
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("data.records.budget")
 
     @classmethod
     def parse(cls, spec: str, **kw) -> "BadRecordBudget":
@@ -163,7 +163,7 @@ class BadRecordBudget:
 
     def __setstate__(self, d):
         self.__dict__.update(d)
-        self._lock = threading.Lock()
+        self._lock = locksmith.lock("data.records.budget")
 
     def describe(self) -> str:
         parts = []

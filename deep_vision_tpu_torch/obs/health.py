@@ -15,8 +15,9 @@ The port of deep_vision_tpu/obs/health.py:47-370, host-side code:
   eval batch) completes within it, every Python thread's stack goes
   into a `health` event (`kind=hang`) and to stderr.
 
-The reference also feeds its flight recorder when no journal is
-attached; that waits for the port of obs/flight.py.
+Findings reach the flight recorder (obs/flight.py) through the
+journal's tap; with no journal they go to the installed recorder
+directly, so a hang or an abort still leaves its bundle.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import traceback
 from collections import deque
 from typing import Optional
 
+from deep_vision_tpu_torch.obs import locksmith
 from deep_vision_tpu_torch.obs.registry import Registry, get_registry
 
 POLICIES = ("warn", "skip_step", "abort")
@@ -98,7 +100,7 @@ class HealthMonitor:
         # watchdog: a monotonic heartbeat and a fire latch (one stall, one
         # dump), both under one lock: the train thread beats, the
         # watchdog thread fires
-        self._wd_lock = threading.Lock()
+        self._wd_lock = locksmith.lock("obs.health.watchdog")
         self._last_beat = time.monotonic()
         self._wd_fired = False
         self._wd_thread: Optional[threading.Thread] = None
@@ -106,8 +108,22 @@ class HealthMonitor:
 
     def _emit(self, kind: str, **fields) -> None:
         if self.journal is not None:
+            # the flight recorder rides the journal's tap
             self.journal.write("health", kind=kind, policy=self.policy,
                                monitor=self.name, **fields)
+            return
+        # journal-less runs still feed the recorder: a hang or an abort
+        # must leave its bundle when nobody asked for a journal
+        try:
+            from deep_vision_tpu_torch.obs import flight
+
+            fr = flight.get_flight()
+            if fr is not None:
+                fr.observe({"event": "health", "ts": round(time.time(), 3),
+                            "kind": kind, "policy": self.policy,
+                            "monitor": self.name, **fields})
+        except Exception:
+            pass
 
     # -- non-finite + divergence checks ------------------------------------
 

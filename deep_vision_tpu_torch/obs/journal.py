@@ -15,24 +15,34 @@ writes:
                 loop spent in it (the write itself is asynchronous: a
                 `note` "checkpoint_written" with write_ms and bytes
                 follows when it lands)
-  health        obs/health.py findings
+  health        obs/health.py findings, and the Server's non-finite
+                outputs (monitor "serve")
+  serve_request, serve_batch, serve_drain  the Server's (serve/router.py)
+  flight_dump   a flight bundle written or failed (obs/flight.py)
+  lock_order_violation, lock_contention  the armed lock sanitizer's
+                (obs/locksmith.py)
   fault, ckpt_quarantine, preempt_checkpoint, data_resume, note
   crash         atexit marker: the process died without close()
   exit          clean close, with status
 
+A row written while a trace context is installed on the writing thread
+(obs/propagate.py `use`) carries its trace_id, span_id and
+parent_span_id, unless the caller passed a trace_id itself (the
+Server's dispatcher stamps each request's own context).
+
 Events it does not write yet, because their modules are not ported:
 StepClock's timing fields on `step` (step_time_ms, data_wait_ms, ...),
 `profile` and `profile_capture`, `retry` (the port's RetryPolicy counts in the
-registry only), `data_skip`, `flight_dump`, the goodput and alert
-planes' rows, `sharding_resolved`, `backend_*`, `host_*`, `excache_*`,
-`telemetry_server`, the serving events and the lock sanitizer's.
+registry only), `data_skip`, the goodput and alert planes' rows,
+`sharding_resolved`, `backend_*`, `host_*`, `excache_*` and
+`telemetry_server`.
 
 The writer flushes every line (a crash loses at most the line in flight)
 and registers an atexit hook that stamps `crash` when close() never ran.
-Taps (`add_tap`) observe every row after it is written; closers
-(`add_closer`) run on close and on the crash path. One process writes
-one file: the reference's per-host `.pN` files come with multi-process
-training.
+Taps (`add_tap`) observe every row after it is written (the flight
+recorder rides one); closers (`add_closer`) run on close and on the
+crash path. One process writes one file: the reference's per-host `.pN`
+journals come with multi-process training.
 """
 from __future__ import annotations
 
@@ -41,9 +51,10 @@ import json
 import os
 import platform
 import sys
-import threading
 import time
 from typing import Callable, List, Optional
+
+from deep_vision_tpu_torch.obs import locksmith, propagate
 
 
 def _jsonable(v):
@@ -74,8 +85,10 @@ class RunJournal:
         self._closers: List[Callable[[], None]] = []
         self._taps: List[Callable[[dict], None]] = []
         # writes come from the train loop and side threads (the health
-        # watchdog): one lock keeps lines whole
-        self._lock = threading.Lock()
+        # watchdog, the Server's dispatchers): one lock keeps lines whole.
+        # The sanitizer checks that nothing holding this lock takes a lock
+        # that is held around a write()
+        self._lock = locksmith.lock("obs.journal")
         self.dropped_lines = 0  # lines lost to journal I/O errors
         d = os.path.dirname(self.path)
         if d:
@@ -138,6 +151,11 @@ class RunJournal:
     def write(self, event: str, **fields) -> None:
         row = {"event": event, "ts": round(time.time(), 3),
                "run_id": self.run_id}
+        # a write under an installed trace context carries its ids; a
+        # caller's own trace_id wins
+        ctx = propagate.current()
+        if ctx is not None and "trace_id" not in fields:
+            row.update(ctx.fields())
         row.update({k: _jsonable(v) for k, v in fields.items()})
         # the fault hook sits outside the lock: a fault that journals its
         # own event re-enters write()

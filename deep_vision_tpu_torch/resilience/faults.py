@@ -5,9 +5,10 @@ Named injection points compile to one module-global None-check when no
 spec is installed. The port fires `ckpt.save`, `ckpt.restore` and
 `ckpt.sidecar` (with its `after_write` stage, the torn-write window
 between the sidecar's tmp write and its rename) in core/checkpoint.py,
-and `journal.flush` in obs/journal.py; the data feed's `data.read` and
-`data.decode` points are registered but not fired yet, and the serving
-and data-service points wait for their modules.
+`journal.flush` in obs/journal.py, and `data.read` at the Server's
+request-decode boundary (serve/router.py submit); the data feed's
+`data.read` and `data.decode` hooks are not fired yet, and the
+replica, transport and data-service points wait for their modules.
 
 Spec grammar (the `--fault-spec` string of the reference's CLI)::
 
@@ -25,8 +26,9 @@ Rate faults draw from a per-rule `random.Random` seeded from
 so spawned data workers inherit the spec (this module installs from them
 at import). A fired fault writes a typed `fault` journal event when a
 journal is attached and adds one to `fault_injected_total{point=,kind=}`.
-The reference's flight-recorder dump before an injected SIGKILL waits for
-the port of obs/flight.py.
+An injected crash first dumps the flight recorder's
+`injected_<kind>` bundle (obs/flight.py), fsynced and renamed before the
+SIGKILL; a failed dump is swallowed and the kill goes ahead.
 """
 from __future__ import annotations
 
@@ -172,7 +174,14 @@ class FaultInjector:
                     f"injected io_error at {point}"
                     + (f" (stage={stage})" if stage else ""))
             # crash / crash_after_write: die as a real preemption does,
-            # with no handlers, no atexit and no flushed buffers
+            # with no handlers, no atexit and no flushed buffers; the
+            # flight bundle is the one artefact written first
+            try:
+                from deep_vision_tpu_torch.obs import flight
+
+                flight.emergency_dump(f"injected_{r.kind}")
+            except Exception:
+                pass
             sys.stderr.write(
                 f"faults: injected {r.kind} at {point} — SIGKILL\n")
             sys.stderr.flush()

@@ -13,8 +13,9 @@ the engine's device), so `set_variables` swaps weights of the same
 shapes with no re-warm, and `clone_with_variables` makes a shadow engine
 over the same warmed menu.
 
-The executable cache and perf-attribution hooks of the JAX engine come
-with the observability slice.
+Each (model, bucket) warmup runs under a `serve/warmup` span
+(obs/trace.py). The executable cache and the perf-attribution hooks of
+the JAX engine have no counterpart yet.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from deep_vision_tpu_torch.core.backend import (
     synchronize,
 )
 from deep_vision_tpu_torch.obs.registry import get_registry
+from deep_vision_tpu_torch.obs.trace import span
 from deep_vision_tpu_torch.serve.buckets import (
     DEFAULT_BUCKETS,
     normalize_buckets,
@@ -122,8 +124,9 @@ class Engine:
                 images = torch.from_numpy(np.zeros(
                     (bucket,) + entry.input_shape, entry.dtype))
                 t0 = time.perf_counter()
-                entry.fn(entry.variables, images.to(self.device))
-                synchronize(self.device)
+                with span("serve/warmup", model=entry.name, bucket=bucket):
+                    entry.fn(entry.variables, images.to(self.device))
+                    synchronize(self.device)
                 ms = (time.perf_counter() - t0) * 1e3
                 self._warm.add((entry.name, bucket))
                 pairs.append({"model": entry.name, "bucket": bucket,

@@ -5,16 +5,17 @@ A request never waits longer than `max_wait_ms` for company, and a batch
 never exceeds `max_batch` (the largest warmed bucket). `close()` stops
 producers (submit raises `QueueClosed`), and `next_batch` then flushes
 what remains in max_batch slices with no lingering, and returns None once
-empty. Plain `threading` locks; the lock-order checker of the JAX
-package's obs/locksmith comes with the observability slice.
+empty. Every queue's condition is the lock role "serve.queue", which
+the armed sanitizer (obs/locksmith.py) checks.
 """
 from __future__ import annotations
 
-import threading
 import time
 from collections import deque
 from concurrent.futures import Future
 from typing import Callable, List, Optional
+
+from deep_vision_tpu_torch.obs import locksmith
 
 
 class QueueClosed(RuntimeError):
@@ -32,9 +33,12 @@ class Request:
     `accounted` latches once the router has counted the request toward
     completed/errors/cancelled, so it lands in exactly one of them.
     `deadline_ts` (perf_counter seconds, or None) is the client's budget.
+    `ctx` carries the request's trace context (obs/propagate.py) from
+    the submitting thread to the dispatcher thread, which the
+    thread-local slot cannot do.
     """
 
-    __slots__ = ("model", "image", "future", "t_submit", "accounted",
+    __slots__ = ("model", "image", "future", "t_submit", "accounted", "ctx",
                  "deadline_ts")
 
     def __init__(self, model: str, image):
@@ -43,6 +47,7 @@ class Request:
         self.future: Future = Future()
         self.t_submit = time.perf_counter()
         self.accounted = False
+        self.ctx = None
         self.deadline_ts: Optional[float] = None
 
 
@@ -58,7 +63,9 @@ class BatchingQueue:
         self.max_wait_s = max(0.0, float(max_wait_ms)) / 1e3
         self._on_depth = on_depth
         self._q: deque = deque()
-        self._cond = threading.Condition()
+        # one lock role for every model's queue: the sanitizer orders
+        # roles, not instances
+        self._cond = locksmith.condition("serve.queue")
         self._closed = False
 
     def submit(self, request: Request) -> None:

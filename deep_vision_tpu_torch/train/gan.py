@@ -36,7 +36,10 @@ returns the next epoch to run. `load_variables` loads one JAX variable
 tree per sub-network (convert.py), strictly.
 
 The profiler ranges `GAN_STEP_RANGE`, `GAN_POOL_RANGE` and the G and D
-step ranges mark the work for tools/profile_train.py. Not ported: the
+step ranges mark the work for tools/profile_train.py, and the trace
+spans `gan/step` (both trainers), `gan/g_step`, `gan/pool`, `gan/d_step`
+(CycleGAN), `checkpoint/save` and `checkpoint/restore` for obs/trace.py,
+as the reference's. Not ported: the
 reference's meshes, StepClock telemetry and autoprof; the per-step
 journal events are the CLI loop's (train_cli.gan_main).
 """
@@ -63,6 +66,7 @@ from deep_vision_tpu_torch.losses.gan import (
     lsgan_generator_loss,
 )
 from deep_vision_tpu_torch.nn.layers import Dropout
+from deep_vision_tpu_torch.obs.trace import span
 from deep_vision_tpu_torch.train.trainer import dropout_step_seed
 
 GAN_STEP_RANGE = "dvt::gan_step"
@@ -153,13 +157,16 @@ class _GanBase:
         `restore` resumes after. Returns whether a save started."""
         states = self.states()
         step = next(iter(states.values())).step
-        return bool(ckpt.save_states(step, states, host_state={
-            "epoch": epoch if completed_epoch is None else completed_epoch}))
+        with span("checkpoint/save", epoch=epoch, step=int(step)):
+            return bool(ckpt.save_states(step, states, host_state={
+                "epoch": (epoch if completed_epoch is None
+                          else completed_epoch)}))
 
     def restore(self, ckpt) -> int:
         """Restore-or-initialize; returns the next epoch to run (0 if
         nothing is saved, or the sidecar has no epoch)."""
-        restored, host = ckpt.restore_states(self.states())
+        with span("checkpoint/restore"):
+            restored, host = ckpt.restore_states(self.states())
         if restored is None:
             return 0
         if not host or "epoch" not in host:
@@ -216,7 +223,8 @@ class DcganTrainer(_GanBase):
         g, d = self.g_state.model, self.d_state.model
         g.train()
         d.train()
-        with torch.profiler.record_function(GAN_STEP_RANGE):
+        with span("gan/step"), torch.profiler.record_function(
+                GAN_STEP_RANGE):
             real = torch.as_tensor(real_images).to(self.device,
                                                    non_blocking=True)
             self._gen.manual_seed(dropout_step_seed(
@@ -310,19 +318,24 @@ class CycleGanTrainer(_GanBase):
         device scalars."""
         for s in self.states().values():
             s.model.train()
-        with torch.profiler.record_function(GAN_STEP_RANGE):
+        with span("gan/step"), torch.profiler.record_function(
+                GAN_STEP_RANGE):
             real_a = torch.as_tensor(real_a).to(self.device,
                                                 non_blocking=True)
             real_b = torch.as_tensor(real_b).to(self.device,
                                                 non_blocking=True)
-            with torch.profiler.record_function(GAN_G_STEP_RANGE):
+            with span("gan/g_step"), torch.profiler.record_function(
+                    GAN_G_STEP_RANGE):
                 g_metrics, fake_a, fake_b = self._g_step(real_a, real_b)
-            with torch.profiler.record_function(GAN_POOL_RANGE):
+            # the pool's host copy is the step's sync point
+            with span("gan/pool"), torch.profiler.record_function(
+                    GAN_POOL_RANGE):
                 fake_a = torch.from_numpy(self.pool_a.query(
                     fake_a.cpu().numpy())).to(self.device)
                 fake_b = torch.from_numpy(self.pool_b.query(
                     fake_b.cpu().numpy())).to(self.device)
-            with torch.profiler.record_function(GAN_D_STEP_RANGE):
+            with span("gan/d_step"), torch.profiler.record_function(
+                    GAN_D_STEP_RANGE):
                 d_metrics = self._d_step(real_a, real_b, fake_a, fake_b)
         self._beat()
         return {**g_metrics, **d_metrics}

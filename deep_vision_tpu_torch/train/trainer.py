@@ -49,8 +49,15 @@ statistics through `torch.func.functional_call` (the training model is
 never swapped), and the shadow is saved by a sibling manager under
 `<ckpt>/ema`. `fit(handle_preemption=True)` installs a
 parallel/multihost.py PreemptionGuard: on SIGTERM the step in flight
-finishes, the state is saved (`_preempt_save`) and fit returns; the
-process exits normally.
+finishes, the state is saved (`_preempt_save`), the run is marked for
+requeue (obs/flight.py `request_requeue`, which train_cli turns into
+exit code 75) and fit returns.
+
+Spans (obs/trace.py, no-ops without an installed Tracer): `train/epoch`
+around each epoch's steps, `train/step` around each step's issue and
+step read (with `step` in its args), `eval`, `checkpoint/save` and
+`checkpoint/restore`. A span brackets host time only: on the card a
+step's span is the time the host took to issue it.
 
 The non-finite skip (health policy `skip_step`, trainer.py:614-627)
 keeps the whole pre-step state when the loss or the gradient norm is
@@ -83,8 +90,8 @@ epoch-boundary saves are exact.
 Not ported yet, and refused by the constructor when set: meshes and
 sharding rules, multistep supersteps, profiler windows (`profile_dir`,
 `autoprof`), checkify, the backend and host supervisors, the executable
-cache and telemetry. StepClock, the trace spans, goodput and alerts wait
-for obs/stepclock.py, obs/trace.py and their planes.
+cache and telemetry. StepClock, goodput and alerts wait for
+obs/stepclock.py and their planes.
 """
 from __future__ import annotations
 
@@ -105,7 +112,9 @@ from deep_vision_tpu_torch.data.device_prefetch import (
     PlacedBatch,
 )
 from deep_vision_tpu_torch.nn.layers import Dropout
+from deep_vision_tpu_torch.obs import flight
 from deep_vision_tpu_torch.obs.registry import get_registry
+from deep_vision_tpu_torch.obs.trace import span
 from deep_vision_tpu_torch.parallel.multihost import PreemptionGuard
 from deep_vision_tpu_torch.train.ema import EmaParams
 from deep_vision_tpu_torch.train.optimizers import set_lr
@@ -372,6 +381,11 @@ class Trainer:
         """The val logger's summary over `eval_data`, each batch weighted
         by its valid rows; a journal `eval` event. A SIGTERM during fit
         ends the pass early."""
+        with span("eval", epoch=epoch):
+            return self._evaluate(eval_data, epoch)
+
+    def _evaluate(self, eval_data: Iterable[dict], epoch: int
+                  ) -> Dict[str, float]:
         self.eval_logger.start_epoch()
         step = 0
         for batch in eval_data:
@@ -415,7 +429,9 @@ class Trainer:
                 if eval_first and eval_data_fn is not None:
                     self.evaluate(eval_data_fn(), epoch=start_epoch)
                 for epoch in range(start_epoch, epochs):
-                    status, summary = self._run_epoch(train_data_fn, epoch)
+                    with span("train/epoch", epoch=epoch):
+                        status, summary = self._run_epoch(train_data_fn,
+                                                          epoch)
                     if status == "preempted":
                         return history
                     status, val = self._post_epoch(summary, eval_data_fn,
@@ -448,8 +464,10 @@ class Trainer:
 
     def _single_step_and_log(self, batch, epoch: int):
         n = self._rows(batch)
-        metrics = self.train_step(batch)
-        opt_step = self.state.step
+        with span("train/step", epoch=epoch) as sp:
+            metrics = self.train_step(batch)
+            opt_step = self.state.step
+            sp.set(step=opt_step)
         lr = self.lr_at(opt_step)
         # one host read for the loggers and the health monitor
         metrics_f = {k: float(v) for k, v in metrics.items()}
@@ -524,21 +542,22 @@ class Trainer:
         the time this call blocked the loop (the manager journals the
         write's own time when it lands)."""
         t0 = time.perf_counter()
-        host_state = {
-            "epoch": epoch,
-            "train_logger": self.logger.state_dict(),
-            "val_logger": self.eval_logger.state_dict(),
-        }
-        if self.plateau is not None:
-            host_state["plateau"] = self.plateau.state_dict()
-        if self.data_loader is not None:
-            host_state["data_state"] = self.data_loader.state_dict()
         step = self.state.step
-        saved = self.ckpt.save(step, self.state, host_state=host_state,
-                               metrics=val_summary)
-        if self._ema_ckpt is not None:
-            self._ema_ckpt.save_tree(step, dict(self.ema.params),
-                                     host_state=self.ema.state_dict())
+        with span("checkpoint/save", epoch=epoch, step=step):
+            host_state = {
+                "epoch": epoch,
+                "train_logger": self.logger.state_dict(),
+                "val_logger": self.eval_logger.state_dict(),
+            }
+            if self.plateau is not None:
+                host_state["plateau"] = self.plateau.state_dict()
+            if self.data_loader is not None:
+                host_state["data_state"] = self.data_loader.state_dict()
+            saved = self.ckpt.save(step, self.state, host_state=host_state,
+                                   metrics=val_summary)
+            if self._ema_ckpt is not None:
+                self._ema_ckpt.save_tree(step, dict(self.ema.params),
+                                         host_state=self.ema.state_dict())
         if self.journal is not None:
             self.journal.write("checkpoint", step=step, epoch=epoch,
                                saved=bool(saved),
@@ -548,7 +567,9 @@ class Trainer:
 
     def _preempt_save(self, epoch: int) -> None:
         """After SIGTERM, at a step boundary: save synchronously, journal
-        `preempt_checkpoint`, and mark the run preempted."""
+        `preempt_checkpoint`, mark the run preempted and ask for the
+        requeue exit code (obs/flight.py; the PreemptionGuard already
+        dumped the `preempt` bundle)."""
         step = self.state.step
         self.preempted = True
         if self.ckpt is None:
@@ -558,6 +579,7 @@ class Trainer:
                 self.journal.write("preempt_checkpoint", step=step,
                                    epoch=int(epoch), saved=False,
                                    reason="no checkpoint manager")
+            flight.request_requeue()
             return
         saved = self._save_checkpoint(epoch)
         self.ckpt.wait()
@@ -574,6 +596,7 @@ class Trainer:
             self.journal.write("preempt_checkpoint", step=step,
                                epoch=int(epoch), saved=bool(saved),
                                dir=self.ckpt.directory)
+        flight.request_requeue()
 
     def resume(self, step: Optional[int] = None) -> int:
         """Restore the state, the loggers, the plateau and the data
@@ -581,7 +604,9 @@ class Trainer:
         next epoch to run (0 when nothing valid remains)."""
         assert self.ckpt is not None, "no CheckpointManager configured"
         t0 = time.perf_counter()
-        self.state, host_state = self.ckpt.restore(self.state, step)
+        with span("checkpoint/restore",
+                  step=step if step is not None else -1):
+            self.state, host_state = self.ckpt.restore(self.state, step)
         if self.journal is not None:
             self.journal.write(
                 "note", note="resumed", step=self.state.step,

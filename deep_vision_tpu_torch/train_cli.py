@@ -19,7 +19,9 @@ CycleGAN's image-only records (`convert cyclegan`).
 `--fake-data` takes the reference's seeded fake batches instead. It
 runs the config's optimizer, schedule or plateau, a checkpoint
 with its crc32c sidecar after each epoch, a SIGTERM save at the next
-step boundary (the process then exits 0), and `-c` resuming where the
+step boundary (the process then exits with the requeue code 75,
+EX_TEMPFAIL, so a scheduler resubmits it; 0 is a finished run), and
+`-c` resuming where the
 checkpoint left off: parameters, momentum, BatchNorm running statistics,
 the step counter, the plateau, the loggers and, with `--data-snapshot`,
 the batch stream. `--eval-only` evaluates a checkpoint: loss and top-k
@@ -42,8 +44,17 @@ Ported: `model_input_shape`, the fake-data makers, `build_dataloaders`
 `--preprocessing` chains and the s2d host transform), `_steps_per_epoch`,
 `_build_schedule`, `build_trainer`, `build_gan_trainer`,
 `run_eval_only` and `main` with the flags below. Every other reference
-flag is unknown here, so argparse fails on it loudly; the requeue exit
-code after a preemption is not ported yet.
+flag is unknown here, so argparse fails on it loudly.
+
+The run's black box (obs/): `--journal` writes typed events;
+`--trace PATH` installs a span tracer and writes a Chrome trace of the
+nested spans (train/epoch, train/step, eval, checkpoint/*, data/*,
+gan/*), valid JSON mid-run; `--flight-dir DIR` installs the flight
+recorder, which leaves a crc-checked bundle under DIR on SIGTERM
+(`preempt`), a health abort, a hang, an injected crash or an exit
+without a clean close, and none on a clean exit; `DVT_LOCKSMITH=1`
+arms the lock-order sanitizer, whose findings land in the journal as
+`lock_order_violation` / `lock_contention` events.
 
 Float32 precision: the CLI keeps PyTorch's defaults, which no registered
 config overrides, and prints them at start-up: cuDNN convolutions may
@@ -562,6 +573,39 @@ def _make_journal(args, cfg: ExperimentConfig):
     return journal
 
 
+def _make_tracer(args, journal):
+    """--trace: install the process-wide span tracer; the journal notes
+    the trace's path."""
+    if not args.trace:
+        return None
+    from deep_vision_tpu_torch.obs.trace import Tracer, set_tracer
+
+    tracer = Tracer(args.trace,
+                    run_id=journal.run_id if journal is not None else None)
+    set_tracer(tracer)
+    if journal is not None:
+        journal.write("note", trace_path=args.trace)
+    return tracer
+
+
+def _make_flight(args, journal):
+    """--flight-dir: install the flight recorder, which taps the journal
+    for its ring buffers and is the process-wide recorder that the
+    preemption guard, the fault injector and the data loader reach
+    without a handle."""
+    if not args.flight_dir:
+        return None
+    from deep_vision_tpu_torch.obs.flight import FlightRecorder, set_flight
+
+    flight = FlightRecorder(
+        args.flight_dir,
+        run_id=journal.run_id if journal is not None else None)
+    set_flight(flight)
+    if journal is not None:
+        flight.attach(journal)
+    return flight
+
+
 def _make_health(args, journal):
     """--health-policy / --watchdog-timeout: either alone activates the
     monitor (a watchdog alone keeps the default `warn`, marked as not
@@ -604,6 +648,15 @@ def make_parser() -> argparse.ArgumentParser:
                         "mean-subtraction variant")
     p.add_argument("--journal", default=None, metavar="PATH",
                    help="append typed run events to this JSONL")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="write a Chrome trace-event JSON of the run's "
+                        "spans (load in Perfetto / chrome://tracing)")
+    p.add_argument("--flight-dir", default=None, metavar="DIR",
+                   help="flight recorder: ring-buffer the recent steps, "
+                        "health events, journal and span tail, and dump a "
+                        "crc-checked bundle under DIR on a crash, hang, "
+                        "health abort or preemption (obs/flight.py; "
+                        "validate with obs.flight.validate_bundle)")
     p.add_argument("--health-policy", default=None,
                    choices=["warn", "skip_step", "abort"],
                    help="non-finite loss/grad-norm policy (obs/health.py)")
@@ -635,8 +688,16 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    """Train, resume or evaluate one config; returns 0, or
+    REQUEUE_EXIT_CODE (75) after a preemption whose save ran."""
+    from deep_vision_tpu_torch.obs import flight as flight_mod
+    from deep_vision_tpu_torch.obs import locksmith
+
     parser = make_parser()
     args = parser.parse_args(argv)
+    # the requeue latch is process-wide, and main may run more than once
+    # in a process: this run's verdict starts clean
+    flight_mod.clear_requeue()
     determinism = _deterministic()
     device = resolve_device(args.device)
     cfg = get_config(args.model)
@@ -658,7 +719,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     if cfg.task in GAN_TASKS:
         return gan_main(parser, args, cfg, train_fn, ckpt_dir, device)
     journal = _make_journal(args, cfg)
+    # DVT_LOCKSMITH arms the lock sanitizer for this run (journal-less
+    # too: its findings then count in report() only)
+    sanitizer = locksmith.arm_from_env(journal=journal)
+    tracer = _make_tracer(args, journal)
     health = _make_health(args, journal)
+    flight = _make_flight(args, journal)
     data_loader = None
     if args.data_snapshot:
         cand = train_fn()
@@ -691,20 +757,46 @@ def main(argv: Optional[List[str]] = None) -> int:
         trainer.fit(train_fn, eval_fn, epochs=cfg.epochs,
                     start_epoch=start_epoch, eval_first=args.eval_first)
     trainer.close()
-    _finish(device, journal)
-    return 0
+    _finish(device, journal, tracer=tracer, flight=flight,
+            sanitizer=sanitizer)
+    return _exit_code()
 
 
-def _finish(device: torch.device, journal) -> None:
-    """Print (and journal) the peak device memory; close the journal."""
+def _exit_code() -> int:
+    """REQUEUE_EXIT_CODE after a preemption whose save ran, else 0."""
+    from deep_vision_tpu_torch.obs import flight as flight_mod
+
+    return (flight_mod.REQUEUE_EXIT_CODE if flight_mod.requeue_requested()
+            else 0)
+
+
+def _finish(device: torch.device, journal, tracer=None, flight=None,
+            sanitizer=None) -> None:
+    """Print (and journal) the peak device memory; close the tracer (its
+    file is written), disarm this run's lock sanitizer (its queued rows
+    reach the journal), close the journal, and disarm the flight
+    recorder: a clean exit leaves no bundle."""
+    from deep_vision_tpu_torch.obs import locksmith
+
     if device.type == "cuda":
         peak = torch.cuda.max_memory_allocated(device)
         print(f"peak device memory: {peak} bytes "
               f"(torch.cuda.max_memory_allocated)", flush=True)
         if journal is not None:
             journal.write("note", note="peak_memory", bytes=int(peak))
+    if tracer is not None:
+        from deep_vision_tpu_torch.obs.trace import set_tracer
+
+        tracer.close()
+        set_tracer(None)
+        print(f"trace written to {tracer.path} (load in Perfetto / "
+              "chrome://tracing)", flush=True)
+    if sanitizer is not None and locksmith.get_sanitizer() is sanitizer:
+        locksmith.disarm()
     if journal is not None:
         journal.close()
+    if flight is not None:
+        flight.close()
 
 
 def gan_main(parser, args, cfg: ExperimentConfig, train_fn, ckpt_dir: str,
@@ -715,12 +807,15 @@ def gan_main(parser, args, cfg: ExperimentConfig, train_fn, ckpt_dir: str,
     journaled and checked by the health monitor, a checkpoint every
     epoch (DCGAN, the newest 3 kept) or every 2 (CycleGAN). On SIGTERM
     the state is saved at the next step boundary, marked so that a
-    resume re-runs the interrupted epoch, and the run ends (exit 0).
+    resume re-runs the interrupted epoch, and the run ends with the
+    requeue code (75).
     Every step journals a `step` event (the step, the epoch, its images
     and the first sub-network's learning rate); the metrics stay on the
     device until the epoch ends."""
     from deep_vision_tpu_torch.core.checkpoint import CheckpointManager
     from deep_vision_tpu_torch.core.summary import count_params
+    from deep_vision_tpu_torch.obs import flight as flight_mod
+    from deep_vision_tpu_torch.obs import locksmith
     from deep_vision_tpu_torch.parallel.multihost import PreemptionGuard
 
     if args.eval_only:
@@ -732,7 +827,10 @@ def gan_main(parser, args, cfg: ExperimentConfig, train_fn, ckpt_dir: str,
                      f"checkpoint/resume path; GAN task {cfg.task!r} has its "
                      f"own loop without it")
     journal = _make_journal(args, cfg)
+    sanitizer = locksmith.arm_from_env(journal=journal)
+    tracer = _make_tracer(args, journal)
     health = _make_health(args, journal)
+    flight = _make_flight(args, journal)
     trainer = build_gan_trainer(cfg, health=health, device=device)
     names = ({"G": "g", "D": "d"} if cfg.task == "dcgan" else
              {"G_ab": "gab", "G_ba": "gba", "D_a": "da", "D_b": "db"})
@@ -796,14 +894,16 @@ def gan_main(parser, args, cfg: ExperimentConfig, train_fn, ckpt_dir: str,
                                   step=int(ckpt.latest_step() or 0),
                                   epoch=epoch, saved=bool(saved),
                                   dir=ckpt_dir)
+                flight_mod.request_requeue()
                 break
             if (epoch + 1) % save_every == 0:
                 trainer.save(ckpt, epoch)
     ckpt.wait()
     if health is not None:
         health.stop()
-    _finish(device, journal)
-    return 0
+    _finish(device, journal, tracer=tracer, flight=flight,
+            sanitizer=sanitizer)
+    return _exit_code()
 
 
 if __name__ == "__main__":
