@@ -56,7 +56,34 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            then NMS at the served batch's inputs: M per image, passes,
            one call under CUDA's sync debug mode (a host sync raises),
            kernel and plain times at B = 8 and the kernel's at B = 1;
-5. train   the flagship step (ResNet-50, s2d stem, bf16, batch 128,
+4c. fleet  the in-process serving fleet: ReplicaPool(replicas=2) on the
+           card over phase 4's YOLOv3 (buckets 1-8), hourglass_mpii's
+           Hourglass (4 stacks, 256) and centernet_coco's ObjectsAsPoints
+           (2 stacks, 512) (buckets 1-4), seeded and calibrated, under a
+           journal and the armed lock sanitizer, behind
+           AdmissionController(FLEET_ADMISSION): closed-loop bursts of
+           1-8 mixed requests, 48 pose requests at once and 120 CenterNet
+           requests offered open-loop (FLEET_OPEN_LOOP), every shed
+           reason at least once; a `serve.replica` io_error kills one
+           replica under one request (ReplicaLost, no other request
+           fails) and fails its first respawn attempt, which the
+           RetryPolicy retries; swap 1 promotes YOLOv3 weights with
+           seeded 1e-3 relative noise through a 25% canary (each base
+           replica then answers 8 fixed images bit for bit as a fresh
+           Engine with the new weights); swap 2 rolls back a checkpoint
+           with NaN in a head's box channels (the canary errors under
+           health_policy="abort"; the old weights answer bit for bit as
+           before); no warm-up and no kernel build in either swap; the
+           fleet ledger and offered = admitted + shed + refused balance;
+           NMS launches = YOLOv3 batches on the replicas and canaries + 2
+           swap probes; no lock-order violation; one pose and one
+           CenterNet request against the same predictor with
+           device="cpu" (FLEET_TOL); NMS on the canary's batch equal to
+           its plain version and its times at the fleet's buckets;
+           p50/p99 and images/s per model, sheds by reason, the respawn's
+           and each swap phase's ms; the kernels line gains
+           `nms[fleet]`;
+5. train  the flagship step (ResNet-50, s2d stem, bf16, batch 128,
            SGD) through the port's Trainer: warm-up and timed steps,
            48 + 48 bn_act and 53 + 53 moments launches per step, a finite
            and falling loss; the step as fit runs it
@@ -1463,27 +1490,37 @@ def train_phase(torch, trainer, batch, card):
     return launches, step_ms, wall_ms
 
 
-def serve_black_box(tmp):
-    """Phase 4's black box for the serving run: a journal, the lock
-    sanitizer armed by DVT_LOCKSMITH=1 (arm_from_env, as train_cli
-    arms it), an installed Tracer and an installed FlightRecorder that
-    taps the journal. -> (journal, sanitizer, tracer, recorder)."""
-    from deep_vision_tpu_torch.obs import flight, locksmith, trace
-    from deep_vision_tpu_torch.obs.journal import RunJournal
+def arm_locksmith(journal):
+    """The lock sanitizer armed by DVT_LOCKSMITH=1 (arm_from_env, as
+    train_cli arms it), the variable popped again so that the CLI
+    subprocesses of later phases run disarmed. -> the sanitizer."""
+    from deep_vision_tpu_torch.obs import locksmith
 
-    journal = RunJournal(os.path.join(tmp, "serve.jsonl"), kind="serve")
-    journal.manifest(config={"name": "chip_smoke_serve",
-                             "task": "serving"})
     prev = os.environ.get("DVT_LOCKSMITH")
     os.environ["DVT_LOCKSMITH"] = "1"
     try:
         sanitizer = locksmith.arm_from_env(journal=journal)
-    finally:  # the CLI subprocesses of later phases run disarmed
+    finally:
         if prev is None:
             del os.environ["DVT_LOCKSMITH"]
         else:
             os.environ["DVT_LOCKSMITH"] = prev
     check(sanitizer is not None, "DVT_LOCKSMITH=1 did not arm")
+    return sanitizer
+
+
+def serve_black_box(tmp):
+    """Phase 4's black box for the serving run: a journal, the lock
+    sanitizer armed by DVT_LOCKSMITH=1 (arm_from_env, as train_cli
+    arms it), an installed Tracer and an installed FlightRecorder that
+    taps the journal. -> (journal, sanitizer, tracer, recorder)."""
+    from deep_vision_tpu_torch.obs import flight, trace
+    from deep_vision_tpu_torch.obs.journal import RunJournal
+
+    journal = RunJournal(os.path.join(tmp, "serve.jsonl"), kind="serve")
+    journal.manifest(config={"name": "chip_smoke_serve",
+                             "task": "serving"})
+    sanitizer = arm_locksmith(journal)
     tracer = trace.Tracer(os.path.join(tmp, "serve.trace.json"),
                           run_id=journal.run_id)
     trace.set_tracer(tracer)
@@ -1650,6 +1687,599 @@ def close_serve_black_box(journal, sanitizer, tracer, recorder):
     check(rows[-1]["event"] == "exit", "the serving journal has no exit")
     check(flight.get_flight() is None, "the recorder stayed installed")
     spans_of(tracer.path)
+
+
+#: phase 4c, the in-process fleet: ReplicaPool(replicas=FLEET_REPLICAS) on
+#: the one card over YOLOv3 (phase 4's), hourglass_mpii's Hourglass and
+#: centernet_coco's ObjectsAsPoints, each model (name, kwargs, input
+#: side, buckets) at its registered width, seeded, running statistics
+#: calibrated on seeded images as phase 4's YOLOv3
+FLEET_REPLICAS = 2
+FLEET_MODELS = {"pose": ("hourglass", {"num_stack": 4, "num_heatmap": 16},
+                         256, (1, 2, 4)),
+                "centernet": ("objects_as_points",
+                              {"num_stack": 2, "num_classes": 80}, 512,
+                              (1, 2, 4))}
+#: one queue bound and one token rate for every model, a bucket each.
+#: The burst is 8, not 32, and the open-loop segment offers 800/s, not
+#: 400: the fleet answers CenterNet at ~16/s on the card (two in-process
+#: replicas share the host's interpreter), so admissions at the token
+#: rate fill the queue within ~60 ms, and tokens must run out before
+#: that for `rate_limited` to shed (burst 32 at 400/s measured 136
+#: queue_full sheds and no rate_limited one)
+FLEET_ADMISSION = {"max_queue_depth": 16, "rate_per_s": 200.0, "burst": 8}
+#: closed-loop bursts of 1-8 requests (about 216), models drawn by
+#: FLEET_MIX; seeded images, FLEET_IMAGES of each model
+FLEET_BURSTS = 48
+FLEET_MIX = {"yolov3": 0.5, "pose": 0.25, "centernet": 0.25}
+FLEET_IMAGES = 8
+#: 48 pose requests at once, three times the queue bound
+FLEET_POSE_BURST = 48
+#: 120 CenterNet requests offered evenly at 800/s, four times the token
+#: rate for longer than burst / rate_per_s
+FLEET_OPEN_LOOP = (120, 800.0)
+FLEET_CANARY = {"canary_pct": 25, "min_canary_requests": 8,
+                "canary_timeout_s": 60.0}
+#: swap 1's weights: each floating tensor times (1 + FLEET_NOISE * z)
+FLEET_NOISE = 1e-3
+#: swap 2's weights: NaN in the box channels (tx, ty, tw, th of each of
+#: its 3 anchors) of the finest head's output convolution
+FLEET_POISON = "YoloHead_2.Conv_0.bias"
+#: one pose and one CenterNet request from the fleet against the same
+#: predictor with device="cpu" on the same weights: keypoint scores and
+#: CenterNet's boxes and scores within FLEET_TOL of their largest |value|
+FLEET_TOL = 1e-4
+
+
+def fleet_model(torch, dev, task, rng):
+    """One of FLEET_MODELS, seeded, its running statistics calibrated on
+    4 seeded images. -> (model, input side, buckets, predictor)."""
+    from deep_vision_tpu_torch.inference import (
+        centernet_predict_fn,
+        pose_predict_fn,
+    )
+    from deep_vision_tpu_torch.models import get_model
+    from deep_vision_tpu_torch.nn.layers import calibrate_batch_stats
+
+    name, kwargs, side, buckets = FLEET_MODELS[task]
+    model = get_model(name, seed=0, device=dev, **kwargs)
+    calibrate_batch_stats(model, torch.from_numpy(
+        rng.rand(4, side, side, 3).astype(np.float32)).to(dev))
+    fn = pose_predict_fn if task == "pose" else centernet_predict_fn
+    return model, side, buckets, fn
+
+
+class FleetTraffic:
+    """Phase 4c's client: closed-loop bursts, the pose burst and the
+    open-loop CenterNet segment, from this thread, with every outcome
+    counted by model and each failure kept with the event it fell in."""
+
+    def __init__(self, pool, images, seed=0):
+        self.pool = pool
+        self.images = images
+        self.rng = np.random.RandomState(seed)
+        self.event = "stream"
+        self.bursts = 0
+        self.offered = dict.fromkeys(images, 0)
+        self.admitted = dict.fromkeys(images, 0)
+        self.ok = dict.fromkeys(images, 0)
+        self.sheds = {}
+        self.failures = []  # (event, model, error type, message)
+
+    def submit(self, name, image=None):
+        """-> the future, or None when the pool shed the request."""
+        from deep_vision_tpu_torch.serve import ShedError
+
+        if image is None:
+            pool = self.images[name]
+            image = pool[self.rng.randint(len(pool))]
+        self.offered[name] += 1
+        try:
+            fut = self.pool.submit(name, image)
+        except ShedError as e:
+            key = (name, e.reason)
+            self.sheds[key] = self.sheds.get(key, 0) + 1
+            return None
+        self.admitted[name] += 1
+        return fut
+
+    def wait(self, futs):
+        """Each (model, future)'s result; failures recorded. -> the rows
+        of the futures that answered, None for the others."""
+        rows = []
+        for name, f in futs:
+            try:
+                rows.append(f.result(timeout=300))
+                self.ok[name] += 1
+            except Exception as e:
+                rows.append(None)
+                self.failures.append((self.event, name, type(e).__name__,
+                                      str(e)[:200]))
+        return rows
+
+    def burst(self):
+        names = sorted(FLEET_MIX)
+        p = [FLEET_MIX[n] for n in names]
+        futs = []
+        for _ in range(self.rng.randint(1, 9)):
+            name = names[self.rng.choice(len(names), p=p)]
+            fut = self.submit(name)
+            if fut is not None:
+                futs.append((name, fut))
+        self.bursts += 1
+        if not futs:  # all shed: back off as a client would
+            time.sleep(0.005)
+        self.wait(futs)
+
+    def bursts_until(self, n=None, alive=None):
+        """Closed-loop bursts: up to `n` in all, or while `alive()`."""
+        while (self.bursts < n) if n is not None else alive():
+            self.burst()
+
+    def at_once(self, name, n):
+        """n requests submitted back to back. -> their submits' seconds."""
+        t0 = time.perf_counter()
+        futs = [(name, f) for f in (self.submit(name) for _ in range(n))
+                if f is not None]
+        secs = time.perf_counter() - t0
+        self.wait(futs)
+        return secs
+
+    def open_loop(self, name, n, rate):
+        """n requests offered evenly at `rate` a second, then waited for.
+        -> the seconds the offers took."""
+        t0 = time.perf_counter()
+        futs = []
+        for i in range(n):
+            delay = t0 + i / rate - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            fut = self.submit(name)
+            if fut is not None:
+                futs.append((name, fut))
+        secs = time.perf_counter() - t0
+        self.wait(futs)
+        return secs
+
+
+def fleet_engine_factory(torch, dev, models, det):
+    """build_engine(rid) for the pool: an Engine on the card with each
+    model registered over a module of the replica's own (a deep copy:
+    functional_call swaps a module's parameters for the call) and the
+    shared variables."""
+    import copy
+
+    from deep_vision_tpu_torch.inference import yolo_predict_fn
+    from deep_vision_tpu_torch.serve import Engine
+
+    def build(rid):
+        engine = Engine(device=dev)
+        for task, (model, side, buckets, fn) in models.items():
+            own = copy.deepcopy(model)
+            predict = (yolo_predict_fn(own, **det) if task == "yolov3"
+                       else fn(own))
+            engine.register(task, predict, model.state_dict(),
+                            input_shape=(side, side, 3), buckets=buckets)
+        return engine
+
+    return build
+
+
+def fleet_swap(traffic, swapper, ckpt, step, event):
+    """One swap on a thread of its own while this thread keeps the
+    closed-loop traffic flowing. -> (verdict, compile-count delta)."""
+    import threading
+
+    from deep_vision_tpu_torch.serve.swap import compile_count
+
+    box = {}
+    c0 = compile_count()
+    t = threading.Thread(target=lambda: box.update(
+        verdict=swapper.swap(ckpt, step=step, models=("yolov3",))),
+        name=f"swap-{step}")
+    traffic.event = event
+    t.start()
+    traffic.bursts_until(alive=t.is_alive)
+    t.join()
+    traffic.event = "stream"
+    return box["verdict"], compile_count() - c0
+
+
+def fleet_replica_outputs(torch, pool, x):
+    """Each base replica's YOLOv3 detections for the batch x, straight
+    through its engine. -> {rid: output}."""
+    out = {}
+    for rid, slot in sorted(pool._slots.items()):
+        if not slot.canary:
+            out[rid] = slot.engine.run("yolov3", x)
+    torch.cuda.synchronize()
+    return out
+
+
+def fleet_against_cpu(torch, traffic, models, card):
+    """One pose and one CenterNet request from the fleet against the
+    same predictor with device="cpu" on the replica's weights: keypoints
+    (x, y) equal except at a joint whose CPU heatmap has a second value
+    within FLEET_TOL x the heatmap's largest |value| of the joint's
+    maximum (a tie); keypoint scores, CenterNet's boxes and scores
+    within FLEET_TOL of their largest |value|, detection counts and
+    classes equal."""
+    import copy
+
+    from torch.func import functional_call
+
+    from deep_vision_tpu_torch.inference import (
+        make_centernet_detector,
+        make_pose_estimator,
+    )
+
+    engine = traffic.pool.primary_engine()
+    for task, make in (("pose", make_pose_estimator),
+                       ("centernet", make_centernet_detector)):
+        image = traffic.images[task][0]
+        fut = traffic.submit(task, image)
+        check(fut is not None, f"the fleet shed the {task} request")
+        (row,) = traffic.wait([(task, fut)])
+        check(row is not None, f"the fleet's {task} request failed")
+        cpu_model = copy.deepcopy(models[task][0]).cpu()
+        cpu_vars = {k: v.cpu() for k, v in
+                    engine.entry(task).variables.items()}
+        x = torch.from_numpy(image[None])
+        want = make(cpu_model, device="cpu")(cpu_vars, x)
+        shares = {}
+
+        def share(got, w, key):
+            w = w.numpy()
+            err = float(np.abs(np.asarray(got) - w).max())
+            bound = FLEET_TOL * max(float(np.abs(w).max()), 1e-6)
+            shares[key] = err / bound
+            check(err <= bound, f"fleet {task} {key}: {err} > {bound}")
+
+        if task == "pose":
+            with torch.inference_mode():
+                hm = functional_call(cpu_model, cpu_vars, (x,))[-1][0]
+            flat = hm.reshape(-1, hm.shape[-1]).sort(dim=0).values
+            tol = FLEET_TOL * float(hm.abs().max())
+            ties = (flat[-1] - flat[-2] <= tol).nonzero().flatten().tolist()
+            w = want[0]
+            for j in range(w.shape[0]):
+                check(j in ties or np.array_equal(row[j, :2],
+                                                  w[j, :2].numpy()),
+                      f"fleet pose joint {j}: {row[j]} vs the CPU's {w[j]}")
+            share(row[:, 2], w[:, 2], "keypoint scores")
+            extra = f"{w.shape[0]} joints, ties at {ties}"
+        else:
+            n = int(row["num"])
+            check(n == int(want["num"][0]) and np.array_equal(
+                row["classes"], want["classes"][0].numpy()),
+                f"fleet centernet: {n} detections, the CPU "
+                f"{int(want['num'][0])}, or other classes")
+            for key in ("boxes", "scores"):
+                share(row[key], want[key][0], key)
+            extra = f"{n} detections"
+        print(f"[fleet] {task} from the fleet against the CPU predictor: "
+              f"{extra}; error as a share of its tolerance "
+              + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
+              + f" ({card})")
+
+
+def fleet_journal_times(rows):
+    """From the fleet journal: (ms from the first replica_lost to the
+    first replica_recovered, [per swap: [(phase, outcome, ms since the
+    swap's previous event)]], the lost replica)."""
+    lost = [r["ts"] for r in rows if r["event"] == "replica_lost"]
+    rec = [r["ts"] for r in rows if r["event"] == "replica_recovered"]
+    swaps = {}
+    for r in rows:
+        if r["event"] == "serve_swap":
+            swaps.setdefault(r["swap"], []).append(r)
+    timelines = []
+    for sid in sorted(swaps):
+        evs = swaps[sid]
+        timelines.append([(e["phase"], e["outcome"],
+                           (e["ts"] - evs[max(i - 1, 0)]["ts"]) * 1e3)
+                          for i, e in enumerate(evs)])
+    rid = next(r["replica"] for r in rows if r["event"] == "replica_lost")
+    return (rec[0] - lost[0]) * 1e3, timelines, rid
+
+
+def fleet_phase(torch, dev, card, yolo, det):
+    """Phase 4c: the in-process serving fleet on the card (module
+    docstring). -> the kernels line's `nms[fleet]` entry."""
+    import copy
+
+    from deep_vision_tpu_torch.core.checkpoint import CheckpointManager
+    from deep_vision_tpu_torch.inference import (
+        yolo_decode_outputs,
+        yolo_predict_fn,
+    )
+    from deep_vision_tpu_torch.obs.journal import RunJournal, read_journal
+    from deep_vision_tpu_torch.obs.locksmith import disarm
+    from deep_vision_tpu_torch.obs.registry import Registry
+    from deep_vision_tpu_torch.ops.cuda import build
+    from deep_vision_tpu_torch.ops.cuda.bn_act import fused_scale_bias_act
+    from deep_vision_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from deep_vision_tpu_torch.ops.cuda.nms import greedy_nms, nms_plain
+    from deep_vision_tpu_torch.ops.cuda.norm import batch_moments, layer_norm
+    from deep_vision_tpu_torch.resilience import faults
+    from deep_vision_tpu_torch.serve import (
+        SHED_REASONS,
+        AdmissionController,
+        Engine,
+        ReplicaPool,
+        ShedError,
+        SwapController,
+        swap_tree,
+    )
+    from torch.func import functional_call
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(4)
+    models = {"yolov3": (yolo, IMAGE, BUCKETS, None)}
+    for task in sorted(FLEET_MODELS):
+        models[task] = fleet_model(torch, dev, task, rng)
+    images = {task: [rng.rand(side, side, 3).astype(np.float32)
+                     for _ in range(FLEET_IMAGES)]
+              for task, (_, side, _, _) in models.items()}
+    tmp = tempfile.mkdtemp(dir=build.BUILD_DIR)
+    journal = RunJournal(os.path.join(tmp, "fleet.jsonl"), kind="serve")
+    journal.manifest(config={"name": "chip_smoke_fleet", "task": "serving"})
+    sanitizer = arm_locksmith(journal)
+    pool = ReplicaPool(fleet_engine_factory(torch, dev, models, det),
+                       replicas=FLEET_REPLICAS, journal=journal,
+                       registry=Registry(),
+                       admission=AdmissionController(**FLEET_ADMISSION))
+    pool.start()
+    warm = pool.warmup_stats
+    print(f"[fleet] {warm['replicas']} replicas warmed {warm['pairs']} "
+          f"(model, bucket) pairs in {warm['warmup_ms_total']:.1f} ms "
+          f"({card})")
+    # canaries are mounted inside swap(): keep their engines for the
+    # canary batch's NMS check below
+    canaries = []
+    add_canary = pool.add_canary
+    pool.add_canary = lambda engine, pct: (canaries.append(engine),
+                                           add_canary(engine, pct))[1]
+
+    x8 = torch.from_numpy(np.stack(images["yolov3"])).to(dev)
+    traffic = FleetTraffic(pool, images)
+    side = 0  # NMS launches outside the served path (checks)
+    greedy_nms.launches = 0  # the fleet's run starts here
+    fused_scale_bias_act.launches = 0
+    fused_scale_bias_act.backward_launches = 0
+    flash_attention.launches = 0
+    batch_moments.launches = 0
+    layer_norm.launches = 0
+    t_traffic = time.perf_counter()
+    traffic.bursts_until(FLEET_BURSTS // 3)
+
+    # queue_full: more pose requests at once than the queue bound
+    traffic.event = "pose_burst"
+    burst_s = traffic.at_once("pose", FLEET_POSE_BURST)
+    traffic.event = "stream"
+    traffic.bursts_until(FLEET_BURSTS // 2)
+
+    # a replica's death at a quiet moment: one request on the dying
+    # replica, and the first respawn attempt fails too (a rule that fires
+    # ends the hit, so each rule is "@1")
+    traffic.event = "death"
+    faults.install_spec("serve.replica:io_error@1;serve.replica:io_error@1",
+                        seed=0, journal=journal, export_env=False)
+    traffic.at_once("yolov3", 1)
+    deadline = time.perf_counter() + 60
+    while any(s != "serving" for s in pool.replica_states().values()):
+        check(time.perf_counter() < deadline,
+              f"no respawn: {pool.replica_states()}")
+        time.sleep(0.005)
+    faults.install(None)
+    traffic.event = "stream"
+
+    # swap 1: seeded noise on every floating YOLOv3 tensor, promoted
+    base = {k: v.clone() for k, v in
+            pool.primary_engine().entry("yolov3").variables.items()}
+    gen = torch.Generator(device=dev).manual_seed(17)
+    new = {k: (v * (1 + FLEET_NOISE * torch.randn(
+        v.shape, generator=gen, device=dev))) if v.is_floating_point()
+        else v for k, v in base.items()}
+    ckpt = CheckpointManager(os.path.join(tmp, "swap"), journal=journal)
+    ckpt.save_tree(1, swap_tree({"yolov3": new}))
+    poisoned = dict(new)
+    bias = poisoned[FLEET_POISON].clone()
+    per_anchor = bias.numel() // 3
+    for a in range(3):
+        bias[a * per_anchor:a * per_anchor + 4] = float("nan")
+    poisoned[FLEET_POISON] = bias
+    ckpt.save_tree(2, swap_tree({"yolov3": poisoned}))
+    ckpt.wait()
+    swapper = SwapController(pool, journal=journal, **FLEET_CANARY)
+    verdict1, delta1 = fleet_swap(traffic, swapper, ckpt, 1, "swap1")
+    check(verdict1["outcome"] == "promoted", f"swap 1: {verdict1}")
+    before = greedy_nms.launches
+    promoted = fleet_replica_outputs(torch, pool, x8)
+    fresh = Engine(device=dev)
+    fresh.register("yolov3", yolo_predict_fn(copy.deepcopy(yolo), **det),
+                   new, input_shape=(IMAGE, IMAGE, 3), buckets=(8,))
+    fresh.warmup()
+    want = fresh.run("yolov3", x8)
+    for rid, got in promoted.items():
+        for k in want:
+            check(torch.equal(got[k], want[k]), f"replica {rid}'s '{k}' "
+                  "after the promote differs from a fresh Engine's")
+    print(f"[fleet] swap 1 promoted: replicas {sorted(promoted)} answer "
+          f"the 8 fixed images bit for bit as a fresh Engine with the new "
+          f"weights, detections {want['num'].tolist()} ({card})")
+    del fresh
+    side += greedy_nms.launches - before
+
+    # rate_limited: the open-loop CenterNet segment
+    traffic.event = "open_loop"
+    segment_s = traffic.open_loop("centernet", *FLEET_OPEN_LOOP)
+    traffic.event = "stream"
+
+    # swap 2: the poisoned checkpoint, rolled back
+    verdict2, delta2 = fleet_swap(traffic, swapper, ckpt, 2, "swap2")
+    check(verdict2["outcome"] == "rolled_back"
+          and verdict2["reason"] == "errors", f"swap 2: {verdict2}")
+    before = greedy_nms.launches
+    for rid, got in fleet_replica_outputs(torch, pool, x8).items():
+        for k in got:
+            check(torch.equal(got[k], promoted[rid][k]), f"replica {rid}'s "
+                  f"'{k}' after the rollback differs from before it")
+    side += greedy_nms.launches - before
+    print(f"[fleet] swap 2 rolled back ({verdict2['reason']}): the "
+          f"replicas answer the 8 fixed images bit for bit as before it "
+          f"({card})")
+
+    traffic.bursts_until(FLEET_BURSTS)
+    fleet_against_cpu(torch, traffic, models, card)
+    traffic_s = time.perf_counter() - t_traffic
+    report = pool.slo.report()
+    summary = pool.drain("close")
+    launches = greedy_nms.launches - side  # ... and ends here
+    others = (fused_scale_bias_act.launches,
+              fused_scale_bias_act.backward_launches,
+              flash_attention.launches, batch_moments.launches,
+              layer_norm.launches)
+    try:
+        pool.submit("yolov3", images["yolov3"][0])
+        check(False, "a drained pool admitted a request")
+    except ShedError as e:
+        check(e.reason == "draining", f"after the drain: {e.reason}")
+    drained_sheds = pool.slo.report()["yolov3"]["shed"] - \
+        report["yolov3"]["shed"]
+    violations = sanitizer.violations()
+    disarm()
+    ckpt.close()
+    journal.close()
+    rows = read_journal(journal.path)
+
+    # -- the numbers ----------------------------------------------------
+    print(f"[fleet] drain: {summary}")
+    reasons = {reason: sum(n for (_, why), n in traffic.sheds.items()
+                           if why == reason) for reason in SHED_REASONS}
+    reasons["draining"] += drained_sheds
+    for task in sorted(report):
+        r = report[task]
+        ms = [e["latency_ms"] for e in rows if e["event"] == "serve_request"
+              and e["model"] == task and e["outcome"] == "ok"]
+        print(f"[fleet] {task}: {traffic.ok[task]} answered of "
+              f"{r['offered']} offered, {r['shed']} shed; latency p50 "
+              f"{np.percentile(ms, 50):.3f} ms p99 "
+              f"{np.percentile(ms, 99):.3f} ms (the journal's rows; the "
+              f"SLO histogram's bucket bounds {r['p50_ms']:.3f} and "
+              f"{r['p99_ms']:.3f}); {traffic.ok[task] / traffic_s:.1f} "
+              f"images/s over the {traffic_s:.3f} s of traffic ({card})")
+    print(f"[fleet] sheds by reason {reasons} (by model and reason "
+          f"{dict(sorted(traffic.sheds.items()))}); offered: the pose "
+          f"burst {FLEET_POSE_BURST / burst_s:.1f}/s, the open-loop "
+          f"segment {FLEET_OPEN_LOOP[0] / segment_s:.1f}/s (host clock); "
+          f"{traffic.bursts} closed-loop bursts ({card})")
+    respawn_ms, timelines, lost_rid = fleet_journal_times(rows)
+    print(f"[fleet] replica {lost_rid}: replica_lost to replica_recovered "
+          f"{respawn_ms:.1f} ms ({card})")
+    for i, tl in enumerate(timelines, 1):
+        print(f"[fleet] swap {i}: " + ", ".join(
+            f"{ph} {out} +{ms:.1f} ms" for ph, out, ms in tl) + f" ({card})")
+
+    # -- checks ---------------------------------------------------------
+    check(summary["outcome"] == "flushed"
+          and summary["accepted"] == summary["completed"]
+          + summary["errors"] + summary["cancelled"],
+          "the fleet ledger does not balance")
+    for task, r in report.items():
+        check(r["offered"] == r["admitted"] + r["shed"]
+              + r.get("refused", 0), f"{task}: offered != admitted + shed "
+              f"+ refused: {r}")
+        check(r["offered"] == traffic.offered[task]
+              and r["admitted"] == traffic.admitted[task]
+              and r["shed"] == sum(n for (m, _reason), n
+                                   in traffic.sheds.items() if m == task),
+              f"{task}: the SLO report {r} against the client's counts")
+    check(all(reasons.values()), f"a shed reason never shed: {reasons}")
+    death = [f for f in traffic.failures if f[0] == "death"]
+    check([f[2] for f in death] == ["ReplicaLost"],
+          f"the death failed {death}")
+    poisoned_fails = [f for f in traffic.failures if f[0] == "swap2"]
+    check(all(f[1] == "yolov3" and f[2] == "ServeError"
+              and "non-finite" in f[3] for f in poisoned_fails)
+          and poisoned_fails, f"swap 2's failures {poisoned_fails}")
+    unexpected = [f for f in traffic.failures
+                  if f[0] not in ("death", "swap2")]
+    check(not unexpected, f"requests failed: {unexpected}")
+    check(summary["errors"] == len(traffic.failures),
+          f"{summary['errors']} errors against the client's "
+          f"{len(traffic.failures)} failures")
+    lost = [r for r in rows if r["event"] == "replica_lost"]
+    rec = [r for r in rows if r["event"] == "replica_recovered"]
+    retries = [(r["attempt"], r["outcome"]) for r in rows
+               if r["event"] == "retry" and r["name"] == "serve.replica"]
+    check(len(lost) == len(rec) == 1 and lost[0]["replica"]
+          == rec[0]["replica"] and rec[0]["attempt"] == 2
+          and retries == [(1, "retrying"), (1, "recovered")],
+          f"death and respawn: {lost} {rec} {retries}")
+    batches = sum(r["event"] == "serve_batch" and r["model"] == "yolov3"
+                  for r in rows)
+    probes = 2  # each swap's warm probe runs one YOLOv3 batch
+    check(launches == batches + probes and launches > 0,
+          f"nms launches {launches} != {batches} YOLOv3 serve_batch rows "
+          f"+ {probes} swap probes")
+    check(others == (0, 0, 0, 0, 0), f"the fleet ran other kernels: "
+          f"{others}")
+    check(delta1 == delta2 == 0, f"the swaps warmed or built: {delta1}, "
+          f"{delta2}")
+    check(violations == [] and not any(
+        r["event"] == "lock_order_violation" for r in rows),
+        f"lock-order violations: {violations}")
+    check(len(canaries) == 2, f"{len(canaries)} canaries mounted")
+
+    # the canary's batch: NMS against its plain version, then its times
+    # at the fleet's buckets
+    canary = canaries[0].entry("yolov3")
+    model = canary.fn.keywords["model"]
+    got = canaries[0].run("yolov3", x8)
+    plain = yolo_predict_fn(model, select=nms_plain, **det)(
+        canary.variables, x8)
+    for k in got:
+        check(torch.equal(got[k], plain[k]),
+              f"the canary's '{k}' differs from the plain-NMS predictor")
+    with torch.inference_mode():
+        boxes, scores = yolo_decode_outputs(
+            functional_call(model, canary.variables, (x8,)))
+        best, cls = scores.max(dim=-1)
+    shifted = (boxes + cls.to(boxes.dtype)[..., None] * 2.0).contiguous()
+    best = best.contiguous()
+    k_out = greedy_nms(shifted, best, MAX_DET, IOU_THR, SCORE_THR)
+    p_out = nms_plain(shifted, best, MAX_DET, IOU_THR, SCORE_THR)
+    check(torch.equal(k_out[1], p_out[1]) and torch.equal(k_out[0],
+                                                          p_out[0]),
+          "nms on the canary's batch differs from its plain version")
+    max_abs_err = float((k_out[0] - p_out[0]).abs().max())
+    ms_at = {}
+    for b in BUCKETS:
+        one = (shifted[:b].contiguous(), best[:b].contiguous())
+        ms_at[b], _ = time_cuda(torch, lambda: greedy_nms(
+            *one, MAX_DET, IOU_THR, SCORE_THR))
+    plain_ms, _ = time_cuda(torch, lambda: nms_plain(
+        shifted, best, MAX_DET, IOU_THR, SCORE_THR))
+    bound_ms, bound_by, nbytes, ops, _, _ = nms_bound(
+        torch, best, k_out[1], SCORE_THR)
+    print(f"[fleet] nms: {launches} launches = {batches} YOLOv3 batches "
+          f"on the replicas and canaries + {probes} swap probes; the "
+          f"canary's batch equal to the plain version; kernel ms a call "
+          + ", ".join(f"B={b} {ms:.4f}" for b, ms in ms_at.items())
+          + f"; plain {plain_ms:.4f} ms and bound {bound_ms:.6f} ms "
+          f"({bound_by}) at B=8 ({card})")
+    shutil.rmtree(tmp)
+    del pool, traffic, models, canaries, x8
+    torch.cuda.empty_cache()
+    print(f"[fleet] phase 4c: {time.perf_counter() - t_phase:.1f} s "
+          f"({card})")
+    return {"name": "nms[fleet]", "route": "cuda",
+            "source": "deep_vision_tpu_torch/csrc/nms.cu",
+            "replaces": "deep_vision_tpu/ops/pallas/nms.py:42",
+            "launches": launches, "max_abs_err": max_abs_err,
+            "ms": ms_at[max(BUCKETS)], "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def traced_step_times(torch, trainer, batch, card, tmp):
@@ -4731,10 +5361,13 @@ def main():
         "bound_by": bound_by,
         "library_ms": None,
     }]
+    elapsed("phase 4 (serve) done")
+
+    # -- 4c. the serving fleet -----------------------------------------------
+    kernels.append(fleet_phase(torch, dev, card, model, det))
     del engine, model, x, variables
     torch.cuda.empty_cache()
-
-    elapsed("phase 4 (serve) done")
+    elapsed("phase 4c (fleet) done")
 
     # -- 5. training ---------------------------------------------------------
     launches, step_ms, wall_ms = train_phase(torch, trainer, train_batch,

@@ -24,8 +24,10 @@ note; the snapshot ring's lock is the locksmith role
 from __future__ import annotations
 
 import multiprocessing as mp
+import multiprocessing.connection
 import queue
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable, Iterator, List, Optional, Sequence
 
@@ -71,35 +73,55 @@ def _buffer_shuffle(samples: Iterable[dict], buffer: int,
     yield from buf
 
 
-def worker_put(out_q, stop_evt, item, timeout: float = 0.2) -> bool:
-    """Bounded queue put that keeps observing stop_evt (an abandoned
-    consumer leaves the queue full; a plain put would block past the
-    stop). Shared by the loader's worker processes and the dataset
-    service's (data/service.py) so the stop semantics cannot drift."""
-    while not stop_evt.is_set():
-        try:
-            out_q.put(item, timeout=timeout)
-            return True
-        except queue.Full:
-            continue
-    return False
+#: samples a worker process may run ahead of the parent's reads
+PROC_LOOKAHEAD = 64
 
 
-def _proc_worker(dataset, transform, epoch_seed, wid, out_q, stop_evt,
+def _proc_worker(dataset, transform, epoch_seed, wid, conn, stop_evt,
                  skip: int = 0):
     """Worker-process body: stream, transform, and ship samples.
 
     Runs in a spawned child; `dataset` is this worker's disjoint slice.
-    Samples cross the process boundary via the queue's pickling — keep
-    images uint8 until the last transform to halve that traffic. Samples
-    ship tagged `(wid, sample)` so the parent can count per-worker
-    deliveries; a replacement worker for a dead one is started with
-    `skip` = that count and fast-forwards past the already-delivered
-    prefix of its slice (the slice iterates deterministically — the
-    parent never advances the original dataset object it re-pickles).
+    Samples cross the process boundary pickled over this worker's own
+    pipe (`conn`, whose write end only this process holds), sent by a
+    thread of this process that runs up to PROC_LOOKAHEAD samples ahead
+    of the parent's reads — keep images uint8 until the last transform
+    to halve that traffic. A worker that dies mid-send tears only its own
+    pipe, whose end the parent then reads; over a queue shared by the
+    workers the dead writer would leave the queue's lock held or half a
+    message in the survivors' way, and the parent would wait forever.
+    Samples ship tagged `(wid, sample)` so the parent can count
+    per-worker deliveries; a replacement worker for a dead one is
+    started with `skip` = that count and fast-forwards past the
+    already-delivered prefix of its slice (the slice iterates
+    deterministically — the parent never advances the original dataset
+    object it re-pickles).
     """
+    ahead: "queue.Queue" = queue.Queue(maxsize=PROC_LOOKAHEAD)
+
+    def send_all() -> None:
+        while True:
+            item = ahead.get()
+            if item is None:
+                return
+            try:
+                conn.send(item)
+            except OSError:  # the parent is gone
+                return
+
+    sender = threading.Thread(target=send_all, daemon=True)
+    sender.start()
+
     def put(item) -> bool:
-        return worker_put(out_q, stop_evt, item)
+        # keep observing the stop: a parent that stopped reading leaves
+        # the lookahead full, and a plain put would block past the stop
+        while not stop_evt.is_set():
+            try:
+                ahead.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
 
     try:
         rng = np.random.default_rng((epoch_seed, wid))
@@ -116,6 +138,9 @@ def _proc_worker(dataset, transform, epoch_seed, wid, out_q, stop_evt,
         put(("__error__", repr(e)))
     finally:
         put(("__done__", wid))
+        ahead.put(None)  # the sender's end, past the stop too
+        sender.join()
+        conn.close()
 
 
 class DataLoader:
@@ -311,21 +336,35 @@ class DataLoader:
         fresh, and nothing they import touches the card.
         """
         ctx = mp.get_context("spawn")
-        out_q: "mp.Queue" = ctx.Queue(maxsize=self.num_procs * 64)
         stop = ctx.Event()
         procs = []
+        readers = {}  # a live worker's pipe (read end) -> its worker id
         shards = []
 
         def spawn(wid: int, skip: int = 0):
             """Start (or restart) worker `wid` on its pre-built slice."""
+            recv_end, send_end = ctx.Pipe(duplex=False)
             p = ctx.Process(
                 target=_proc_worker,
                 args=(shards[wid], self.transform, epoch_seed, wid,
-                      out_q, stop, skip),
+                      send_end, stop, skip),
                 daemon=True,
             )
             p.start()
+            send_end.close()  # the worker's exit must end the pipe
+            readers[recv_end] = wid
             return p
+
+        def read(conn):
+            """One message from a worker's pipe; None once the pipe ended
+            (the worker exited, or died: a message its death tore ends it
+            too), and the pipe is dropped."""
+            try:
+                return conn.recv()
+            except (EOFError, OSError):
+                del readers[conn]
+                conn.close()
+                return None
 
         # Spawn, not fork (see docstring). Build every slice up front: a
         # replacement worker re-pickles the SAME slice object, which the
@@ -366,9 +405,9 @@ class DataLoader:
 
         try:
             while len(done) < self.num_procs:
-                try:
-                    item = out_q.get(timeout=self.worker_poll_s)
-                except queue.Empty:
+                ready = mp.connection.wait(list(readers),
+                                           timeout=self.worker_poll_s)
+                if not ready:
                     # watchdog: a SIGKILL'd/segfaulted worker writes no done
                     # marker; without this the loader would hang forever.
                     failed = [
@@ -377,24 +416,24 @@ class DataLoader:
                     ]
                     if not failed:
                         continue
-                    # Drain what the dead worker(s) already shipped BEFORE
-                    # deciding the resubmission point: anything still in the
-                    # queue would otherwise be replayed twice. A dead
-                    # producer adds nothing, so get_nowait-until-Empty is a
-                    # consistent snapshot of its output.
-                    while True:
-                        try:
-                            extra = out_q.get_nowait()
-                        except queue.Empty:
-                            break
-                        kind = classify(extra)
-                        if kind[0] == "done":
-                            done.add(kind[1])
-                            continue
-                        _, wid, sample = kind
-                        if wid is not None:
-                            delivered[wid] += 1
-                        yield sample
+                    # Read what the dead worker(s) already shipped BEFORE
+                    # deciding the resubmission point: anything left in a
+                    # pipe would otherwise be replayed twice. A dead
+                    # worker's pipe holds a finite rest and then ends.
+                    for conn in [c for c, w in readers.items()
+                                 if w in failed]:
+                        while conn in readers:
+                            extra = read(conn)
+                            if extra is None:
+                                break
+                            kind = classify(extra)
+                            if kind[0] == "done":
+                                done.add(kind[1])
+                                continue
+                            _, wid, sample = kind
+                            if wid is not None:
+                                delivered[wid] += 1
+                            yield sample
                     for wid in failed:
                         if wid in done:
                             continue  # its done marker was in the drain
@@ -431,22 +470,28 @@ class DataLoader:
                             pass
                         procs[wid] = spawn(wid, skip=delivered[wid])
                     continue
-                kind = classify(item)
-                if kind[0] == "done":
-                    done.add(kind[1])
-                    continue
-                _, wid, sample = kind
-                if wid is not None:
-                    delivered[wid] += 1
-                yield sample
+                for conn in ready:
+                    item = read(conn)
+                    if item is None:
+                        continue  # its worker ended; the watchdog judges it
+                    kind = classify(item)
+                    if kind[0] == "done":
+                        done.add(kind[1])
+                        continue
+                    _, wid, sample = kind
+                    if wid is not None:
+                        delivered[wid] += 1
+                    yield sample
         finally:
             stop.set()
-            # drain so children blocked in put() can observe the stop
-            try:
-                while True:
-                    out_q.get_nowait()
-            except queue.Empty:
-                pass
+            # read and drop until each worker's pipe ends, so a worker
+            # blocked in send sees the stop and exits
+            deadline = time.monotonic() + 5
+            while readers and time.monotonic() < deadline:
+                for conn in mp.connection.wait(list(readers), timeout=0.1):
+                    read(conn)
+            for conn in list(readers):
+                conn.close()
             for p in procs:
                 p.join(timeout=5)
                 if p.is_alive():

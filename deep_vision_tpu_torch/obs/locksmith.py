@@ -40,9 +40,9 @@ acquisition counts as reentrant rather than as a self-cycle.
 """
 from __future__ import annotations
 
+import sys
 import threading
 import time
-import traceback
 from collections import deque
 from typing import Dict, List, Optional
 
@@ -107,9 +107,18 @@ class Sanitizer:
         return getattr(self._tls, "in_emit", False)
 
     def _site(self) -> List[str]:
-        # skip the sanitizer + wrapper frames; keep the caller's tail
-        frames = traceback.extract_stack(limit=self.stack_depth + 3)[:-3]
-        return [f"{f.filename}:{f.lineno} in {f.name}" for f in frames]
+        # skip the sanitizer + wrapper frames (this one, acquired() and the
+        # wrapper's acquire) and keep the caller's tail, oldest first;
+        # walked by hand: traceback.extract_stack reads every frame's
+        # source line, which the site does not show
+        frame = sys._getframe(3)
+        site = []
+        while frame is not None and len(site) < self.stack_depth:
+            code = frame.f_code
+            site.append(f"{code.co_filename}:{frame.f_lineno} in "
+                        f"{code.co_name}")
+            frame = frame.f_back
+        return site[::-1]
 
     def _stat(self, name: str) -> dict:
         s = self._stats.get(name)

@@ -130,10 +130,20 @@ def ptxas_usage(report: str) -> Dict[str, Dict[str, int]]:
     return usage
 
 
+_builds = 0
+
+
+def build_count() -> int:
+    """Sources this process has compiled (a serving weight swap must
+    leave it unchanged)."""
+    return _builds
+
+
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     """Compile the named sources (default: all) that are not built yet,
     in parallel. Returns seconds spent per name (0.0 = already built);
     raises with the compiler's output when a build fails."""
+    global _builds
     srcs = sources()
     names = list(srcs) if names is None else list(names)
     unknown = sorted(set(names) - set(srcs))
@@ -143,6 +153,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     if not todo:
         return {n: 0.0 for n in names}
     nvcc = find_nvcc()
+    _builds += len(todo)
     seconds = {n: 0.0 for n in names}
     seconds.update(compile_all({
         n: ([nvcc, *flags(n)], [str(srcs[n])], library_path(n))

@@ -10,8 +10,9 @@ sorted scan is the same function and what bounds it.
 takes `nms_plain`, a CUDA tensor launches the kernels or raises. There is
 no fallback from the kernels to the plain version. One call enqueues every
 phase on the current stream with one ctypes call and no host
-synchronisation; `greedy_nms.launches` counts such calls (a plain integer;
-set it to 0 to start a count).
+synchronisation; `greedy_nms.launches` counts such calls (a plain integer,
+added to under a lock, since a serving pool's replicas launch from
+threads of their own; set it to 0 to start a count).
 
 Semantics, shared by both and by the reference: scores below
 `score_threshold` become -1; each of the D rounds picks the largest live
@@ -22,6 +23,7 @@ Returns `(sel_scores (B, D) f32, sel_idx (B, D) int32)`, -1 = no pick.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Tuple
 
 import torch
@@ -34,6 +36,8 @@ from deep_vision_tpu_torch.ops.cuda import build
 #: as many each time up to K, until D keeps or the last candidate.
 PASS_CANDIDATES = 4096
 FIRST_PASS = 512
+
+_launches_lock = threading.Lock()
 
 _SIGNATURES = {  # name: (restype, argtypes)
     "dvt_nms_workspace_bytes": (ctypes.c_longlong, [ctypes.c_int] * 3),
@@ -177,7 +181,8 @@ def _launch(boxes: torch.Tensor, scores: torch.Tensor, d: int,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"NMS kernel launch failed: cudaError_t {err}")
-    greedy_nms.launches += 1
+    with _launches_lock:
+        greedy_nms.launches += 1
     return out_s, out_i
 
 

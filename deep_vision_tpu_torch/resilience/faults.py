@@ -5,10 +5,12 @@ Named injection points compile to one module-global None-check when no
 spec is installed. The port fires `ckpt.save`, `ckpt.restore` and
 `ckpt.sidecar` (with its `after_write` stage, the torn-write window
 between the sidecar's tmp write and its rename) in core/checkpoint.py,
-`journal.flush` in obs/journal.py, and `data.read` at the Server's
-request-decode boundary (serve/router.py submit); the data feed's
-`data.read` and `data.decode` hooks are not fired yet, and the
-replica, transport and data-service points wait for their modules.
+`journal.flush` in obs/journal.py, `data.read` at the Server's
+request-decode boundary (serve/router.py submit), and `serve.replica` at
+a pool replica's batch boundary and respawn (serve/pool.py) and a weight
+swap's load (serve/swap.py); the data feed's `data.read` and
+`data.decode` hooks are not fired yet, and the transport and
+data-service points wait for their modules.
 
 Spec grammar (the `--fault-spec` string of the reference's CLI)::
 

@@ -14,8 +14,17 @@ shapes with no re-warm, and `clone_with_variables` makes a shadow engine
 over the same warmed menu.
 
 Each (model, bucket) warmup runs under a `serve/warmup` span
-(obs/trace.py). The executable cache and the perf-attribution hooks of
-the JAX engine have no counterpart yet.
+(obs/trace.py) and adds one to the process-wide
+`serve_warmup_pairs_total` (`warmup_count()`): with the kernel builds of
+ops/cuda/build.py it is the port's counterpart of the JAX engine's
+compile counter, which a weight swap must leave unchanged. The
+executable cache and the perf-attribution hooks of the JAX engine have
+no counterpart yet.
+
+A registered fn may hold module state (`functional_call` swaps the
+module's parameters for the call), so the calls of one fn are
+serialised by its entry's `serve.model` lock, which a clone shares with
+the fn.
 """
 from __future__ import annotations
 
@@ -30,12 +39,24 @@ from deep_vision_tpu_torch.core.backend import (
     resolve_device,
     synchronize,
 )
+from deep_vision_tpu_torch.obs import locksmith
 from deep_vision_tpu_torch.obs.registry import get_registry
 from deep_vision_tpu_torch.obs.trace import span
 from deep_vision_tpu_torch.serve.buckets import (
     DEFAULT_BUCKETS,
     normalize_buckets,
 )
+
+
+def _warmups():
+    return get_registry().counter(
+        "serve_warmup_pairs_total",
+        "(model, bucket) warm-ups run by any Engine in this process")
+
+
+def warmup_count() -> int:
+    """(model, bucket) warm-ups run by any Engine in this process."""
+    return int(_warmups().value)
 
 
 class ServeError(RuntimeError):
@@ -46,17 +67,21 @@ class ServeError(RuntimeError):
 class ModelEntry:
     """One registered model: the raw predict fn + its static serving menu."""
 
-    __slots__ = ("name", "fn", "variables", "input_shape", "dtype", "buckets")
+    __slots__ = ("name", "fn", "variables", "input_shape", "dtype", "buckets",
+                 "lock")
 
     def __init__(self, name: str, fn, variables: Dict[str, torch.Tensor],
                  input_shape: Tuple[int, ...], dtype,
-                 buckets: Tuple[int, ...]):
+                 buckets: Tuple[int, ...], lock=None):
         self.name = name
-        self.fn = fn  # (variables, images) -> dict of batched tensors
+        # (variables, images) -> batched tensors: a dict, a tuple or one
+        self.fn = fn
         self.variables = variables
         self.input_shape = tuple(int(d) for d in input_shape)
         self.dtype = np.dtype(dtype)
         self.buckets = buckets
+        self.lock = lock if lock is not None else locksmith.lock(
+            "serve.model")
 
 
 class Engine:
@@ -124,10 +149,12 @@ class Engine:
                 images = torch.from_numpy(np.zeros(
                     (bucket,) + entry.input_shape, entry.dtype))
                 t0 = time.perf_counter()
-                with span("serve/warmup", model=entry.name, bucket=bucket):
+                with span("serve/warmup", model=entry.name, bucket=bucket), \
+                        entry.lock:
                     entry.fn(entry.variables, images.to(self.device))
                     synchronize(self.device)
                 ms = (time.perf_counter() - t0) * 1e3
+                _warmups().inc()
                 self._warm.add((entry.name, bucket))
                 pairs.append({"model": entry.name, "bucket": bucket,
                               "warmup_ms": ms})
@@ -195,12 +222,12 @@ class Engine:
                          if name in variables_by_model else entry.variables)
             clone._entries[name] = ModelEntry(
                 name, entry.fn, variables, entry.input_shape, entry.dtype,
-                entry.buckets)
+                entry.buckets, lock=entry.lock)
         return clone
 
     # -- the request path ----------------------------------------------------
 
-    def run(self, name: str, images) -> Dict[str, torch.Tensor]:
+    def run(self, name: str, images):
         """Run one padded batch; images (numpy or tensor) must be exactly
         (bucket, *input_shape) for a warmed bucket. Returns the fn's
         output on the device, without waiting for it."""
@@ -215,4 +242,5 @@ class Engine:
             raise ServeError(f"batch shape {tuple(images.shape)} does not "
                              f"match {name!r} input {entry.input_shape}")
         x = torch.as_tensor(images).to(self.device, non_blocking=True)
-        return entry.fn(entry.variables, x)
+        with entry.lock:
+            return entry.fn(entry.variables, x)

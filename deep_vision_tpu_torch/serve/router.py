@@ -15,7 +15,8 @@ one device lock. The request path is:
       -> deadline shed at dispatch
       -> bucket_for + pad_batch           # round up to a warmed shape
       -> Engine.run, then .cpu()          # the copy to the host is the fence
-      -> split rows, resolve futures
+      -> split rows (a dict's fields, or an array's or a tuple's leaves),
+         resolve futures
 
 Every accepted request ends in exactly one of completed / errors /
 cancelled, so a drain can check accepted == completed + errors +
@@ -27,8 +28,10 @@ runs under a `serve/batch` span and the drain under `serve/drain`
 outputs fails its requests instead of shipping NaNs. A SIGTERM drain
 dumps a `preempt` flight bundle (obs/flight.py); a clean close() leaves
 none. The locks are locksmith roles (`serve.device`, `serve.counts`,
-`serve.submit`), which the armed sanitizer checks. The JAX server's live
-telemetry plane is not ported: `telemetry=` raises.
+`serve.submit`), which the armed sanitizer checks. The live plane's
+health and status sources (`healthz`, `telemetry_status`, `queue_depth`)
+are plain methods, which a ReplicaPool reads; the JAX server's
+telemetry plane itself is not ported: `telemetry=` raises.
 """
 from __future__ import annotations
 
@@ -64,11 +67,21 @@ class ServerClosed(QueueClosed):
     """submit() on a draining/stopped server."""
 
 
+def _to_host(out):
+    """A batch's device output on the host as numpy: a dict of tensors,
+    a tuple or list of tensors, or one tensor."""
+    if isinstance(out, dict):
+        return {k: v.cpu().numpy() for k, v in out.items()}
+    if isinstance(out, (tuple, list)):
+        return type(out)(v.cpu().numpy() for v in out)
+    return out.cpu().numpy()
+
+
 class Server:
     """Serving loop over a warmed Engine.
 
         server = Server(engine, journal=journal, max_wait_ms=5.0).start()
-        fut = server.submit("yolo", image)   # -> Future of an output dict
+        fut = server.submit("yolo", image)   # -> Future of one output row
         server.install_sigterm()             # main thread only
         server.wait_for_stop()               # True on SIGTERM
         server.drain("sigterm")              # flush + preempt flight bundle
@@ -143,7 +156,8 @@ class Server:
     def submit(self, model: str, image,
                deadline_ms: Optional[float] = None) -> Future:
         """Enqueue one image for `model`; returns a Future resolving to the
-        per-request output dict. A bad shape or unknown model fails this
+        request's row of the output (a dict, an array, or a tuple of
+        arrays, as the model's fn returns). A bad shape or unknown model fails this
         request's future, never the server. `deadline_ms` is the client's
         remaining budget from now: a request still queued when it expires
         is shed at dispatch (`DeadlineExceeded`). An I/O error at the
@@ -192,8 +206,32 @@ class Server:
                 self._fail_request(req, decode_err)
         return req.future
 
+    def healthz(self):
+        """Health source: ready iff started and not draining/stopped."""
+        draining = self._drained is not None or self._stop.is_set()
+        ok = self._started and not draining
+        return ok, {"started": self._started, "draining": draining,
+                    **{k: str(v) for k, v in self.tags.items()}}
+
+    def telemetry_status(self) -> dict:
+        """Status source: the request ledger and the per-model SLO view.
+        Host-side reads only."""
+        out = dict(self.counts())
+        out["models"] = sorted(self.engine.models)
+        out["draining"] = self._drained is not None or self._stop.is_set()
+        out["slo"] = self.slo.report()
+        if self.tags:
+            out["tags"] = dict(self.tags)
+        return out
+
+    def queue_depth(self, model: str) -> int:
+        """Current queue depth for `model`."""
+        q = self._queues.get(model)
+        return q.depth if q is not None else 0
+
     def counts(self) -> dict:
-        """One consistent snapshot of the request ledger."""
+        """One consistent snapshot of the request ledger; a ReplicaPool
+        folds it into its fleet totals when it retires a replica."""
         with self._count_lock:
             return {"accepted": self.accepted, "completed": self.completed,
                     "errors": self.errors, "cancelled": self.cancelled}
@@ -274,10 +312,10 @@ class Server:
                                dtype=entry.dtype)
             with self._device_lock:
                 out = self.engine.run(model, images)
-                host = {k: v.cpu().numpy() for k, v in out.items()}
+                host = _to_host(out)
         exec_ms = (time.perf_counter() - t_dispatch) * 1e3
         bad = self._nonfinite_fields(host, len(batch))
-        rows = split_rows(host, len(batch))
+        rows = self._split(host, len(batch))
         t_done = time.perf_counter()
         for req, row in zip(batch, rows):
             latency_ms = (t_done - req.t_submit) * 1e3
@@ -309,11 +347,26 @@ class Server:
             self.health.beat()  # the serve loop is the watchdog heartbeat
 
     @staticmethod
-    def _nonfinite_fields(host: dict, n: int) -> List[str]:
+    def _split(host, n: int) -> List:
+        """Batched host output -> one row per real request. Dicts (the
+        detector contract) go through buckets.split_rows; a bare array
+        (the pose estimator's keypoints) or a tuple or list of arrays is
+        row-indexed leaf-wise."""
+        if isinstance(host, dict):
+            return split_rows(host, n)
+        if isinstance(host, (tuple, list)):
+            return [type(host)(a[i] for a in host) for i in range(n)]
+        return [host[i] for i in range(n)]
+
+    @staticmethod
+    def _nonfinite_fields(host, n: int) -> List[str]:
         """The floating output fields with a non-finite value in the
-        batch's real rows."""
+        batch's real rows: a dict's keys, else the leaves' indices."""
+        items = (host.items() if isinstance(host, dict) else
+                 enumerate(host if isinstance(host, (tuple, list))
+                           else [host]))
         bad = []
-        for k, v in host.items():
+        for k, v in items:
             a = np.asarray(v)
             if np.issubdtype(a.dtype, np.floating) and \
                     not np.isfinite(a[:n]).all():
@@ -405,6 +458,10 @@ class Server:
 
     def _on_sigterm(self, signum, frame) -> None:
         self._stop.set()
+
+    @property
+    def stop_requested(self) -> bool:
+        return self._stop.is_set()
 
     def wait_for_stop(self, timeout: Optional[float] = None) -> bool:
         """Block until SIGTERM (or drain/close) flips the stop flag."""

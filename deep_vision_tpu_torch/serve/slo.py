@@ -1,6 +1,5 @@
 """SLO accounting over the obs registry (the port of
-deep_vision_tpu/serve/slo.py, without the admission-control counters,
-which come with the admission layer).
+deep_vision_tpu/serve/slo.py).
 
 Tracked per model:
 
@@ -14,14 +13,30 @@ Tracked per model:
   serve_batches_total{model=}
   serve_batch_slots_total{model=} / serve_padded_slots_total{model=}
   serve_slo_violations_total{model=} requests over slo_ms, when set
+  serve_offered_total{model=}        every request the front door saw,
+                                     admitted or not (serve/pool.py)
+  serve_shed_total{model=,reason=}   requests shed by admission control
+                                     (serve/admission.py)
+  serve_refused_total{model=}        requests no serving replica took
+
+Fleet gauge (serve/pool.py): `serve_replica_queue_depth{replica=}`, the
+in-flight depth of one replica, which least-in-flight routing reads.
+
+A shed request never enters the latency histograms, so `report()` puts
+offered, admitted, shed and refused (and offered/admitted RPS) beside
+the tail: shedding cannot flatter the p99 unseen.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional
 
 from deep_vision_tpu_torch.obs.registry import Registry, get_registry
 
 OUTCOMES = ("ok", "error", "rejected", "cancelled")
+#: admission-control shed reasons (serve/admission.py); the same enum as
+#: the serve_shed reasons that tools/check_journal.py accepts
+SHED_REASONS = ("queue_full", "rate_limited", "draining")
 
 
 class SLOTracker:
@@ -32,6 +47,7 @@ class SLOTracker:
         self.registry = registry or get_registry()
         self.slo_ms = slo_ms
         self._models: Dict[str, dict] = {}
+        self._replica_depth: Dict[str, object] = {}
 
     def _m(self, model: str) -> dict:
         m = self._models.get(model)
@@ -71,12 +87,60 @@ class SLOTracker:
                 "violations": r.counter(
                     "serve_slo_violations_total",
                     "requests over the slo_ms target", labels=lbl),
+                "offered": r.counter(
+                    "serve_offered_total",
+                    "requests offered at the front door (incl. shed)",
+                    labels=lbl),
+                "shed": {reason: r.counter(
+                    "serve_shed_total", "requests shed by admission control",
+                    labels={"model": model, "reason": reason})
+                    for reason in SHED_REASONS},
+                "refused": r.counter(
+                    "serve_refused_total",
+                    "requests refused for want of a serving replica (not "
+                    "policy sheds)", labels=lbl),
+                # the offer stream's wall-clock window, for the RPS in
+                # report(); a racing writer only nudges its edges
+                "t_first": None,
+                "t_last": None,
             }
             self._models[model] = m
         return m
 
     def queue_depth(self, model: str, depth: int) -> None:
         self._m(model)["depth"].set(depth)
+
+    def replica_queue_depth(self, replica: str, depth: int) -> None:
+        """One replica's in-flight depth (serve/pool.py's routing signal).
+        The gauge is cached: this runs per request under the pool's lock,
+        where a registry get-or-create would take a second lock."""
+        g = self._replica_depth.get(replica)
+        if g is None:
+            g = self.registry.gauge(
+                "serve_replica_queue_depth",
+                "requests in flight on one replica",
+                labels={"replica": replica})
+            self._replica_depth[replica] = g
+        g.set(depth)
+
+    def offered(self, model: str) -> None:
+        """Count one request at the front door, before admission."""
+        m = self._m(model)
+        m["offered"].inc()
+        now = time.monotonic()
+        if m["t_first"] is None:
+            m["t_first"] = now
+        m["t_last"] = now
+
+    def shed(self, model: str, reason: str) -> None:
+        if reason not in SHED_REASONS:
+            raise ValueError(f"shed reason {reason!r} not in {SHED_REASONS}")
+        self._m(model)["shed"][reason].inc()
+
+    def refused(self, model: str) -> None:
+        """An offered request that no serving replica could queue: a fleet
+        failure, counted apart from the policy's sheds."""
+        self._m(model)["refused"].inc()
 
     def request_done(self, model: str, latency_ms: float,
                      outcome: str = "ok") -> None:
@@ -101,7 +165,9 @@ class SLOTracker:
     def report(self) -> Dict[str, dict]:
         """model -> {requests, errors, rejected, cancelled, p50/p95/p99_ms,
         mean_ms, batches, occupancy_pct, padding_waste_pct,
-        slo_violations}; quantiles at histogram-bucket resolution."""
+        slo_violations}, and where requests were offered at a front door
+        offered, shed, admitted, refused (when any) and offered_rps /
+        admitted_rps; quantiles at histogram-bucket resolution."""
         out: Dict[str, dict] = {}
         for model, m in sorted(self._models.items()):
             slots = m["slots"].value
@@ -121,6 +187,20 @@ class SLOTracker:
                                       if slots else 0.0),
                 "slo_violations": int(m["violations"].value),
             }
+            offered = int(m["offered"].value)
+            if offered:
+                row = out[model]
+                shed = sum(int(c.value) for c in m["shed"].values())
+                refused = int(m["refused"].value)
+                row["offered"] = offered
+                row["shed"] = shed
+                if refused:
+                    row["refused"] = refused
+                row["admitted"] = admitted = offered - shed - refused
+                window_s = (m["t_last"] or 0.0) - (m["t_first"] or 0.0)
+                if window_s > 0:
+                    row["offered_rps"] = offered / window_s
+                    row["admitted_rps"] = admitted / window_s
         return out
 
     def render(self) -> str:
@@ -136,4 +216,8 @@ class SLOTracker:
             f"waste {r['padding_waste_pct']:.1f}%"
             + (f"  slo>{self.slo_ms:g}ms: {r['slo_violations']}"
                if self.slo_ms is not None else "")
+            + (f"  offered {r['offered']} shed {r['shed']}"
+               + (f" ({r['offered_rps']:.1f} -> {r['admitted_rps']:.1f} rps)"
+                  if "offered_rps" in r else "")
+               if "offered" in r else "")
             for model, r in rep.items())

@@ -10,8 +10,17 @@ forward, no compile) and are filled from a numpy seed: kernels at
 1/sqrt(fan_in), BatchNorm scale and var in [0.5, 1.5), biases and means
 ~ 0.1 N(0, 1). The port's module goes to channels_last memory first, as
 its initialiser leaves it, so the parity runs the layout the card runs.
+
+Importing this module gives torch one intra-op thread in a pytest-xdist
+worker (PYTEST_XDIST_WORKER set; every worker imports every test module
+while it collects, so the whole worker runs so): six workers each
+running torch at a thread a core oversubscribe the host's cores, and
+the heaviest six port test files took 492 s under `-n 6 --dist
+loadfile` at torch's default against 263 s at one thread. A run
+without xdist keeps the default.
 """
 import contextlib
+import os
 
 import flax.linen as fnn
 import jax
@@ -21,6 +30,9 @@ import torch
 
 from deep_vision_tpu_torch.convert import variables_from_jax
 from deep_vision_tpu_torch.nn.layers import Dropout
+
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 
 def randomize(tree, rng):
