@@ -83,6 +83,35 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            p50/p99 and images/s per model, sheds by reason, the respawn's
            and each swap phase's ms; the kernels line gains
            `nms[fleet]`;
+4d. procfleet  the process fleet behind its front door:
+           ProcReplicaPool(replicas=2, heartbeat_s=1.0) of
+           tools/loadgen.py's yolo_fleet_builder (phase 4's YOLOv3, its
+           seeded weights and detection parameters, buckets 1-8) behind
+           AdmissionController(PROC_ADMISSION) and a Transport, the
+           parent's template built first, so no child builds a kernel
+           (each ready file's and the respawn's backend_compiles 0);
+           one image's JSON encode and decode timed; (a) 24 requests
+           through pool.submit in closed-loop bursts of 1-4, checked,
+           p50/p99 beside phase 4c's, split by trace id into the
+           parent's share, the child's decode and its Server; (b) 8
+           requests through HttpLoadClient -> Transport -> a child, each
+           trace id in exactly one parent and one child transport row;
+           (c) a SIGKILL of a replica with 4 requests in flight: ok +
+           ReplicaLost = 4, ok >= 1, one replica_lost, one
+           replica_recovered (attempt 2); (d) a SwapController swap
+           promoted through a canary process under live traffic, then
+           each replica's detections over the wire against the
+           template's (FLEET_TOL); (e) admission tightened
+           (PROC_TIGHT) and a blast of 12: 429s with Retry-After that
+           the client honoured; (f) drain: the parent's, each child's
+           Server and front-door ledgers balance, offered = ok + error +
+           shed across the clients, the front door and its journal; NMS
+           launches = the children's YOLOv3 serve_batch rows, and each
+           child's own count (its journal's `nms_launches` note) = its
+           rows + 4 warm-ups; the template's NMS equal to the plain
+           version on a batch of 4, kernel times at B = 1, 2, 4 (the
+           buckets the bursts fill); the kernels line gains
+           `nms[procfleet]`;
 5. train  the flagship step (ResNet-50, s2d stem, bf16, batch 128,
            SGD) through the port's Trainer: warm-up and timed steps,
            48 + 48 bn_act and 53 + 53 moments launches per step, a finite
@@ -155,7 +184,8 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            decisions (ZOO_CHECK_TOL); then in subprocesses `train_cli -m
            mobilenet1` on phase 6's records under DVT_DETERMINISTIC=1, 2
            epochs straight and 1 + `-c auto`, ending bitwise equal, and
-           `train_cli -m lenet5` one epoch on seeded MNIST idx files;
+           `train_cli -m lenet5` one epoch on seeded MNIST idx files
+           (beside the 1 + `-c auto` runs, on a thread);
 8. vmoe    vmoe_s16 as registered (float32, batch 256, 224, AdamW with
            warmup and cosine) through the CLI's `build_trainer` on the
            CLI's seeded fake batch: warm-up and timed steps (ms/step,
@@ -207,7 +237,9 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            `-m cyclegan --batch-size 2` 2 epochs on image folders
            through `tools/convert.py cyclegan` and a `-c` resume to a
            third, `-m dcgan_mnist --fake-data` one epoch and a resume to
-           a second, each run's moments launches counted by the hook;
+           a second (the two GAN chains on a thread beside the pose and
+           CenterNet ones), each run's moments launches counted by the
+           hook;
            the kernels line gains `bn_moments_*[hourglass_mpii]`,
            `[centernet_coco]` and `[dcgan_mnist]`;
 11. infer  the inference CLI, `deep_vision_tpu_torch.tools.infer.main`
@@ -1963,6 +1995,54 @@ def fleet_against_cpu(torch, traffic, models, card):
               + f" ({card})")
 
 
+def engine_nms(torch, engine, x, sizes, label):
+    """An engine's YOLOv3 batch `x` against the same predictor with the
+    plain NMS (every output equal), then NMS at the batch's class-shifted
+    boxes: kernel against plain, the kernel's times at the first b
+    images for b in `sizes`, the plain version's and the bound at the
+    whole batch. -> (max_abs_err, {b: ms}, plain ms, bound ms, bound
+    by)."""
+    from deep_vision_tpu_torch.inference import (
+        yolo_decode_outputs,
+        yolo_predict_fn,
+    )
+    from deep_vision_tpu_torch.ops.cuda.nms import greedy_nms, nms_plain
+    from torch.func import functional_call
+
+    entry = engine.entry("yolov3")
+    kw = entry.fn.keywords
+    model = kw["model"]
+    got = engine.run("yolov3", x)
+    plain = yolo_predict_fn(model, select=nms_plain, **{
+        k: kw[k] for k in ("max_detections", "iou_threshold",
+                           "score_threshold")})(entry.variables, x)
+    for k in got:
+        check(torch.equal(got[k], plain[k]),
+              f"{label}'s '{k}' differs from the plain-NMS predictor")
+    with torch.inference_mode():
+        boxes, scores = yolo_decode_outputs(
+            functional_call(model, entry.variables, (x,)))
+        best, cls = scores.max(dim=-1)
+    shifted = (boxes + cls.to(boxes.dtype)[..., None] * 2.0).contiguous()
+    best = best.contiguous()
+    k_out = greedy_nms(shifted, best, MAX_DET, IOU_THR, SCORE_THR)
+    p_out = nms_plain(shifted, best, MAX_DET, IOU_THR, SCORE_THR)
+    check(torch.equal(k_out[1], p_out[1]) and torch.equal(k_out[0],
+                                                          p_out[0]),
+          f"nms on {label}'s batch differs from its plain version")
+    ms_at = {}
+    for b in sizes:
+        one = (shifted[:b].contiguous(), best[:b].contiguous())
+        ms_at[b], _ = time_cuda(torch, lambda: greedy_nms(
+            *one, MAX_DET, IOU_THR, SCORE_THR))
+    plain_ms, _ = time_cuda(torch, lambda: nms_plain(
+        shifted, best, MAX_DET, IOU_THR, SCORE_THR))
+    bound_ms, bound_by, _, _, _, _ = nms_bound(torch, best, k_out[1],
+                                               SCORE_THR)
+    return (float((k_out[0] - p_out[0]).abs().max()), ms_at, plain_ms,
+            bound_ms, bound_by)
+
+
 def fleet_journal_times(rows):
     """From the fleet journal: (ms from the first replica_lost to the
     first replica_recovered, [per swap: [(phase, outcome, ms since the
@@ -1985,21 +2065,19 @@ def fleet_journal_times(rows):
 
 def fleet_phase(torch, dev, card, yolo, det):
     """Phase 4c: the in-process serving fleet on the card (module
-    docstring). -> the kernels line's `nms[fleet]` entry."""
+    docstring). -> (the kernels line's `nms[fleet]` entry, YOLOv3's p50
+    and p99 ms from the journal's serve_request rows)."""
     import copy
 
     from deep_vision_tpu_torch.core.checkpoint import CheckpointManager
-    from deep_vision_tpu_torch.inference import (
-        yolo_decode_outputs,
-        yolo_predict_fn,
-    )
+    from deep_vision_tpu_torch.inference import yolo_predict_fn
     from deep_vision_tpu_torch.obs.journal import RunJournal, read_journal
     from deep_vision_tpu_torch.obs.locksmith import disarm
     from deep_vision_tpu_torch.obs.registry import Registry
     from deep_vision_tpu_torch.ops.cuda import build
     from deep_vision_tpu_torch.ops.cuda.bn_act import fused_scale_bias_act
     from deep_vision_tpu_torch.ops.cuda.flash_attention import flash_attention
-    from deep_vision_tpu_torch.ops.cuda.nms import greedy_nms, nms_plain
+    from deep_vision_tpu_torch.ops.cuda.nms import greedy_nms
     from deep_vision_tpu_torch.ops.cuda.norm import batch_moments, layer_norm
     from deep_vision_tpu_torch.resilience import faults
     from deep_vision_tpu_torch.serve import (
@@ -2011,7 +2089,6 @@ def fleet_phase(torch, dev, card, yolo, det):
         SwapController,
         swap_tree,
     )
-    from torch.func import functional_call
 
     t_phase = time.perf_counter()
     rng = np.random.RandomState(4)
@@ -2158,10 +2235,13 @@ def fleet_phase(torch, dev, card, yolo, det):
     reasons = {reason: sum(n for (_, why), n in traffic.sheds.items()
                            if why == reason) for reason in SHED_REASONS}
     reasons["draining"] += drained_sheds
+    yolo_ms = None
     for task in sorted(report):
         r = report[task]
         ms = [e["latency_ms"] for e in rows if e["event"] == "serve_request"
               and e["model"] == task and e["outcome"] == "ok"]
+        if task == "yolov3":
+            yolo_ms = (np.percentile(ms, 50), np.percentile(ms, 99))
         print(f"[fleet] {task}: {traffic.ok[task]} answered of "
               f"{r['offered']} offered, {r['shed']} shed; latency p50 "
               f"{np.percentile(ms, 50):.3f} ms p99 "
@@ -2234,35 +2314,8 @@ def fleet_phase(torch, dev, card, yolo, det):
 
     # the canary's batch: NMS against its plain version, then its times
     # at the fleet's buckets
-    canary = canaries[0].entry("yolov3")
-    model = canary.fn.keywords["model"]
-    got = canaries[0].run("yolov3", x8)
-    plain = yolo_predict_fn(model, select=nms_plain, **det)(
-        canary.variables, x8)
-    for k in got:
-        check(torch.equal(got[k], plain[k]),
-              f"the canary's '{k}' differs from the plain-NMS predictor")
-    with torch.inference_mode():
-        boxes, scores = yolo_decode_outputs(
-            functional_call(model, canary.variables, (x8,)))
-        best, cls = scores.max(dim=-1)
-    shifted = (boxes + cls.to(boxes.dtype)[..., None] * 2.0).contiguous()
-    best = best.contiguous()
-    k_out = greedy_nms(shifted, best, MAX_DET, IOU_THR, SCORE_THR)
-    p_out = nms_plain(shifted, best, MAX_DET, IOU_THR, SCORE_THR)
-    check(torch.equal(k_out[1], p_out[1]) and torch.equal(k_out[0],
-                                                          p_out[0]),
-          "nms on the canary's batch differs from its plain version")
-    max_abs_err = float((k_out[0] - p_out[0]).abs().max())
-    ms_at = {}
-    for b in BUCKETS:
-        one = (shifted[:b].contiguous(), best[:b].contiguous())
-        ms_at[b], _ = time_cuda(torch, lambda: greedy_nms(
-            *one, MAX_DET, IOU_THR, SCORE_THR))
-    plain_ms, _ = time_cuda(torch, lambda: nms_plain(
-        shifted, best, MAX_DET, IOU_THR, SCORE_THR))
-    bound_ms, bound_by, nbytes, ops, _, _ = nms_bound(
-        torch, best, k_out[1], SCORE_THR)
+    max_abs_err, ms_at, plain_ms, bound_ms, bound_by = engine_nms(
+        torch, canaries[0], x8, BUCKETS, "the canary")
     print(f"[fleet] nms: {launches} launches = {batches} YOLOv3 batches "
           f"on the replicas and canaries + {probes} swap probes; the "
           f"canary's batch equal to the plain version; kernel ms a call "
@@ -2279,7 +2332,476 @@ def fleet_phase(torch, dev, card, yolo, det):
             "replaces": "deep_vision_tpu/ops/pallas/nms.py:42",
             "launches": launches, "max_abs_err": max_abs_err,
             "ms": ms_at[max(BUCKETS)], "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}, yolo_ms
+
+
+#: phase 4d, the process fleet: ProcReplicaPool(replicas=PROC_REPLICAS)
+#: of deep_vision_tpu_torch/tools/loadgen.py's yolo_fleet_builder (YOLOv3
+#: 416, phase 4's seeded and calibrated weights, buckets 1-8), each replica
+#: a spawned process on the card behind its own socket, the parent behind
+#: a Transport. The wire is the reference's JSON: a 416x416x3 image is
+#: ~10.9 MB of text, which the parent encodes for every proxied request
+PROC_REPLICAS = 2
+#: a child's handler threads hold its GIL in json.loads (~0.4 s a
+#: request) while its heartbeat thread waits: 1 s beats, a 3 s lease
+PROC_HEARTBEAT_S = 1.0
+PROC_ADMISSION = {"max_queue_depth": 16, "rate_per_s": 200.0, "burst": 8}
+#: (a) closed-loop bursts through pool.submit: 24 requests
+PROC_BURSTS = (1, 3, 2, 4, 1, 2, 3, 4, 2, 1, 1)
+#: (b) requests through HttpLoadClient -> Transport -> a child, each
+#: under a trace of its own; (c) requests in flight at the SIGKILL
+PROC_HTTP = 8
+PROC_KILL = 4
+PROC_CANARY = {"canary_pct": 50, "min_canary_requests": 2,
+               "canary_timeout_s": 180.0}
+#: (e) the tightened admission and the blast through HttpLoadClient (one
+#: retry a request). The parent decodes each request's JSON and encodes
+#: each admitted one's under one GIL, which paces the blast's arrivals
+#: under one a second, so a bucket of 2/s would never run dry: it offers
+#: 0.25/s with a burst of 2
+PROC_TIGHT = {"max_queue_depth": 16, "rate_per_s": 0.25, "burst": 2}
+PROC_BLAST = 12
+PROC_IMAGES = 8
+
+
+def detection_rows_ok(rows, label):
+    """YOLOv3 detection rows (arrays, or nested lists off the wire):
+    shapes, finite values, the padding layout."""
+    for row in rows:
+        boxes, scores = np.asarray(row["boxes"]), np.asarray(row["scores"])
+        classes = np.asarray(row["classes"])
+        check(boxes.shape == (MAX_DET, 4) and scores.shape == (MAX_DET,)
+              and classes.shape == (MAX_DET,)
+              and np.asarray(row["num"]).shape == (),
+              f"{label}: response shapes")
+        check(np.isfinite(boxes).all() and np.isfinite(scores).all(),
+              f"{label}: non-finite response")
+        n = int(row["num"])
+        check((classes[:n] >= 0).all() and (classes[n:] == -1).all(),
+              f"{label}: padding layout")
+
+
+def proc_wire_check(torch, dev, pool, image, label, card):
+    """Each base replica's detections over the wire for `image` against
+    the parent's template engine on the card: counts and classes equal,
+    boxes and scores within FLEET_TOL of their largest |value|."""
+    x1 = torch.from_numpy(image[None]).to(dev)
+    want = {k: v[0].cpu().numpy() for k, v in
+            pool.primary_engine().run("yolov3", x1).items()}
+    shares = {}
+    for rid, slot in sorted(pool._slots.items()):
+        got = pool._http_infer(slot, "yolov3", image, None, None)
+        n = int(got["num"])
+        check(n == int(want["num"]) and np.array_equal(
+            np.asarray(got["classes"]), want["classes"]),
+            f"{label}: replica {rid}: {n} detections, the template "
+            f"{int(want['num'])}, or other classes")
+        for key in ("boxes", "scores"):
+            err = float(np.abs(np.asarray(got[key], np.float32)
+                               - want[key]).max())
+            bound = FLEET_TOL * max(float(np.abs(want[key]).max()), 1e-6)
+            check(err <= bound, f"{label}: replica {rid} {key}: {err} > "
+                  f"{bound}")
+            shares[f"{rid} {key}"] = err / bound
+    print(f"[procfleet] {label}: every replica's detections over the wire "
+          f"against the template engine's ({int(want['num'])} "
+          f"detections); error as a share of its tolerance "
+          + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
+          + f" ({card})")
+
+
+def proc_journals(work):
+    """{file name: rows} of every replica journal under `work`."""
+    from deep_vision_tpu_torch.obs.journal import read_journal
+
+    return {p: read_journal(os.path.join(work, p))
+            for p in sorted(os.listdir(work))
+            if p.startswith("replica-") and p.endswith(".jsonl")}
+
+
+def proc_split(stamps, children):
+    """Where the (a) requests' time went, joined by trace id: the
+    parent's share (its JSON encode, the socket, the child's response
+    encode, its decode), the child's edge beyond its Server (the
+    request's JSON decode), the Server's (queue, forward, NMS, copy
+    back). -> {part: [ms a request]}."""
+    edge = {}
+    serve = {}
+    for rows in children.values():
+        for r in rows:
+            if r["event"] == "transport_request" and r["status"] == 200:
+                edge[r["trace_id"]] = r["latency_ms"]
+            elif r["event"] == "serve_request" and r["outcome"] == "ok":
+                serve[r["trace_id"]] = r["latency_ms"]
+    out = {"total": [], "parent": [], "child_decode": [], "serve": []}
+    for trace_id, total_ms in stamps.items():
+        if trace_id not in edge or trace_id not in serve:
+            continue
+        out["total"].append(total_ms)
+        out["parent"].append(total_ms - edge[trace_id])
+        out["child_decode"].append(edge[trace_id] - serve[trace_id])
+        out["serve"].append(serve[trace_id])
+    check(len(out["total"]) == len(stamps), f"only {len(out['total'])} of "
+          f"{len(stamps)} (a) requests found in the children's journals")
+    return out
+
+
+def proc_closed_loop(pool, images, bursts, rng):
+    """(a): closed-loop bursts through pool.submit, each request under a
+    trace of its own. -> (rows, {trace id: ms from submit to answer})."""
+    from deep_vision_tpu_torch.obs import propagate
+
+    rows, stamps = [], {}
+    for n in bursts:
+        futs = []
+        for _ in range(n):
+            ctx = propagate.new_trace()
+            t0 = time.perf_counter()
+            with propagate.use(ctx):
+                fut = pool.submit("yolov3", images[rng.randint(len(images))])
+            fut.add_done_callback(
+                lambda f, _id=ctx.trace_id, _t=t0: stamps.__setitem__(
+                    _id, (time.perf_counter() - _t) * 1e3))
+            futs.append(fut)
+        rows += [f.result(timeout=300) for f in futs]
+    return rows, stamps
+
+
+def proc_swap(torch, dev, pool, journal, tmp, images):
+    """(d): one SwapController swap promoted through a canary process
+    while a thread keeps closed-loop traffic on the pool. -> (verdict,
+    compile-count delta, the new weights)."""
+    import threading
+
+    from deep_vision_tpu_torch.core.checkpoint import CheckpointManager
+    from deep_vision_tpu_torch.serve import SwapController, swap_tree
+    from deep_vision_tpu_torch.serve.swap import compile_count
+
+    base = pool.primary_engine().entry("yolov3").variables
+    gen = torch.Generator(device=dev).manual_seed(17)
+    new = {k: (v * (1 + FLEET_NOISE * torch.randn(
+        v.shape, generator=gen, device=v.device))) if v.is_floating_point()
+        else v.clone() for k, v in base.items()}
+    ckpt = CheckpointManager(os.path.join(tmp, "swap"), journal=journal)
+    ckpt.save_tree(1, swap_tree({"yolov3": new}))
+    ckpt.wait()
+    stop = threading.Event()
+    failures = []
+
+    def traffic():
+        i = 0
+        while not stop.is_set():
+            try:
+                pool.submit("yolov3", images[i % len(images)]).result(
+                    timeout=300)
+            except Exception as e:
+                failures.append(f"{type(e).__name__}: {e}"[:200])
+            i += 1
+
+    t = threading.Thread(target=traffic, name="procfleet-traffic")
+    swapper = SwapController(pool, journal=journal, **PROC_CANARY)
+    c0 = compile_count()
+    t.start()
+    try:
+        verdict = swapper.swap(ckpt, step=1, models=("yolov3",))
+    finally:
+        stop.set()
+        t.join()
+        ckpt.close()
+    check(not failures, f"requests failed during the swap: {failures}")
+    return verdict, compile_count() - c0, new
+
+
+def procfleet_phase(torch, dev, card, fleet_yolo_ms):
+    """Phase 4d: the process fleet behind its front door (module
+    docstring). -> the kernels line's `nms[procfleet]` entry."""
+    from deep_vision_tpu_torch.obs import propagate
+    from deep_vision_tpu_torch.obs.journal import RunJournal, read_journal
+    from deep_vision_tpu_torch.obs.registry import Registry
+    from deep_vision_tpu_torch.ops.cuda import build
+    from deep_vision_tpu_torch.ops.cuda.bn_act import fused_scale_bias_act
+    from deep_vision_tpu_torch.ops.cuda.flash_attention import flash_attention
+    from deep_vision_tpu_torch.ops.cuda.nms import greedy_nms
+    from deep_vision_tpu_torch.ops.cuda.norm import batch_moments, layer_norm
+    from deep_vision_tpu_torch.resilience import RetryPolicy
+    from deep_vision_tpu_torch.serve import (
+        AdmissionController,
+        ProcReplicaPool,
+        ReplicaLost,
+        ShedError,
+        Transport,
+    )
+    from deep_vision_tpu_torch.tools.loadgen import (
+        HttpLoadClient,
+        yolo_fleet_builder,
+    )
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(5)
+    images = [rng.rand(IMAGE, IMAGE, 3).astype(np.float32)
+              for _ in range(PROC_IMAGES)]
+    t0 = time.perf_counter()
+    body = json.dumps({"image": images[0].tolist()})
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    np.asarray(json.loads(body)["image"], dtype=np.float32)
+    decode_s = time.perf_counter() - t0
+    print(f"[procfleet] one {IMAGE}x{IMAGE}x3 image on the wire: "
+          f"{len(body) / 1e6:.2f} MB of JSON, json.dumps(tolist) "
+          f"{encode_s * 1e3:.1f} ms, json.loads + np.asarray "
+          f"{decode_s * 1e3:.1f} ms (host clock) ({card})")
+    del body
+    tmp = tempfile.mkdtemp(dir=build.BUILD_DIR)
+    journal = RunJournal(os.path.join(tmp, "journal.jsonl"), kind="serve")
+    journal.manifest(config={"name": "chip_smoke_procfleet",
+                             "task": "serving"})
+    registry = Registry()
+    for counter in (greedy_nms, fused_scale_bias_act, flash_attention,
+                    batch_moments, layer_norm):
+        counter.launches = 0  # the parent's counts; the children's own
+    fused_scale_bias_act.backward_launches = 0  # start at 0 in each
+    builds = build.build_count()
+    pool = ProcReplicaPool(yolo_fleet_builder, replicas=PROC_REPLICAS,
+                           run_dir=tmp, journal=journal, registry=registry,
+                           admission=AdmissionController(**PROC_ADMISSION),
+                           heartbeat_s=PROC_HEARTBEAT_S,
+                           ready_timeout_s=300.0, request_timeout_s=300.0)
+    t0 = time.perf_counter()
+    pool.start()
+    start_s = time.perf_counter() - t0
+    tp = Transport(pool, journal=journal, registry=registry).start()
+    warm = pool.warmup_stats()
+    print(f"[procfleet] template engine and {PROC_REPLICAS} replica "
+          f"processes ready in {start_s:.1f} s; template "
+          f"{pool.template_warmup}, replicas {warm}; front door at "
+          f"{tp.address} ({card})")
+    check(all(w["backend_compiles"] == 0 for w in warm.values()),
+          f"a replica process built a kernel: {warm}")
+
+    # (a) closed-loop bursts through pool.submit
+    t0 = time.perf_counter()
+    rows_a, stamps = proc_closed_loop(pool, images, PROC_BURSTS, rng)
+    a_s = time.perf_counter() - t0
+    check(len(rows_a) == sum(PROC_BURSTS), "(a) lost requests")
+    detection_rows_ok(rows_a, "(a)")
+    a_ms = list(stamps.values())
+    print(f"[procfleet] (a) {len(a_ms)} requests in {len(PROC_BURSTS)} "
+          f"closed-loop bursts of 1-4 in {a_s:.1f} s: submit to answer p50 "
+          f"{np.percentile(a_ms, 50):.1f} ms p99 "
+          f"{np.percentile(a_ms, 99):.1f} ms; phase 4c's in-process YOLOv3 "
+          f"p50 {fleet_yolo_ms[0]:.1f} ms p99 {fleet_yolo_ms[1]:.1f} ms "
+          f"(its Server rows) ({card})")
+
+    # (b) HttpLoadClient -> Transport -> a child, a trace a request
+    client_b = HttpLoadClient("127.0.0.1", tp.port, timeout_s=300.0)
+    ctxs = [propagate.new_trace() for _ in range(PROC_HTTP)]
+    t0 = time.perf_counter()
+    futs = []
+    for i, ctx in enumerate(ctxs):
+        with propagate.use(ctx):
+            futs.append(client_b.submit("yolov3", images[i % len(images)]))
+    rows_b = [f.result(timeout=600) for f in futs]
+    b_s = time.perf_counter() - t0
+    client_b.close()
+    detection_rows_ok(rows_b, "(b)")
+    print(f"[procfleet] (b) {PROC_HTTP} requests through HttpLoadClient -> "
+          f"Transport -> a child in {b_s:.1f} s ({card})")
+
+    # (c) SIGKILL p0 with PROC_KILL requests in flight
+    victim = pool._slots["p0"]
+    futs = [pool.submit("yolov3", images[i]) for i in range(PROC_KILL)]
+    os.kill(victim.proc.pid, signal.SIGKILL)
+    kill = {"ok": 0, "ReplicaLost": 0}
+    lost_errors = []
+    for f in futs:
+        try:
+            f.result(timeout=300)
+            kill["ok"] += 1
+        except ReplicaLost as e:
+            kill["ReplicaLost"] += 1
+            lost_errors.append(str(e)[:200])
+    check(kill["ok"] + kill["ReplicaLost"] == PROC_KILL and kill["ok"] >= 1,
+          f"(c) the SIGKILL's requests: {kill} {lost_errors}; replicas "
+          f"{pool.replica_states()}")
+    deadline = time.perf_counter() + 300
+    while not (victim.attempt == 2
+               and pool.replica_states()["p0"] == "serving"):
+        check(time.perf_counter() < deadline,
+              f"(c) no respawn: {pool.replica_states()}")
+        time.sleep(0.05)
+
+    # (d) a swap promoted through a canary process
+    verdict, delta, new = proc_swap(torch, dev, pool, journal, tmp, images)
+    check(verdict["outcome"] == "promoted", f"(d) the swap: {verdict}")
+    check(delta == 0, f"(d) the swap warmed or built in the parent: {delta}")
+    proc_wire_check(torch, dev, pool, images[0], "(d) after the promote",
+                    card)
+
+    # (e) admission tightened, then a blast through HttpLoadClient
+    pool.admission = AdmissionController(**PROC_TIGHT)
+    client_e = HttpLoadClient(
+        "127.0.0.1", tp.port, timeout_s=300.0,
+        retry=RetryPolicy(name="procfleet.blast", max_attempts=2,
+                          base_delay_s=0.02, jitter=0.25,
+                          retry_on=(ShedError, ReplicaLost,
+                                    ConnectionError, TimeoutError),
+                          journal=journal, registry=registry))
+    t0 = time.perf_counter()
+    futs = [client_e.submit("yolov3", images[i % len(images)])
+            for i in range(PROC_BLAST)]
+    blast = {"ok": 0, "ShedError": 0}
+    for f in futs:
+        try:
+            f.result(timeout=600)
+            blast["ok"] += 1
+        except ShedError:
+            blast["ShedError"] += 1
+    e_s = time.perf_counter() - t0
+    client_e.close()
+
+    # (f) drain
+    child_ledgers = pool.child_ledgers()
+    tp.close()
+    summary = pool.drain("close")
+    journal.close()
+    rows = read_journal(journal.path)
+    children = proc_journals(tmp)
+    parent_counts = (fused_scale_bias_act.launches,
+                     fused_scale_bias_act.backward_launches,
+                     flash_attention.launches, batch_moments.launches,
+                     layer_norm.launches)
+
+    # -- the numbers ----------------------------------------------------
+    split = proc_split(stamps, children)
+    serve_ms = [r["latency_ms"] for rs in children.values() for r in rs
+                if r["event"] == "serve_request" and r["outcome"] == "ok"]
+    print(f"[procfleet] (a) where a request's time went, medians a request: "
+          + ", ".join(f"{k} {np.median(v):.1f} ms" for k, v in split.items())
+          + "; parent = its JSON encode, the socket, the child's response "
+          "encode and its decode; child_decode = the child's JSON decode and "
+          "edge; serve = the child's Server (queue, forward, NMS, copy "
+          f"back); every Server row of the children p50 "
+          f"{np.percentile(serve_ms, 50):.1f} ms ({card})")
+    lost = [r for r in rows if r["event"] == "replica_lost"]
+    rec = [r for r in rows if r["event"] == "replica_recovered"]
+    check(len(lost) == 1 and len(rec) == 1 and lost[0]["replica"] == "p0"
+          and rec[0]["replica"] == "p0" and rec[0]["attempt"] == 2
+          and rec[0]["backend_compiles"] == 0,
+          f"(c) death and respawn: {lost} {rec}")
+    print(f"[procfleet] (c) SIGKILL of p0 with {PROC_KILL} requests in "
+          f"flight: {kill}; replica_lost to replica_recovered (attempt 2, "
+          f"backend_compiles {rec[0]['backend_compiles']}) "
+          f"{(rec[0]['ts'] - lost[0]['ts']) * 1e3:.1f} ms ({card})")
+    swap_rows = [r for r in rows if r["event"] == "serve_swap"]
+    canary = verdict["timeline"][2]["replica"]
+    print(f"[procfleet] (d) swap promoted through {canary}: " + ", ".join(
+              f"{r['phase']} {r['outcome']} +"
+              f"{(r['ts'] - swap_rows[max(i - 1, 0)]['ts']) * 1e3:.1f} ms"
+              for i, r in enumerate(swap_rows)) + f" ({card})")
+    led = tp.ledger()
+    print(f"[procfleet] (e) admission {PROC_TIGHT}, a blast of "
+          f"{PROC_BLAST} in {e_s:.1f} s: client {client_e.counts}, "
+          f"outcomes {blast}; the front door's ledger {led} ({card})")
+
+    # -- checks ---------------------------------------------------------
+    check(client_b.counts["ok"] == PROC_HTTP, f"(b) {client_b.counts}")
+    check(led["by_status"].get("429", 0) >= 1
+          and client_e.counts["retry_after_honored"] > 0,
+          f"(e) no 429 honoured: {led}, {client_e.counts}")
+    check(blast["ok"] + blast["ShedError"] == PROC_BLAST
+          and client_e.counts["ok"] == blast["ok"]
+          and client_e.counts["shed"] == blast["ShedError"]
+          and client_e.counts["error"] == 0,
+          f"(e) the client's ledger {client_e.counts} against {blast}")
+    offered = client_b.counts["offered"] + client_e.counts["offered"]
+    attempts = offered + client_b.counts["retries"] \
+        + client_e.counts["retries"]
+    check(led["balanced"] and led["offered"] == attempts
+          and led["ok"] == client_b.counts["ok"] + client_e.counts["ok"]
+          and led["shed"] == client_e.counts["shed"]
+          + client_e.counts["retries"] and led["error"] == 0,
+          f"offered = ok + error + shed: the front door {led} against the "
+          f"clients' {client_b.counts} and {client_e.counts}")
+    edge_rows = [r for r in rows if r["event"] == "transport_request"]
+    by_outcome = {}
+    for r in edge_rows:
+        by_outcome[r["outcome"]] = by_outcome.get(r["outcome"], 0) + 1
+    check(len(edge_rows) == led["offered"]
+          and all(by_outcome.get(k, 0) == led[k]
+                  for k in ("ok", "error", "shed")),
+          f"the journal's transport rows {by_outcome} against {led}")
+    for ctx in ctxs:
+        mine = [r for r in edge_rows if r.get("trace_id") == ctx.trace_id]
+        hops = [r for rs in children.values() for r in rs
+                if r["event"] == "transport_request"
+                and r.get("trace_id") == ctx.trace_id]
+        check(len(mine) == 1 and mine[0]["status"] == 200 and len(hops) == 1
+              and hops[0]["status"] == 200,
+              f"(b) trace {ctx.trace_id}: parent rows {mine}, child rows "
+              f"{hops}")
+    check(summary["outcome"] == "flushed" and summary["pending"] == 0
+          and summary["accepted"] == summary["completed"]
+          + summary["errors"] + summary["cancelled"],
+          f"(f) the parent's ledger: {summary}")
+    check(summary["errors"] == kill["ReplicaLost"],
+          f"(f) {summary['errors']} errors, {kill['ReplicaLost']} lost")
+    for rid, cl in child_ledgers.items():
+        check(cl["balanced"] and cl["error"] == 0,
+              f"(f) child {rid}'s front door: {cl}")
+    launches = 0
+    for name, crow in children.items():
+        batches = sum(r["event"] == "serve_batch" and r["model"] == "yolov3"
+                      for r in crow)
+        launches += batches
+        drains = [r for r in crow if r["event"] == "serve_drain"]
+        notes = [r["launches"] for r in crow if r["event"] == "note"
+                 and r.get("note") == "nms_launches"]
+        if name == "replica-p0-a1.jsonl":  # SIGKILLed: no drain, no note
+            check(not drains and not notes, f"{name}: {drains} {notes}")
+            continue
+        d = drains[0] if len(drains) == 1 else {}
+        check(d.get("pending") == 0 and d.get("accepted") == d.get(
+            "completed", 0) + d.get("errors", 0) + d.get("cancelled", 0),
+            f"(f) {name}'s Server ledger: {drains}")
+        # the child's own count: its warm-up's batches and its served ones
+        check(notes == [batches + len(BUCKETS)],
+              f"{name}: NMS launches {notes} != {batches} serve_batch rows "
+              f"+ {len(BUCKETS)} warm-ups")
+    canary_ready = json.load(open(os.path.join(
+        tmp, "replica-canary1.ready.json")))
+    check(canary_ready["warmup"]["backend_compiles"] == 0,
+          f"the canary built a kernel: {canary_ready}")
+    check(launches > 0 and parent_counts == (0, 0, 0, 0, 0),
+          f"NMS launches {launches}; the parent ran other kernels "
+          f"{parent_counts}")
+    check(build.build_count() == builds, "the parent built a kernel")
+    print(f"[procfleet] (f) drain {summary}; children's front doors "
+          f"{child_ledgers}; NMS launches in the children {launches} (their "
+          f"YOLOv3 serve_batch rows, each child's own count = its rows + "
+          f"{len(BUCKETS)} warm-ups); journals {sorted(children)} ({card})")
+
+    # the template's NMS on one served batch against its plain version,
+    # then the kernel's times at the buckets the bursts fill
+    x4 = torch.from_numpy(np.stack(images[:4])).to(dev)
+    max_abs_err, ms_at, plain_ms, bound_ms, bound_by = engine_nms(
+        torch, pool.primary_engine(), x4, (1, 2, 4), "the template")
+    print(f"[procfleet] nms: {launches} launches in the replica processes; "
+          f"the template's batch of 4 equal to the plain version; kernel ms "
+          f"a call " + ", ".join(f"B={b} {ms:.4f}" for b, ms in
+                                 ms_at.items())
+          + f"; plain {plain_ms:.4f} ms and bound {bound_ms:.6f} ms "
+          f"({bound_by}) at B=4 ({card})")
+    shutil.rmtree(tmp)
+    del pool, x4, new
+    print(f"[procfleet] phase 4d: {time.perf_counter() - t_phase:.1f} s "
+          f"({card})")
+    return {"name": "nms[procfleet]", "route": "cuda",
+            "source": "deep_vision_tpu_torch/csrc/nms.cu",
+            "replaces": "deep_vision_tpu/ops/pallas/nms.py:42",
+            "launches": launches, "max_abs_err": max_abs_err,
+            "ms": ms_at[4], "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def traced_step_times(torch, trainer, batch, card, tmp):
@@ -2765,6 +3287,31 @@ def run_cli(cmd, env, log, label):
           f"CLI run {label} exited {proc.returncode}:\n{tail}")
     print(f"[cli] run {label}: exit 0 in {secs:.1f} s")
     return secs
+
+
+class Background:
+    """fn() on a thread of its own; join() re-raises in the caller what
+    it raised, a failed check's SystemExit included (on a thread it
+    would end the thread only)."""
+
+    def __init__(self, fn, name):
+        import threading
+
+        self.error = None
+        self.thread = threading.Thread(target=self._run, args=(fn,),
+                                       name=name, daemon=True)
+        self.thread.start()
+
+    def _run(self, fn):
+        try:
+            fn()
+        except BaseException as e:  # re-raised by join()
+            self.error = e
+
+    def join(self):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
 
 
 def cli_report(rows, label, card, tag="[cli]", metric="top1"):
@@ -3620,10 +4167,29 @@ def zoo_cli(torch, card, tmp, data, env, det):
         return cli_command(data, path(ckpt), path(journal), epochs, *extra,
                            config=config)
 
+    def lenet():
+        mnist = path("mnist")
+        write_synth_mnist(mnist, *ZOO_MNIST, seed=0)
+        run_cli(command("ck_lenet", "lenet.jsonl", 1, config="lenet5",
+                        data=mnist), env, path("lenet.log"),
+                "lenet5 (1 epoch)")
+        rows = read_journal(path("lenet.jsonl"))
+        steps, _ = cli_report(rows, "lenet5", card, tag="[zoo]")
+        evals = [r["summary"] for r in rows if r["event"] == "eval"]
+        check(len(steps) == -(-ZOO_MNIST[0] // 64) and evals
+              and all(np.isfinite(r["loss"]) for r in steps),
+              f"lenet5: {len(steps)} steps, eval {evals}")
+        print(f"[zoo] lenet5: val top1 {evals[0]['top1']:.4f} after one "
+              f"epoch of {ZOO_MNIST[0]} seeded idx images (labels set by a "
+              f"bright square's place; chance 0.1)")
+
     a_log, b_log = path("a_batches.json"), path("b_batches.json")
     run_cli(command("ck_a", "a.jsonl", ZOO_CLI_EPOCHS),
             dict(det, SMOKE_BATCH_LOG=a_log), path("a.log"),
             f"{ZOO_CLI_CONFIG} A ({ZOO_CLI_EPOCHS} epochs, deterministic)")
+    # lenet5 beside runs B1 and B2 (their bitwise checks do not depend on
+    # timing; run A's ms/step, the one returned, ran alone)
+    lenet_run = Background(lenet, "zoo-lenet5")
     run_cli(command("ck_b", "b.jsonl", 1), det, path("b1.log"),
             f"{ZOO_CLI_CONFIG} B1 (1 epoch, deterministic)")
     run_cli(command("ck_b", "b.jsonl", ZOO_CLI_EPOCHS, "-c", "auto"),
@@ -3669,20 +4235,7 @@ def zoo_cli(torch, card, tmp, data, env, det):
     check(max(diffs) == 0.0 and sd["a"]["step"] == sd["b"]["step"]
           == n_steps, "the resumed mobilenet1 run is not bitwise equal to "
           "the straight one")
-
-    mnist = path("mnist")
-    write_synth_mnist(mnist, *ZOO_MNIST, seed=0)
-    run_cli(command("ck_lenet", "lenet.jsonl", 1, config="lenet5",
-                    data=mnist), env, path("lenet.log"), "lenet5 (1 epoch)")
-    rows = read_journal(path("lenet.jsonl"))
-    steps, _ = cli_report(rows, "lenet5", card, tag="[zoo]")
-    evals = [r["summary"] for r in rows if r["event"] == "eval"]
-    check(len(steps) == -(-ZOO_MNIST[0] // 64) and evals
-          and all(np.isfinite(r["loss"]) for r in steps),
-          f"lenet5: {len(steps)} steps, eval {evals}")
-    print(f"[zoo] lenet5: val top1 {evals[0]['top1']:.4f} after one epoch "
-          f"of {ZOO_MNIST[0]} seeded idx images (labels set by a bright "
-          f"square's place; chance 0.1)")
+    lenet_run.join()
     return ms
 
 
@@ -4567,7 +5120,8 @@ def gan_pose_cli(torch, card, tmp, env):
     records, then `--eval-only` (its PCK line); centernet_coco one epoch
     on the COCO records, then `--eval-only` (mAP); cyclegan `--batch-size 2` two epochs on the
     image-only records, then `-c` to a third; dcgan_mnist `--fake-data`
-    one epoch, then `-c` to a second. The hook counts each run's
+    one epoch, then `-c` to a second; the GAN chains run on a thread
+    beside the pose and CenterNet chains. The hook counts each run's
     launches. -> {config: the train run's launches}."""
     from deep_vision_tpu_torch.configs import get_config
     from deep_vision_tpu_torch.obs.journal import read_journal
@@ -4579,18 +5133,58 @@ def gan_pose_cli(torch, card, tmp, env):
         return os.path.join(tmp, "gp_" + name)
 
     def run(name, tag, args):
-        log = path(f"{tag}.log")
+        log = path(f"{name}_{tag}.log")
         run_cli([sys.executable, "-m", "deep_vision_tpu_torch.train_cli",
                  "-m", name, *args],
-                dict(env, SMOKE_BATCH_LOG=path(f"{tag}.json")), log,
+                dict(env, SMOKE_BATCH_LOG=path(f"{name}_{tag}.json")), log,
                 f"{name} {tag}")
         for line in open(log).read().splitlines():
             if line.startswith(("model ", "peak device", "resumed",
                                 "eval:")):
                 print(f"[gan_pose] {name} {tag} says: {line}")
         return (open(log).read().splitlines(),
-                json.load(open(path(f"{tag}.json"))))
+                json.load(open(path(f"{name}_{tag}.json"))))
 
+    def gans():
+        for name, first, extra in (
+                ("cyclegan", ["--data-dir", dirs["cyclegan"],
+                              "--batch-size", "2"], 2),
+                ("dcgan_mnist", ["--fake-data", "--fake-batches",
+                                 str(DCGAN_FAKE_BATCHES)], 1)):
+            launches[name] = gan_chain(name, first, extra)
+
+    def gan_chain(name, first, extra):
+        ck, journal = path(f"{name}_ck"), path(f"{name}.jsonl")
+        base = first + ["--ckpt-dir", ck, "--journal", journal]
+        _, hooked = run(name, "train", base + ["--epochs", str(extra)])
+        lines, _ = run(name, "resume", base + ["--epochs", str(extra + 1),
+                                                "-c", "auto"])
+        check(f"resumed GAN training at epoch {extra}" in lines,
+              f"{name}: the resume did not restore epoch {extra}")
+        rows = read_journal(journal)
+        steps, _ = cli_report(rows, f"{name} runs", card, tag="[gan_pose]",
+                              metric="loss")
+        per_epoch = (2 * CYC_IMAGES // 2 if name == "cyclegan"
+                     else DCGAN_FAKE_BATCHES)
+        summaries = [r["summary"] for r in rows if r["event"] == "epoch"]
+        check(len(steps) == (extra + 1) * per_epoch
+              and len(summaries) == extra + 1
+              and all(np.isfinite(list(s.values())).all()
+                      for s in summaries),
+              f"{name}: {len(steps)} steps, epochs {summaries}")
+        n_bn = GAN_POSE_BN[name]
+        want = {"bn_act_fwd": 0, "bn_act_bwd": 0,
+                "bn_moments_fwd": n_bn * extra * per_epoch,
+                "bn_moments_bwd": n_bn * extra * per_epoch}
+        check(hooked["launches"] == want, f"{name}: launches "
+              f"{hooked['launches']}, want {want}")
+        print(f"[gan_pose] {name}: epoch summaries {summaries}")
+        return hooked["launches"]
+
+    # the GAN chains beside the pose and CenterNet chains: their checks
+    # do not depend on timing, and their ms/step are read under the
+    # shared host
+    gan_runs = Background(gans, "gan-pose-gans")
     for name, epochs, images in (
             ("hourglass_mpii", POSE_EPOCHS, POSE_TRAIN),
             ("centernet_coco", 1, CN_TRAIN)):
@@ -4627,37 +5221,7 @@ def gan_pose_cli(torch, card, tmp, env):
                   f"{name} --eval-only printed {said}")
         check(hooked["launches"]["bn_moments_fwd"] == 0,
               f"{name} --eval-only took batch moments")
-    for name, first, extra in (
-            ("cyclegan", ["--data-dir", dirs["cyclegan"], "--batch-size",
-                          "2"], 2),
-            ("dcgan_mnist", ["--fake-data", "--fake-batches",
-                             str(DCGAN_FAKE_BATCHES)], 1)):
-        ck, journal = path(f"{name}_ck"), path(f"{name}.jsonl")
-        base = first + ["--ckpt-dir", ck, "--journal", journal]
-        _, hooked = run(name, "train", base + ["--epochs", str(extra)])
-        lines, _ = run(name, "resume", base + ["--epochs", str(extra + 1),
-                                                "-c", "auto"])
-        check(f"resumed GAN training at epoch {extra}" in lines,
-              f"{name}: the resume did not restore epoch {extra}")
-        rows = read_journal(journal)
-        steps, _ = cli_report(rows, f"{name} runs", card, tag="[gan_pose]",
-                              metric="loss")
-        per_epoch = (2 * CYC_IMAGES // 2 if name == "cyclegan"
-                     else DCGAN_FAKE_BATCHES)
-        summaries = [r["summary"] for r in rows if r["event"] == "epoch"]
-        check(len(steps) == (extra + 1) * per_epoch
-              and len(summaries) == extra + 1
-              and all(np.isfinite(list(s.values())).all()
-                      for s in summaries),
-              f"{name}: {len(steps)} steps, epochs {summaries}")
-        n_bn = GAN_POSE_BN[name]
-        want = {"bn_act_fwd": 0, "bn_act_bwd": 0,
-                "bn_moments_fwd": n_bn * extra * per_epoch,
-                "bn_moments_bwd": n_bn * extra * per_epoch}
-        check(hooked["launches"] == want, f"{name}: launches "
-              f"{hooked['launches']}, want {want}")
-        launches[name] = hooked["launches"]
-        print(f"[gan_pose] {name}: epoch summaries {summaries}")
+    gan_runs.join()
     return launches
 
 
@@ -5247,16 +5811,7 @@ def main():
     print(f"[serve] {len(rows)} requests in {len(BURSTS)} bursts, "
           f"{slo['batches']} batches, {stream_s:.3f} s, {submit_us:.1f} us "
           f"a submit (host clock); nms launches {launches}")
-    for row in rows:
-        check(row["boxes"].shape == (MAX_DET, 4)
-              and row["scores"].shape == (MAX_DET,)
-              and row["classes"].shape == (MAX_DET,)
-              and row["num"].shape == (), "response shapes")
-        check(np.isfinite(row["boxes"]).all()
-              and np.isfinite(row["scores"]).all(), "non-finite response")
-        n = int(row["num"])
-        check((row["classes"][:n] >= 0).all()
-              and (row["classes"][n:] == -1).all(), "padding layout")
+    detection_rows_ok(rows, "phase 4")
     check(launches == slo["batches"] and launches > 0,
           f"nms launches {launches} != batches {slo['batches']}")
 
@@ -5364,10 +5919,16 @@ def main():
     elapsed("phase 4 (serve) done")
 
     # -- 4c. the serving fleet -----------------------------------------------
-    kernels.append(fleet_phase(torch, dev, card, model, det))
+    entry, fleet_yolo_ms = fleet_phase(torch, dev, card, model, det)
+    kernels.append(entry)
     del engine, model, x, variables
     torch.cuda.empty_cache()
     elapsed("phase 4c (fleet) done")
+
+    # -- 4d. the process fleet behind its front door -------------------------
+    kernels.append(procfleet_phase(torch, dev, card, fleet_yolo_ms))
+    torch.cuda.empty_cache()
+    elapsed("phase 4d (process fleet) done")
 
     # -- 5. training ---------------------------------------------------------
     launches, step_ms, wall_ms = train_phase(torch, trainer, train_batch,

@@ -8,8 +8,13 @@ knob must never no-op on a typo. The port reads the flash attention routing floo
 seed that spawned data workers inherit (`DVT_FAULT_SPEC`,
 `DVT_FAULT_SEED`, resilience/faults.py), the lock sanitizer's switch
 and thresholds (`DVT_LOCKSMITH`, `DVT_LOCKSMITH_HOLD_MS`,
-`DVT_LOCKSMITH_WAIT_MS`, knobs.py:123-131, obs/locksmith.py), and its
-own `DVT_DETERMINISTIC`, which the training CLI reads.
+`DVT_LOCKSMITH_WAIT_MS`, knobs.py:123-131, obs/locksmith.py), the
+rendezvous generation a re-entering member attaches to
+(`DVT_RDZV_GENERATION`, knobs.py:142, resilience/rendezvous.py), the
+front door's default deadline and Retry-After hint
+(`DVT_TRANSPORT_DEADLINE_MS`, `DVT_TRANSPORT_RETRY_AFTER_MS`,
+knobs.py:148-155, serve/transport.py), and its own
+`DVT_DETERMINISTIC`, which the training CLI reads.
 """
 from __future__ import annotations
 
@@ -50,6 +55,17 @@ KNOBS = {k.name: k for k in (
          "past this emit a typed lock_contention event."),
     Knob("DVT_LOCKSMITH_WAIT_MS", "float", 1000.0,
          "Locksmith acquire-wait outlier threshold in milliseconds."),
+    Knob("DVT_RDZV_GENERATION", "int", None,
+         "Rendezvous generation to re-attach to (resilience/"
+         "rendezvous.py) when attach() is given none."),
+    Knob("DVT_TRANSPORT_DEADLINE_MS", "float", 0.0,
+         "Default request deadline (milliseconds) the serving front door "
+         "(serve/transport.py) applies to requests that carry no "
+         "X-DVT-Deadline-Ms header; 0 means no default deadline."),
+    Knob("DVT_TRANSPORT_RETRY_AFTER_MS", "float", 50.0,
+         "Retry-After hint (milliseconds) the front door attaches to 429/"
+         "503 responses; the loadgen socket client waits at least this "
+         "before retrying."),
 )}
 
 _TRUE = ("1", "true", "on", "yes")

@@ -1,6 +1,7 @@
 """Serving plane: buckets, batching queue, engine, router, SLO metrics,
-and the in-process fleet: admission control, the replica pool and the
-canary weight swap."""
+the in-process fleet (admission control, the replica pool and the
+canary weight swap), and the process fleet behind its HTTP front door
+(the transport and ProcReplicaPool)."""
 from deep_vision_tpu_torch.serve.admission import (
     AdmissionController,
     ShedError,
@@ -19,6 +20,7 @@ from deep_vision_tpu_torch.serve.pool import (
     ReplicaLost,
     ReplicaPool,
 )
+from deep_vision_tpu_torch.serve.procpool import PROC_STATES, ProcReplicaPool
 from deep_vision_tpu_torch.serve.queue import (
     BatchingQueue,
     DeadlineExceeded,
@@ -33,13 +35,23 @@ from deep_vision_tpu_torch.serve.swap import (
     SwapController,
     swap_tree,
 )
+from deep_vision_tpu_torch.serve.transport import (
+    DEADLINE_HEADER,
+    STATUS_BY_REASON,
+    TRANSPORT_OUTCOMES,
+    TRANSPORT_SERVER_OUTCOMES,
+    Transport,
+    TransportError,
+)
 
 __all__ = [
-    "AdmissionController", "BatchingQueue", "DEFAULT_BUCKETS",
-    "DeadlineExceeded", "Engine", "ModelEntry", "QueueClosed",
-    "REPLICA_STATES", "ReplicaLost", "ReplicaPool", "Request",
-    "SHED_REASONS", "SLOTracker", "SWAP_OUTCOMES", "SWAP_PHASES",
-    "ServeError", "Server", "ServerClosed", "ShedError", "SwapController",
-    "TokenBucket", "bucket_for", "normalize_buckets", "pad_batch",
-    "split_rows", "swap_tree",
+    "AdmissionController", "BatchingQueue", "DEADLINE_HEADER",
+    "DEFAULT_BUCKETS", "DeadlineExceeded", "Engine", "ModelEntry",
+    "PROC_STATES", "ProcReplicaPool", "QueueClosed", "REPLICA_STATES",
+    "ReplicaLost", "ReplicaPool", "Request", "SHED_REASONS", "SLOTracker",
+    "STATUS_BY_REASON", "SWAP_OUTCOMES", "SWAP_PHASES", "ServeError",
+    "Server", "ServerClosed", "ShedError", "SwapController",
+    "TRANSPORT_OUTCOMES", "TRANSPORT_SERVER_OUTCOMES", "TokenBucket",
+    "Transport", "TransportError", "bucket_for", "normalize_buckets",
+    "pad_batch", "split_rows", "swap_tree",
 ]

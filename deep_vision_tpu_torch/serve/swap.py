@@ -21,12 +21,15 @@ started/ok/failed)::
               The `serve.replica` fault point fires at the load, so a
               failed restore is injectable.
     canary    mount the shadow as a canary replica taking x% of live
-              traffic (ReplicaPool.add_canary, health_policy=abort, so
-              non-finite outputs become request errors), and wait for
+              traffic (add_canary: a replica of a ReplicaPool, or a
+              process of a ProcReplicaPool, whose weights go there in a
+              file; health_policy=abort either way, so non-finite
+              outputs become request errors), and wait for
               `min_canary_requests` verdict samples.
     promote   canary healthy (error rate within budget, p99 within the
               SLO target, replica alive): set the new variables on every
-              base replica's engine, then unmount the canary.
+              base replica's engine (a process replica's through its
+              /control/promote), then unmount the canary.
     rollback  canary unhealthy (errors, SLO, death) or warm failed:
               unmount; the old weights never stopped serving.
 
@@ -45,7 +48,6 @@ from deep_vision_tpu_torch.obs import locksmith
 from deep_vision_tpu_torch.ops.cuda import build
 from deep_vision_tpu_torch.resilience import faults
 from deep_vision_tpu_torch.serve.engine import Engine, ServeError, warmup_count
-from deep_vision_tpu_torch.serve.pool import ReplicaPool
 
 SWAP_PHASES = ("warm", "canary", "promote", "rollback")
 SWAP_OUTCOMES = ("started", "ok", "failed")
@@ -58,7 +60,9 @@ def compile_count() -> int:
 
 
 class SwapController:
-    """Drives one canary weight swap at a time over a ReplicaPool.
+    """Drives one canary weight swap at a time over a ReplicaPool or a
+    ProcReplicaPool, through their shared surface: primary_engine,
+    add_canary, canary_status, promote_variables and remove_canary.
 
         ckpt.save_tree(1200, swap_tree({"yolov3": new_state_dict}))
         swapper = SwapController(pool, journal=journal, canary_pct=25,
@@ -71,7 +75,7 @@ class SwapController:
     sampled from real requests the pool diverts.
     """
 
-    def __init__(self, pool: ReplicaPool, journal=None,
+    def __init__(self, pool, journal=None,
                  canary_pct: int = 25, min_canary_requests: int = 8,
                  max_canary_error_rate: float = 0.0,
                  slo_ms: Optional[float] = None,
