@@ -87,9 +87,11 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            ProcReplicaPool(replicas=2, heartbeat_s=1.0) of
            tools/loadgen.py's yolo_fleet_builder (phase 4's YOLOv3, its
            seeded weights and detection parameters, buckets 1-8) behind
-           AdmissionController(PROC_ADMISSION) and a Transport, the
-           parent's template built first, so no child builds a kernel
-           (each ready file's and the respawn's backend_compiles 0);
+           AdmissionController(PROC_ADMISSION) and a Transport, every
+           process over phase 12's executable cache (excache_dir=), so
+           no child compiles a library (each ready file's, the
+           respawn's and the canary's backend_compiles 0, cache_hits at
+           least 1, NMS an excache_hit in every child's journal);
            one image's JSON encode and decode timed; (a) 24 requests
            through pool.submit in closed-loop bursts of 1-4, checked,
            p50/p99 beside phase 4c's, split by trace id into the
@@ -265,7 +267,42 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            yolov3_voc's inputs at score 0.3; the kernels line gains
            `bn_act_fwd[infer -m resnet50]`, `layer_norm_fwd[infer -m
            vit_s16]` and `nms[infer -m yolov3_voc]`;
-12. report the card line, the kernels line, and the final status line.
+12. cold   the cold path, run after phase 4c and before phase 4d, whose
+           fleet loads from its cache: fresh child processes
+           (cold_child) over one executable cache (core/excache.py),
+           each building tools/loadgen.py's yolo_fleet_builder (phase
+           4's YOLOv3) in an Engine that attaches the cache, warming it
+           and serving one seeded bucket-1 image with NMS's launches
+           counted; (A) over an empty cache: each library it loads (NMS,
+           and the record library whose crc32c checks the others) a miss
+           and a store, one compiler run each; (B) a fresh process over
+           the same dir: no compiler run, every library a hit, the same
+           output hash as (A), and NMS on a batch of 4 against its plain
+           version with kernel, plain and bound times (the kernels line's
+           `nms[cold]`); then, at once in two copies of the cache, (C)
+           NMS's manifest carrying another toolkit's compiler: exactly
+           one `excache_invalid{version_skew}`, one rebuild, hits for
+           the rest, and (C') a flipped byte in NMS's payload: one
+           `corrupt`, the entry quarantined, one rebuild; each answering
+           (A)'s hash. (D) int8 serving: phase 4c's Hourglass (its
+           running statistics calibrated) through the gate at QUANT_TOL,
+           its verdict printed whichever it is; the same Hourglass at its
+           init statistics, as the reference serve smoke takes its pose
+           model, must pass the gate and serves QUANT_ROUNDS rounds of
+           seeded traffic through a float32 and an int8 Engine + Server
+           (SLO and host p50/p99, peak device memory, weight bytes and
+           compression; int8 against float32 on the served keypoints
+           within QUANT_TOL); poisoned weights (a cancelling-outlier
+           input channel pair in its first convolution) pass on the
+           seeded stream and are refused on the constant-image one; a
+           re-quantized tree hot-swaps with no warm-up and no build, an
+           int8 -> float32 swap is refused; YOLOv3 int8 against float32
+           through Engine.run at buckets 1 and 8 (times, peak memory,
+           bytes); (E) phase 4d's ProcReplicaPool runs over (A)'s cache
+           dir: every child (the respawn and the canary too) reports no
+           compiler run and at least one cache hit, and its journal
+           shows NMS loaded from the cache;
+13. report the card line, the kernels line, and the final status line.
 """
 import contextlib
 import io
@@ -2513,9 +2550,11 @@ def proc_swap(torch, dev, pool, journal, tmp, images):
     return verdict, compile_count() - c0, new
 
 
-def procfleet_phase(torch, dev, card, fleet_yolo_ms):
+def procfleet_phase(torch, dev, card, fleet_yolo_ms, excache_dir):
     """Phase 4d: the process fleet behind its front door (module
-    docstring). -> the kernels line's `nms[procfleet]` entry."""
+    docstring), every process over phase 12's executable cache at
+    `excache_dir`. -> the kernels line's `nms[procfleet]` entry."""
+    from deep_vision_tpu_torch.core import build as core_build
     from deep_vision_tpu_torch.obs import propagate
     from deep_vision_tpu_torch.obs.journal import RunJournal, read_journal
     from deep_vision_tpu_torch.obs.registry import Registry
@@ -2563,7 +2602,8 @@ def procfleet_phase(torch, dev, card, fleet_yolo_ms):
     fused_scale_bias_act.backward_launches = 0  # start at 0 in each
     builds = build.build_count()
     pool = ProcReplicaPool(yolo_fleet_builder, replicas=PROC_REPLICAS,
-                           run_dir=tmp, journal=journal, registry=registry,
+                           run_dir=tmp, excache_dir=excache_dir,
+                           journal=journal, registry=registry,
                            admission=AdmissionController(**PROC_ADMISSION),
                            heartbeat_s=PROC_HEARTBEAT_S,
                            ready_timeout_s=300.0, request_timeout_s=300.0)
@@ -2576,8 +2616,10 @@ def procfleet_phase(torch, dev, card, fleet_yolo_ms):
           f"processes ready in {start_s:.1f} s; template "
           f"{pool.template_warmup}, replicas {warm}; front door at "
           f"{tp.address} ({card})")
-    check(all(w["backend_compiles"] == 0 for w in warm.values()),
-          f"a replica process built a kernel: {warm}")
+    check(all(w["backend_compiles"] == 0 and w["cache_hits"] >= 1
+              for w in warm.values()),
+          f"a replica process built a library or loaded none from the "
+          f"cache: {warm}")
 
     # (a) closed-loop bursts through pool.submit
     t0 = time.perf_counter()
@@ -2687,7 +2729,8 @@ def procfleet_phase(torch, dev, card, fleet_yolo_ms):
     rec = [r for r in rows if r["event"] == "replica_recovered"]
     check(len(lost) == 1 and len(rec) == 1 and lost[0]["replica"] == "p0"
           and rec[0]["replica"] == "p0" and rec[0]["attempt"] == 2
-          and rec[0]["backend_compiles"] == 0,
+          and rec[0]["backend_compiles"] == 0
+          and rec[0]["cache_hits"] >= 1,
           f"(c) death and respawn: {lost} {rec}")
     print(f"[procfleet] (c) SIGKILL of p0 with {PROC_KILL} requests in "
           f"flight: {kill}; replica_lost to replica_recovered (attempt 2, "
@@ -2770,8 +2813,18 @@ def procfleet_phase(torch, dev, card, fleet_yolo_ms):
               f"+ {len(BUCKETS)} warm-ups")
     canary_ready = json.load(open(os.path.join(
         tmp, "replica-canary1.ready.json")))
-    check(canary_ready["warmup"]["backend_compiles"] == 0,
-          f"the canary built a kernel: {canary_ready}")
+    check(canary_ready["warmup"]["backend_compiles"] == 0
+          and canary_ready["warmup"]["cache_hits"] >= 1,
+          f"the canary built a library or loaded none from the cache: "
+          f"{canary_ready}")
+    # (E) every process loaded NMS from the cache, and only from there
+    for name, crow in children.items():
+        ex = [(r["event"], r["name"]) for r in crow
+              if r["event"].startswith("excache_")]
+        check(("excache_hit", "nms") in ex
+              and all(e == "excache_hit" for e, _ in ex),
+              f"{name}: its libraries did not all load from the cache: {ex}")
+    core_build.detach_cache()  # the parent attached it for the template
     check(launches > 0 and parent_counts == (0, 0, 0, 0, 0),
           f"NMS launches {launches}; the parent ran other kernels "
           f"{parent_counts}")
@@ -2780,6 +2833,10 @@ def procfleet_phase(torch, dev, card, fleet_yolo_ms):
           f"{child_ledgers}; NMS launches in the children {launches} (their "
           f"YOLOv3 serve_batch rows, each child's own count = its rows + "
           f"{len(BUCKETS)} warm-ups); journals {sorted(children)} ({card})")
+    print(f"[procfleet] (E) every child over phase 12's executable cache: "
+          f"no compiler run, libraries loaded from it " + ", ".join(
+              f"{n}: {sorted({r['name'] for r in rows_ if r['event'] == 'excache_hit'})}"
+              for n, rows_ in children.items()) + f" ({card})")
 
     # the template's NMS on one served batch against its plain version,
     # then the kernel's times at the buckets the bursts fill
@@ -5674,6 +5731,464 @@ def infer_phase(torch, dev, card, tmp, ckpts):
     return entries
 
 
+#: phase 12, the cold path: fresh child processes over one executable cache
+#: (core/excache.py), each serving one seeded YOLOv3 416 image (COLD_SEED)
+#: at bucket 1 through an Engine that attaches the cache
+COLD_SEED = 21
+#: (C): one manifest's compiler field as a cache dir copied from a machine
+#: with another toolkit would carry it
+COLD_SKEW = "nvcc from another toolkit (rewritten by chip_smoke.py)"
+#: (D): the int8 gate's tolerance (the reference serve smoke's), its
+#: calibration stream (batches, images a batch), the served traffic
+#: (QUANT_IMAGES seeded images in QUANT_BURSTS, once a round, QUANT_ROUNDS
+#: rounds of float32 then int8), the re-quantized swap's relative noise
+QUANT_TOL = 0.02
+QUANT_CALIB = (4, 2)
+QUANT_IMAGES = 8
+QUANT_BURSTS = (1, 3, 2, 4, 1, 2, 4, 3)
+QUANT_ROUNDS = 2
+QUANT_NOISE = 1e-3
+
+
+def output_hash(out):
+    """sha256 of a predictor's output tensors, by sorted key."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(out):
+        h.update(k.encode())
+        h.update(out[k].cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def cold_child(root, journal_path, check_nms):
+    """Run in a fresh child process by cold_phase: an ExecutableCache at
+    `root` journaling to `journal_path`, tools/loadgen.py's
+    yolo_fleet_builder (phase 4's YOLOv3) in an Engine that attaches it,
+    the warm-up, then one seeded bucket-1 batch with the launch counts
+    zeroed just before and read just after. With `check_nms`, the served
+    path's NMS on a batch of 4 against its plain version, with times.
+    Prints, as its last line, what the process built, loaded, launched
+    and answered."""
+    import torch
+
+    from deep_vision_tpu_torch.core import build
+    from deep_vision_tpu_torch.core.excache import ExecutableCache
+    from deep_vision_tpu_torch.obs.journal import RunJournal
+    from deep_vision_tpu_torch.obs.registry import Registry
+    from deep_vision_tpu_torch.ops.cuda.bn_act import fused_scale_bias_act
+    from deep_vision_tpu_torch.ops.cuda.build import find_nvcc
+    from deep_vision_tpu_torch.ops.cuda.nms import greedy_nms
+    from deep_vision_tpu_torch.tools.loadgen import yolo_fleet_builder
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    journal = RunJournal(journal_path, kind="serve")
+    journal.manifest(config={"name": "chip_smoke_cold", "task": "serving"})
+    cache = ExecutableCache(root, journal=journal, registry=Registry())
+    engine = yolo_fleet_builder(registry=Registry(), device=dev,
+                                excache=cache)
+    stats = engine.warmup()
+    rng = np.random.RandomState(COLD_SEED)
+    x = torch.from_numpy(rng.rand(4, IMAGE, IMAGE, 3).astype(np.float32)
+                         ).to(dev)
+    greedy_nms.launches = fused_scale_bias_act.launches = 0
+    out = engine.run("yolov3", x[:1].contiguous())
+    torch.cuda.synchronize()
+    launches = (greedy_nms.launches, fused_scale_bias_act.launches)
+    report = {
+        "builds": build.build_count(), "loads": build.cache_load_count(),
+        "warmup": {k: v for k, v in stats.items() if k != "detail"},
+        "launches": launches[0], "bn_act_launches": launches[1],
+        "num": out["num"].tolist(), "hash": output_hash(out),
+        "fingerprint": cache.fingerprint(find_nvcc()),
+        "seconds": time.perf_counter() - t0}
+    if check_nms:
+        err, ms_at, plain_ms, bound_ms, bound_by = engine_nms(
+            torch, engine, x, (1, 4), "the cold child")
+        report["nms"] = {"max_abs_err": err, "ms_at": ms_at,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by}
+    journal.close()
+    print(json.dumps(report))
+
+
+def run_cold_child(root, journal_path, check_nms=False):
+    """cold_child in a fresh process -> its report, with its wall seconds
+    and its journal's excache rows [(event, name, reason)]."""
+    from deep_vision_tpu_torch.obs.journal import read_journal
+
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; chip_smoke."
+         "cold_child(sys.argv[1], sys.argv[2], sys.argv[3] == '1')",
+         root, journal_path, "1" if check_nms else "0"],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    check(out.returncode == 0, f"[cold] the child over {root} failed: "
+          f"{out.stderr[-3000:]}")
+    rep = json.loads(out.stdout.strip().splitlines()[-1])
+    rep["wall_s"] = time.perf_counter() - t0
+    rep["rows"] = [(r["event"], r["name"], r.get("reason"))
+                   for r in read_journal(journal_path)
+                   if r["event"].startswith("excache_")]
+    return rep
+
+
+def cold_rows(rep):
+    """{library: [event, ...]} of a child's excache rows."""
+    out = {}
+    for event, name, _ in rep["rows"]:
+        out.setdefault(name, []).append(event)
+    return out
+
+
+def cold_summary(tag, rep, card):
+    print(f"[cold] ({tag}) {rep['wall_s']:.1f} s of process, warm-up "
+          f"{rep['warmup']['warmup_ms_total']:.1f} ms (backend_compiles "
+          f"{rep['warmup']['backend_compiles']}, cache_hits "
+          f"{rep['warmup']['cache_hits']}); compiler runs {rep['builds']}, "
+          f"cache loads {rep['loads']}; excache rows {rep['rows']}; NMS "
+          f"launches on the served batch {rep['launches']}; detections "
+          f"{rep['num']}; output sha256 {rep['hash'][:16]} ({card})")
+
+
+def cold_manifest(root, name):
+    """(key, manifest path) of the entry named `name` under `root`."""
+    for fn in sorted(os.listdir(root)):
+        if fn.endswith(".json"):
+            with open(os.path.join(root, fn)) as f:
+                doc = json.load(f)
+            if doc.get("name") == name:
+                return doc["key"], os.path.join(root, fn)
+    fail(f"[cold] no cache entry named {name!r} under {root}")
+
+
+def cold_phase(torch, card, tmp):
+    """Phase 12 (A)-(C'): the executable cache across fresh processes
+    (module docstring). -> (the cache dir (B) proved warm, the kernels
+    line's `nms[cold]` entry)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "excache")
+    # (A) an empty cache: the child compiles what it loads and stores it
+    a = run_cold_child(root, os.path.join(tmp, "cold_a.jsonl"))
+    cold_summary("A", a, card)
+    names = cold_rows(a)
+    check("nms" in names and all(ev == ["excache_miss", "excache_store"]
+                                 for ev in names.values()),
+          f"(A) each library a miss and a store: {a['rows']}")
+    check(a["builds"] == len(names) and a["loads"] == 0
+          and a["warmup"]["backend_compiles"] == len(names),
+          f"(A) compiled {a['builds']} for {sorted(names)}")
+    check(a["launches"] == 1 and a["bn_act_launches"] == 0,
+          f"(A) the served batch launched NMS {a['launches']} times")
+    print(f"[cold] the fingerprint: {a['fingerprint']} ({card})")
+    # (B) a fresh process over the populated cache compiles nothing
+    b = run_cold_child(root, os.path.join(tmp, "cold_b.jsonl"),
+                       check_nms=True)
+    cold_summary("B", b, card)
+    check(b["builds"] == 0 and b["loads"] == len(names)
+          and b["warmup"]["cache_hits"] == len(names)
+          and cold_rows(b) == {n: ["excache_hit"] for n in names},
+          f"(B) over a warm cache: {b['rows']}, builds {b['builds']}")
+    check(b["hash"] == a["hash"] and b["launches"] == 1,
+          f"(B) answered {b['hash'][:16]} ({b['launches']} NMS launches), "
+          f"(A) {a['hash'][:16]}")
+    a_ms, b_ms = (r["warmup"]["warmup_ms_total"] for r in (a, b))
+    print(f"[cold] (B)'s warm-up {b_ms:.1f} ms against (A)'s {a_ms:.1f} "
+          f"ms: the compilers' {a_ms - b_ms:.1f} ms not paid; process wall "
+          f"{b['wall_s']:.1f} s against {a['wall_s']:.1f} s ({card})")
+    # (C) a manifest from another toolkit, (C') a flipped payload byte:
+    # each in a copy of the warm cache, both children at once
+    skewed, flipped = (os.path.join(tmp, d) for d in ("excache_c",
+                                                      "excache_cp"))
+    for d in (skewed, flipped):
+        shutil.copytree(root, d)
+    _, man = cold_manifest(skewed, "nms")
+    with open(man) as f:
+        doc = json.load(f)
+    doc["fingerprint"]["compiler"] = COLD_SKEW
+    with open(man, "w") as f:
+        json.dump(doc, f)
+    key, _ = cold_manifest(flipped, "nms")
+    payload = os.path.join(flipped, key + ".so")
+    with open(payload, "r+b") as f:
+        f.seek(os.path.getsize(payload) // 2)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    with ThreadPoolExecutor(2) as ex:
+        futs = [ex.submit(run_cold_child, d, os.path.join(tmp, j))
+                for d, j in ((skewed, "cold_c.jsonl"),
+                             (flipped, "cold_cp.jsonl"))]
+        c, cp = (f.result() for f in futs)
+    for tag, rep, reason in (("C", c, "version_skew"),
+                             ("C'", cp, "corrupt")):
+        cold_summary(tag, rep, card)
+        want = {n: ["excache_hit"] for n in names}
+        want["nms"] = ["excache_invalid", "excache_store"]
+        inv = [r for r in rep["rows"] if r[0] == "excache_invalid"]
+        check(cold_rows(rep) == want and inv == [("excache_invalid", "nms",
+                                                  reason)],
+              f"({tag}) rows {rep['rows']}, want one {reason} for nms")
+        check(rep["builds"] == 1 and rep["loads"] == len(names) - 1
+              and rep["hash"] == a["hash"],
+              f"({tag}) rebuilt {rep['builds']}, answered "
+              f"{rep['hash'][:16]}")
+    quarantined = sorted(os.listdir(os.path.join(flipped, "quarantine")))
+    check(quarantined == [f"{key}.json.corrupt", f"{key}.so.corrupt"],
+          f"(C') quarantine holds {quarantined}")
+    check(not os.path.exists(os.path.join(skewed, "quarantine")),
+          "(C) a skewed entry was quarantined")
+    with open(cold_manifest(skewed, "nms")[1]) as f:
+        check(json.load(f)["fingerprint"]["compiler"] != COLD_SKEW,
+              "(C) the rebuild did not replace the skewed manifest")
+    nms = b["nms"]
+    print(f"[cold] nms loaded from the cache in (B): the batch of 4 equal "
+          f"to the plain version; kernel {nms['ms_at']['1']:.4f} ms at B=1, "
+          f"{nms['ms_at']['4']:.4f} ms at B=4, plain {nms['plain_ms']:.4f} "
+          f"ms and bound {nms['bound_ms']:.6f} ms ({nms['bound_by']}) at "
+          f"B=4 ({card})")
+    print(f"[cold] phase 12 (A)-(C'): "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    return root, {"name": "nms[cold]", "route": "cuda",
+                  "source": "deep_vision_tpu_torch/csrc/nms.cu",
+                  "replaces": "deep_vision_tpu/ops/pallas/nms.py:42",
+                  "launches": sum(r["launches"] for r in (a, b, c, cp)),
+                  "max_abs_err": nms["max_abs_err"],
+                  "ms": nms["ms_at"]["4"], "plain_ms": nms["plain_ms"],
+                  "bound_ms": nms["bound_ms"], "bound_by": nms["bound_by"],
+                  "library_ms": None}
+
+
+def quant_stream(server, images, rng):
+    """QUANT_BURSTS of `images` (drawn by `rng`) through `server` ->
+    (rows in order, host ms submit to answer each)."""
+    rows, ms = [], []
+    for burst in QUANT_BURSTS:
+        idx = rng.randint(len(images), size=burst)
+        t = time.perf_counter()
+        futs = [server.submit("pose", images[i]) for i in idx]
+        for f in futs:
+            rows.append(f.result(timeout=300))
+            ms.append((time.perf_counter() - t) * 1e3)
+    return rows, ms
+
+
+def tree_bytes(variables):
+    return sum(t.numel() * t.element_size() for v in variables.values()
+               for t in (v.values() if isinstance(v, dict) else (v,)))
+
+
+def quant_phase(torch, dev, card, tmp):
+    """Phase 12 (D): int8 serving and its calibration gate on the card
+    (module docstring)."""
+    from deep_vision_tpu_torch.inference import pose_predict_fn
+    from deep_vision_tpu_torch.models import get_model
+    from deep_vision_tpu_torch.obs.journal import RunJournal, read_journal
+    from deep_vision_tpu_torch.obs.registry import Registry
+    from deep_vision_tpu_torch.serve import Engine, ServeError, Server
+    from deep_vision_tpu_torch.serve.quantize import (
+        QuantizationRejected,
+        _accuracy_delta,
+        calibrate_and_quantize,
+        quantize_variables,
+        quantized_fn,
+    )
+    from deep_vision_tpu_torch.serve.swap import compile_count
+    from deep_vision_tpu_torch.tools.loadgen import yolo_fleet_builder
+
+    t_phase = time.perf_counter()
+    journal = RunJournal(os.path.join(tmp, "quant.jsonl"), kind="serve")
+    rng = np.random.RandomState(12)
+    name, kwargs, side, buckets = FLEET_MODELS["pose"]
+    calib = [torch.from_numpy(rng.rand(QUANT_CALIB[1], side, side, 3)
+                              .astype(np.float32))
+             for _ in range(QUANT_CALIB[0])]
+    # phase 4c's model (its running statistics calibrated) through the
+    # gate: whichever verdict, journaled and consistent with its delta
+    cal, *_ = fleet_model(torch, dev, "pose", np.random.RandomState(4))
+    try:
+        qc = calibrate_and_quantize(
+            "pose_calibrated", pose_predict_fn(cal), cal.state_dict(), calib,
+            tolerance=QUANT_TOL, journal=journal)
+        verdict = f"accepted, {qc.metric} delta {qc.delta:.6f}"
+    except QuantizationRejected as e:
+        verdict = f"refused: {e}"
+    print(f"[quant] phase 4c's Hourglass (running statistics calibrated on "
+          f"4 seeded images) at tolerance {QUANT_TOL}: {verdict}")
+    del cal
+    # the model served: hourglass_mpii's Hourglass, seed 0, at its init
+    # statistics, as the reference serve smoke takes its pose model
+    model = get_model(name, seed=0, device=dev, **kwargs)
+    fn, variables = pose_predict_fn(model), model.state_dict()
+    t0 = time.perf_counter()
+    try:
+        qm = calibrate_and_quantize("pose", fn, variables, calib,
+                                    tolerance=QUANT_TOL, journal=journal)
+    except QuantizationRejected as e:
+        fail(f"[quant] int8 pose refused by the gate: {e}")
+    calib_s = time.perf_counter() - t0
+    rep = qm.report
+    print(f"[quant] int8 pose passed the gate: {qm.metric} delta "
+          f"{qm.delta:.6g} <= {QUANT_TOL} over {QUANT_CALIB[0]} batches of "
+          f"{QUANT_CALIB[1]} in {calib_s:.2f} s; {rep['quantized_leaves']} "
+          f"kernels int8, {rep['skipped_leaves']} leaves float32; weight "
+          f"bytes {rep['bytes_f32']} float32 -> {rep['bytes_int8']} int8 + "
+          f"scales, compression {rep['compression']}x; resident tree "
+          f"{tree_bytes(variables)} B float32, {tree_bytes(qm.variables)} B "
+          f"int8 ({card})")
+    engines = {}
+    for tag, f, v in (("f32", fn, variables), ("int8", qm.fn,
+                                                qm.variables)):
+        eng = Engine(device=dev, registry=Registry())
+        eng.register("pose", f, v, input_shape=(side, side, 3),
+                     buckets=buckets)
+        eng.warmup()
+        engines[tag] = (eng, Server(eng, registry=eng._registry,
+                                    max_wait_ms=5.0).start())
+    images = [rng.rand(side, side, 3).astype(np.float32)
+              for _ in range(QUANT_IMAGES)]
+    rows = {tag: [] for tag in engines}
+    host_ms = {tag: [] for tag in engines}
+    peak = {tag: 0 for tag in engines}
+    for r in range(QUANT_ROUNDS):
+        for tag, (eng, srv) in engines.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            got, ms = quant_stream(srv, images, np.random.RandomState(r))
+            peak[tag] = max(peak[tag], torch.cuda.max_memory_allocated())
+            rows[tag] += got
+            host_ms[tag] += ms
+    slo = {}
+    for tag, (eng, srv) in engines.items():
+        summary = srv.close()
+        check(summary["outcome"] == "flushed" and summary["completed"]
+              == len(rows[tag]), f"[quant] the {tag} Server's drain "
+              f"{summary}")
+        check(all(x.shape == (kwargs["num_heatmap"], 3)
+                  and bool(np.isfinite(x).all()) for x in rows[tag]),
+              f"[quant] {tag} keypoints not finite (16, 3)")
+        slo[tag] = srv.slo.report()["pose"]
+    served, metric = _accuracy_delta([np.stack(rows["f32"])],
+                                     [np.stack(rows["int8"])])
+    check(served <= QUANT_TOL, f"[quant] int8 against float32 on the served "
+          f"traffic: {metric} {served:.6g} > {QUANT_TOL}")
+    for tag in engines:
+        print(f"[quant] pose {tag}: {len(rows[tag])} requests in "
+              f"{QUANT_ROUNDS} rounds of {len(QUANT_BURSTS)} bursts, SLO p50 "
+              f"{slo[tag]['p50_ms']:.3f} ms p99 {slo[tag]['p99_ms']:.3f} ms "
+              f"(histogram bucket bounds); host submit to answer p50 "
+              f"{np.percentile(host_ms[tag], 50):.2f} ms p99 "
+              f"{np.percentile(host_ms[tag], 99):.2f} ms; peak device "
+              f"memory allocated {peak[tag] / 2**20:.1f} MiB ({card})")
+    print(f"[quant] int8 against float32 on the served traffic: {metric} "
+          f"{served:.6g} ({card})")
+    # the poisoned weights: a cancelling-outlier input channel pair in
+    # the first convolution, which a constant image cancels exactly
+    poisoned = {k: v.clone() for k, v in variables.items()}
+    w = poisoned["Conv_0.weight"]
+    w[:, 0, 3, 3], w[:, 1, 3, 3] = 500.0, -500.0
+    ok = calibrate_and_quantize("pose_poisoned", fn, poisoned, calib,
+                                tolerance=QUANT_TOL, journal=journal)
+    constant = [torch.full((QUANT_CALIB[1], side, side, 3), v)
+                for v in (0.2, 0.6, 0.9)]
+    try:
+        calibrate_and_quantize("pose_poisoned", fn, poisoned, constant,
+                               tolerance=QUANT_TOL, journal=journal)
+        fail("[quant] the poisoned weights passed the gate on the "
+             "constant-image stream")
+    except QuantizationRejected as e:
+        print(f"[quant] poisoned weights: the seeded stream passes "
+              f"({ok.metric} delta {ok.delta:.6g}), the constant-image "
+              f"stream is refused: {e}")
+    del poisoned, ok
+    # a re-quantized tree hot-swaps: no warm-up, no build
+    eng = engines["int8"][0]
+    x = torch.from_numpy(np.stack(images[:2])).to(dev)
+    before = eng.run("pose", x).clone()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    noisy = {k: (v * (1 + QUANT_NOISE * torch.randn(
+        v.shape, generator=gen, device=dev)) if v.is_floating_point()
+        else v) for k, v in variables.items()}
+    requant, _ = quantize_variables(noisy)
+    c0 = compile_count()
+    t0 = time.perf_counter()
+    eng.set_variables("pose", requant)
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    after = eng.run("pose", x)
+    torch.cuda.synchronize()
+    check(compile_count() == c0, "[quant] the re-quantized swap warmed or "
+          "built")
+    check(not torch.equal(before, after), "[quant] the swap changed nothing")
+    try:
+        eng.set_variables("pose", variables)
+        fail("[quant] an int8 -> float32 swap was taken")
+    except ServeError as e:
+        refusal = str(e)[:120]
+    print(f"[quant] re-quantized pose (weights x (1 + {QUANT_NOISE} z)) "
+          f"hot-swapped in {swap_ms:.2f} ms (host), 0 warm-ups and 0 "
+          f"builds; an int8 -> float32 swap refused: {refusal} ({card})")
+    rows_j = [r for r in read_journal(journal.path)
+              if r["event"] == "quant_calibrated"]
+    check([(r["model"], r["accepted"]) for r in rows_j[1:]] == [
+        ("pose", True), ("pose_poisoned", True), ("pose_poisoned", False)]
+          and all(r["accepted"] == (r["delta"] <= QUANT_TOL)
+                  for r in rows_j),
+          f"[quant] quant_calibrated rows {rows_j}")
+    del engines, eng, model
+    torch.cuda.empty_cache()
+    # YOLOv3 416 (phase 4's) int8 against float32, Engine.run a bucket
+    f32 = yolo_fleet_builder(device=dev)
+    entry = f32.entry("yolov3")
+    qvars, yrep = quantize_variables(entry.variables)
+    int8 = Engine(device=dev)
+    int8.register("yolov3", quantized_fn(entry.fn), qvars,
+                  input_shape=(IMAGE, IMAGE, 3), buckets=(1, 8))
+    f32.warmup()
+    int8.warmup()
+    xs = torch.from_numpy(np.random.RandomState(COLD_SEED).rand(
+        8, IMAGE, IMAGE, 3).astype(np.float32)).to(dev)
+    run_ms, ypeak = {}, {}
+    for b in (1, 8):
+        xb = xs[:b].contiguous()
+        times = {"f32": [], "int8": []}
+        for i in range(13):
+            for tag, eng in (("f32", f32), ("int8", int8)):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                eng.run("yolov3", xb)
+                torch.cuda.synchronize()
+                if i >= 3:
+                    times[tag].append((time.perf_counter() - t) * 1e3)
+        for tag in times:
+            run_ms[(tag, b)] = statistics.median(times[tag])
+    outs = {}
+    for tag, eng in (("f32", f32), ("int8", int8)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        outs[tag] = eng.run("yolov3", xs)
+        torch.cuda.synchronize()
+        ypeak[tag] = torch.cuda.max_memory_allocated()
+    ydelta, ymetric = _accuracy_delta([outs["f32"]], [outs["int8"]])
+    print(f"[quant] yolov3 {IMAGE}: {yrep['quantized_leaves']} kernels int8, "
+          f"weight bytes {yrep['bytes_f32']} -> {yrep['bytes_int8']}, "
+          f"compression {yrep['compression']}x; Engine.run median of 10, "
+          f"float32 / int8: bucket 1 {run_ms[('f32', 1)]:.3f} / "
+          f"{run_ms[('int8', 1)]:.3f} ms, bucket 8 {run_ms[('f32', 8)]:.3f}"
+          f" / {run_ms[('int8', 8)]:.3f} ms (host clock, synchronized); "
+          f"peak device memory allocated at bucket 8 "
+          f"{ypeak['f32'] / 2**20:.1f} / {ypeak['int8'] / 2**20:.1f} MiB; "
+          f"int8 against float32 on the 8 images: {ymetric} {ydelta:.6g} "
+          f"(not gated) ({card})")
+    del f32, int8, entry, qvars, outs, xs
+    journal.close()
+    torch.cuda.empty_cache()
+    print(f"[quant] phase 12 (D): {time.perf_counter() - t_phase:.1f} s "
+          f"({card})")
+
+
 def main():
     import torch
 
@@ -5925,8 +6440,17 @@ def main():
     torch.cuda.empty_cache()
     elapsed("phase 4c (fleet) done")
 
+    # -- 12. the cold path, before 4d, whose fleet loads from its cache ------
+    cold_tmp = tempfile.mkdtemp(dir=build.BUILD_DIR)
+    cold_root, cold_entry = cold_phase(torch, card, cold_tmp)
+    kernels.append(cold_entry)
+    quant_phase(torch, dev, card, cold_tmp)
+    elapsed("phase 12 (cold path) done")
+
     # -- 4d. the process fleet behind its front door -------------------------
-    kernels.append(procfleet_phase(torch, dev, card, fleet_yolo_ms))
+    kernels.append(procfleet_phase(torch, dev, card, fleet_yolo_ms,
+                                   cold_root))
+    shutil.rmtree(cold_tmp)
     torch.cuda.empty_cache()
     elapsed("phase 4d (process fleet) done")
 
@@ -6007,7 +6531,7 @@ def main():
                         "launches": vmoe_launches[name], **vmoe_rows[name]})
     kernels += det_entries + gan_pose_entries + infer_entries
 
-    # -- 12. report ----------------------------------------------------------
+    # -- 13. report ----------------------------------------------------------
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -478,8 +478,8 @@ class CheckpointManager:
 
     def save_tree(self, step: int, tree: dict,
                   host_state: Optional[dict] = None) -> bool:
-        """Save a flat dict of tensors (the EMA shadow) with its host
-        state."""
+        """Save a dict of tensors (the EMA shadow; an int8 tree's leaves
+        as nested dicts) with its host state."""
         if step == self._last_saved:
             return False
         faults.fire("ckpt.save")
@@ -489,19 +489,25 @@ class CheckpointManager:
     def restore_tree(self, template: dict, step: Optional[int] = None,
                      mesh=None):
         """Restore a dict saved by `save_tree` onto `template`'s keys,
-        shapes, dtypes and devices; returns (tree, host_state), or
+        shapes, dtypes and devices (nested dicts, such as an int8 leaf's
+        q8 and scale, level by level); returns (tree, host_state), or
         (None, None) when nothing valid is saved."""
         if mesh is not None:
             raise NotImplementedError(
                 "cross-mesh restore is not ported: one device has no mesh")
 
-        def apply(loaded: dict):
-            if set(loaded) != set(template):
-                raise KeyError(f"tree keys differ: saved {sorted(loaded)[:5]}"
-                               f", template {sorted(template)[:5]}")
+        def apply(loaded: dict, like: dict = template):
+            if not isinstance(loaded, dict) or set(loaded) != set(like):
+                saved = sorted(loaded)[:5] if isinstance(loaded, dict) \
+                    else type(loaded).__name__
+                raise KeyError(f"tree keys differ: saved {saved}"
+                               f", template {sorted(like)[:5]}")
             out = {}
-            for k, t in template.items():
+            for k, t in like.items():
                 v = loaded[k]
+                if isinstance(t, dict):
+                    out[k] = apply(v, t)
+                    continue
                 if v.shape != t.shape or v.dtype != t.dtype:
                     raise ValueError(f"{k}: saved {v.dtype}{tuple(v.shape)},"
                                      f" template {t.dtype}{tuple(t.shape)}")

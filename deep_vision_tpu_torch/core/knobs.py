@@ -13,8 +13,10 @@ rendezvous generation a re-entering member attaches to
 (`DVT_RDZV_GENERATION`, knobs.py:142, resilience/rendezvous.py), the
 front door's default deadline and Retry-After hint
 (`DVT_TRANSPORT_DEADLINE_MS`, `DVT_TRANSPORT_RETRY_AFTER_MS`,
-knobs.py:148-155, serve/transport.py), and its own
-`DVT_DETERMINISTIC`, which the training CLI reads.
+knobs.py:148-155, serve/transport.py), the executable cache's directory
+(`DVT_EXCACHE`, core/excache.py), which the training CLI reads when
+--executable-cache is absent, and its own `DVT_DETERMINISTIC`, which
+the training CLI reads.
 """
 from __future__ import annotations
 
@@ -62,6 +64,10 @@ KNOBS = {k.name: k for k in (
          "Default request deadline (milliseconds) the serving front door "
          "(serve/transport.py) applies to requests that carry no "
          "X-DVT-Deadline-Ms header; 0 means no default deadline."),
+    Knob("DVT_EXCACHE", "str", None,
+         "Executable cache directory (core/excache.py) the training CLI "
+         "attaches when --executable-cache is absent: the compiled "
+         "libraries load from it, and a miss is compiled into it."),
     Knob("DVT_TRANSPORT_RETRY_AFTER_MS", "float", 50.0,
          "Retry-After hint (milliseconds) the front door attaches to 429/"
          "503 responses; the loadgen socket client waits at least this "

@@ -7,7 +7,9 @@ flags are native/Makefile's: `-O3 -std=c++17 -fPIC -pthread`, with
 library into deep_vision_tpu_torch/build/ (git-ignored) under a name
 hashed from the sources and the flags, through core/build.py's hashing,
 compiling and loading, which the CUDA kernels' build shares, so an
-edited source builds anew and an unchanged one is reused.
+edited source builds anew and an unchanged one is reused; with an
+executable cache attached (core/excache.py) it is looked up and built
+there instead.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ from pathlib import Path
 from deep_vision_tpu_torch.core import build as _build
 
 NATIVE_DIR = _build.PACKAGE_DIR.parent / "native"
+#: the library's name, in build/ and in an executable cache's journal
+LIBRARY = "dvtpu_records"
 SOURCES = ("crc32c.cc", "record_reader.cc")
 HEADERS = ("crc32c.h",)
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared") + (
@@ -38,21 +42,25 @@ def find_cxx() -> str:
 
 def library_path() -> Path:
     return _build.hashed_path(
-        _build.BUILD_DIR, "dvtpu_records",
+        _build.BUILD_DIR, LIBRARY,
         [NATIVE_DIR / f for f in SOURCES + HEADERS], CXX_FLAGS)
 
 
+def library() -> _build.Library:
+    """The record library as core/build.py builds and loads it."""
+    return _build.Library(
+        LIBRARY, find_cxx, CXX_FLAGS,
+        tuple(str(NATIVE_DIR / s) for s in SOURCES),
+        tuple(NATIVE_DIR / f for f in SOURCES + HEADERS), library_path())
+
+
 def build() -> float:
-    """Compile the library unless it is built; returns the seconds spent
-    (0.0 when it was built already)."""
-    if library_path().exists():
-        return 0.0
-    cxx = find_cxx()
-    return _build.compile_all({"dvtpu_records": (
-        [cxx, *CXX_FLAGS], [str(NATIVE_DIR / s) for s in SOURCES],
-        library_path())})["dvtpu_records"]
+    """Compile the library unless it is built (with an executable cache
+    attached: load it through the cache); returns the seconds spent
+    compiling (0.0 when nothing was compiled)."""
+    return _build.build_libraries([library()])[LIBRARY]
 
 
 def load() -> ctypes.CDLL:
     """The record library, built on first use."""
-    return _build.load_shared("dvtpu_records", library_path, build)
+    return _build.load_shared(LIBRARY, library)

@@ -7,7 +7,10 @@ minutes. Libraries go to `deep_vision_tpu_torch/build/` (git-ignored)
 under a name that carries a hash of the source, of the headers beside it
 (`csrc/*.cuh`, which any source may include) and of the flags, so an
 edited source or header is rebuilt and an unchanged one is reused. `build()` starts
-one `nvcc` per source, all at once, and waits for them together.
+one `nvcc` per source, all at once, and waits for them together. With an
+executable cache attached (core/excache.py, core/build.py
+`attach_cache`), each library is looked up in the cache and a miss is
+built into it instead.
 
 Flags (`flags(name)`): `sm_90a` (Hopper), `-O3` and `-Xptxas -v`,
 whose report of registers, shared memory and spills is kept beside the
@@ -29,7 +32,9 @@ from typing import Dict, Iterable, Optional, Tuple
 from deep_vision_tpu_torch.core.build import (
     BUILD_DIR,
     PACKAGE_DIR,
-    compile_all,
+    Library,
+    build_count,  # noqa: F401  (compiler runs, read as build.build_count)
+    build_libraries,
     hashed_path,
     load_shared,
 )
@@ -97,7 +102,7 @@ def library_path(name: str) -> Path:
 def ptxas_report(name: str) -> str:
     """What `-Xptxas -v` said when `name` was built (registers, shared
     memory, spills); empty when the library predates this process's
-    build directory."""
+    build directory, or was built into an executable cache."""
     log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
@@ -130,38 +135,29 @@ def ptxas_usage(report: str) -> Dict[str, Dict[str, int]]:
     return usage
 
 
-_builds = 0
-
-
-def build_count() -> int:
-    """Sources this process has compiled (a serving weight swap must
-    leave it unchanged)."""
-    return _builds
+def library(name: str) -> Library:
+    """`csrc/<name>.cu` as core/build.py builds and loads it (through the
+    attached executable cache, if any)."""
+    src = sources()[name]
+    return Library(name, find_nvcc, flags(name), (str(src),),
+                   (src, *headers()), library_path(name))
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     """Compile the named sources (default: all) that are not built yet,
-    in parallel. Returns seconds spent per name (0.0 = already built);
-    raises with the compiler's output when a build fails."""
-    global _builds
+    in parallel; with an executable cache attached, load them through it,
+    compiling the misses. Returns seconds spent per name (0.0 = nothing
+    compiled); raises with the compiler's output when a build fails.
+    `build_count()` counts the compiler runs of this process."""
     srcs = sources()
     names = list(srcs) if names is None else list(names)
     unknown = sorted(set(names) - set(srcs))
     if unknown:
         raise KeyError(f"no CUDA source for {unknown} in {CSRC_DIR}")
-    todo = [n for n in names if not library_path(n).exists()]
-    if not todo:
-        return {n: 0.0 for n in names}
-    nvcc = find_nvcc()
-    _builds += len(todo)
-    seconds = {n: 0.0 for n in names}
-    seconds.update(compile_all({
-        n: ([nvcc, *flags(n)], [str(srcs[n])], library_path(n))
-        for n in todo}))
-    return seconds
+    return build_libraries([library(n) for n in names])
 
 
 def load(name: str) -> ctypes.CDLL:
     """The shared library built from `csrc/<name>.cu`, built on first use."""
-    return load_shared(name, lambda: library_path(name),
-                       lambda: build([name]))
+    return load_shared(name, lambda: library(name))
+

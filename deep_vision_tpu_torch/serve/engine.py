@@ -17,9 +17,22 @@ Each (model, bucket) warmup runs under a `serve/warmup` span
 (obs/trace.py) and adds one to the process-wide
 `serve_warmup_pairs_total` (`warmup_count()`): with the kernel builds of
 ops/cuda/build.py it is the port's counterpart of the JAX engine's
-compile counter, which a weight swap must leave unchanged. The
-executable cache and the perf-attribution hooks of the JAX engine have
-no counterpart yet.
+compile counter, which a weight swap must leave unchanged.
+
+`Engine(excache=)` attaches a core/excache.ExecutableCache to the
+process (core/build.py `attach_cache`): the libraries the warm-up loads
+come from the cache, and a miss is compiled into it. The warm-up report
+carries the reference's `backend_compiles` and `cache_hits`, here the
+compiler runs and cache loads of this process during the warm-up (a
+library loads once a process, so a second engine's warm-up reports
+neither). The perf-attribution hook of the JAX engine's warm-up
+(perfwatch) has no counterpart yet.
+
+Variables may hold int8 leaves (serve/quantize.py): a key whose value is
+`{"q8": int8 tensor, "scale": float32 tensor}`. They move to the device
+as the rest, and a swap keeps each leaf's kind: a re-quantized tree of
+the same shapes swaps with no warm-up, an int8 -> float32 swap (or the
+reverse) is refused.
 
 A registered fn may hold module state (`functional_call` swaps the
 module's parameters for the call), so the calls of one fn are
@@ -34,6 +47,7 @@ from typing import Dict, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
+from deep_vision_tpu_torch.core import build
 from deep_vision_tpu_torch.core.backend import (
     DeviceLike,
     resolve_device,
@@ -57,6 +71,19 @@ def _warmups():
 def warmup_count() -> int:
     """(model, bucket) warm-ups run by any Engine in this process."""
     return int(_warmups().value)
+
+
+def _parts(key: str, value) -> Dict[str, torch.Tensor]:
+    """A variable's tensors by path: the tensor itself, or an int8
+    leaf's `<key>/q8` and `<key>/scale`."""
+    if isinstance(value, Mapping):
+        return {f"{key}/{q}": t for q, t in value.items()}
+    return {key: value}
+
+
+def _kind(value) -> str:
+    return ("an int8 leaf" if isinstance(value, Mapping)
+            else f"a {value.dtype} tensor")
 
 
 class ServeError(RuntimeError):
@@ -94,8 +121,12 @@ class Engine:
         out = eng.run("yolo", images)        # images.shape[0] is a bucket
     """
 
-    def __init__(self, device: DeviceLike = None, registry=None):
+    def __init__(self, device: DeviceLike = None, registry=None,
+                 excache=None):
         self.device = resolve_device(device)
+        # one cache a process: attaching another root raises here
+        self.excache = (build.attach_cache(excache) if excache is not None
+                        else None)
         self._entries: Dict[str, ModelEntry] = {}
         self._warm: set = set()
         self._warmed = False
@@ -107,7 +138,11 @@ class Engine:
 
     def _on_device(self, variables: Mapping[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
-        return {k: v.to(self.device) for k, v in variables.items()}
+        """The variables on the engine's device; an int8 leaf's q8 and
+        scale move together."""
+        return {k: ({q: t.to(self.device) for q, t in v.items()}
+                    if isinstance(v, Mapping) else v.to(self.device))
+                for k, v in variables.items()}
 
     def register(self, name: str, fn, variables: Mapping[str, torch.Tensor],
                  input_shape: Sequence[int],
@@ -140,9 +175,12 @@ class Engine:
 
     def warmup(self) -> dict:
         """Run every (model, bucket) shape once on the device, on zeros;
-        returns {models, pairs, warmup_ms_total, detail}."""
+        returns {models, pairs, warmup_ms_total, backend_compiles,
+        cache_hits, detail}: the compiler runs and executable-cache loads
+        of this process during the warm-up."""
         if not self._entries:
             raise ServeError("warmup() with no registered models")
+        builds, loads = build.build_count(), build.cache_load_count()
         pairs = []
         for entry in self._entries.values():
             for bucket in entry.buckets:
@@ -162,6 +200,8 @@ class Engine:
         self._g_warmed.set(len(self._warm))
         return {"models": len(self._entries), "pairs": len(pairs),
                 "warmup_ms_total": sum(p["warmup_ms"] for p in pairs),
+                "backend_compiles": build.build_count() - builds,
+                "cache_hits": build.cache_load_count() - loads,
                 "detail": pairs}
 
     @property
@@ -177,7 +217,8 @@ class Engine:
     def _check_like(name: str, old: Mapping[str, torch.Tensor],
                     new: Mapping[str, torch.Tensor]) -> None:
         """Swap variables must have the serving ones' keys, and per key
-        the same shape and dtype: then the swap needs no re-warm."""
+        the same kind (a tensor, or an int8 leaf's q8 and scale), shapes
+        and dtypes: then the swap needs no re-warm."""
         if set(old) != set(new):
             missing, extra = sorted(set(old) - set(new)), \
                 sorted(set(new) - set(old))
@@ -187,12 +228,26 @@ class Engine:
                 "change needs a re-warm, not a hot swap")
         for k, o in old.items():
             n = new[k]
-            if tuple(o.shape) != tuple(n.shape) or o.dtype != n.dtype:
+            if isinstance(o, Mapping) != isinstance(n, Mapping):
                 raise ServeError(
-                    f"swap variables for {name!r} change {k!r} "
-                    f"({tuple(n.shape)}/{n.dtype} vs "
-                    f"{tuple(o.shape)}/{o.dtype}); shape/dtype changes "
-                    "need a re-warm, not a hot swap")
+                    f"swap variables for {name!r} change {k!r} to "
+                    f"{_kind(n)} from {_kind(o)}; a change of precision "
+                    "needs a re-warm, not a hot swap")
+            old_parts, new_parts = _parts(k, o), _parts(k, n)
+            if set(old_parts) != set(new_parts):
+                raise ServeError(
+                    f"swap variables for {name!r} change the parts of "
+                    f"{k!r} ({sorted(new_parts)} vs {sorted(old_parts)}); "
+                    "a structural change needs a re-warm, not a hot swap")
+            for path, ot in old_parts.items():
+                nt = new_parts[path]
+                if tuple(ot.shape) != tuple(nt.shape) or \
+                        ot.dtype != nt.dtype:
+                    raise ServeError(
+                        f"swap variables for {name!r} change {path!r} "
+                        f"({tuple(nt.shape)}/{nt.dtype} vs "
+                        f"{tuple(ot.shape)}/{ot.dtype}); shape/dtype "
+                        "changes need a re-warm, not a hot swap")
 
     def set_variables(self, name: str,
                       variables: Mapping[str, torch.Tensor]) -> None:
@@ -212,6 +267,7 @@ class Engine:
                              variables_by_model[name])
         clone = Engine.__new__(Engine)
         clone.device = self.device
+        clone.excache = self.excache
         clone._warm = self._warm  # shared, read-only on this path
         clone._warmed = True
         clone._registry = self._registry

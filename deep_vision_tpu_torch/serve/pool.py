@@ -30,8 +30,12 @@ respawns the serving layer over the surviving warmed engine under a
 `resilience.RetryPolicy` (typed `retry` events; `replica_recovered` on
 success). The engine outlives its frontend, so a respawn runs no
 warm-up; with `respawn_fresh=True` it rebuilds and re-warms the engine
-through `build_engine`, with no cache (the reference's executable cache
-has no counterpart in the port).
+through `build_engine`, the fresh-device model: when the factory's
+Engine attaches an executable cache (core/excache.py) the libraries it
+needs come from the cache, and the `replica_respawn_fresh` note carries
+the warm-up's `backend_compiles` and `cache_hits` (in one process the
+libraries are loaded already, so both are 0 there: the cache pays off in
+a fresh process).
 
 The live telemetry plane is not ported: `telemetry=` raises, as the
 Server's does; `healthz` and `telemetry_status` are plain methods.
@@ -242,13 +246,15 @@ class ReplicaPool:
             slot.server = self._make_server(rid, slot.engine)
             slot.server.start()
             slot.state = "serving"
-            per_replica.append({"replica": rid, "pairs": stats["pairs"],
-                                "warmup_ms_total": stats["warmup_ms_total"]})
+            per_replica.append({
+                "replica": rid, **{k: stats[k] for k in (
+                    "pairs", "warmup_ms_total", "backend_compiles",
+                    "cache_hits")}})
         self.warmup_stats = {
             "replicas": self.n_replicas,
-            "pairs": sum(r["pairs"] for r in per_replica),
-            "warmup_ms_total": sum(r["warmup_ms_total"]
-                                   for r in per_replica),
+            **{k: sum(r[k] for r in per_replica) for k in (
+                "pairs", "warmup_ms_total", "backend_compiles",
+                "cache_hits")},
             "detail": per_replica,
         }
         if self.journal is not None:
@@ -446,7 +452,9 @@ class ReplicaPool:
                     self.journal.write(
                         "note", note="replica_respawn_fresh", replica=rid,
                         pairs=stats["pairs"],
-                        warmup_ms_total=stats["warmup_ms_total"])
+                        warmup_ms_total=stats["warmup_ms_total"],
+                        backend_compiles=stats["backend_compiles"],
+                        cache_hits=stats["cache_hits"])
             server = self._make_server(rid, server_engine)
             server.start()
             return server

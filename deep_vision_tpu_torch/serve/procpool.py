@@ -41,11 +41,17 @@ Where the port differs from the reference:
 - the builder is `builder(journal=, registry=, **builder_kwargs) ->
   Engine`; the device is one of `builder_kwargs` (the builders default
   to the card and raise without one);
-- the reference's executable cache has no counterpart yet:
-  `excache_dir=` raises. The warm-up report's `backend_compiles` is the
-  process's CUDA sources built (`ops/cuda/build.py` `build_count()`),
-  which the parent's template pays before any spawn, so a child's is 0;
-  `cache_hits` is 0, as the reference reports with no cache;
+- `excache_dir=` is the port's executable cache (core/excache.py) over
+  its compiled libraries, not over executables: the parent and every
+  child attach an ExecutableCache there (core/build.py `attach_cache`)
+  before their builder runs, so whatever library a process loads comes
+  from the cache or is compiled into it. A child's warm-up report gives
+  the compiler runs (`backend_compiles`) and cache loads
+  (`cache_hits`) of its whole process up to ready: over a warm cache,
+  0 and one a library it loaded. The parent's template warms first, so
+  over an empty cache it pays the compiler and the children load;
+  without a cache a child compiles nothing either when the libraries are
+  built already in build/ (its `cache_hits` is then 0);
 - a canary process runs `health_policy="abort"`, as the in-process
   pool's canary does, so weights that give non-finite outputs become
   request errors the swap's verdict counts (the reference's process
@@ -120,9 +126,19 @@ def _apply_variables(engine: Engine, path: str) -> List[str]:
     return sorted(swapped)
 
 
-def _warmup_report(stats: dict, builds: int) -> dict:
+def _warmup_report(stats: dict, builds: int, loads: int) -> dict:
     return {"models": stats["models"], "pairs": stats["pairs"],
-            "backend_compiles": int(builds), "cache_hits": 0}
+            "backend_compiles": int(builds), "cache_hits": int(loads)}
+
+
+def _attach_cache(excache_dir: Optional[str], journal, registry) -> None:
+    """Attach an ExecutableCache over `excache_dir` to this process."""
+    if excache_dir:
+        from deep_vision_tpu_torch.core import build
+        from deep_vision_tpu_torch.core.excache import ExecutableCache
+
+        build.attach_cache(ExecutableCache(excache_dir, journal=journal,
+                                           registry=registry))
 
 
 # -- the child process ---------------------------------------------------------
@@ -154,9 +170,9 @@ def _replica_main(spec: dict) -> None:
     except Exception:
         rdzv.leave()
         raise
+    from deep_vision_tpu_torch.core import build
     from deep_vision_tpu_torch.obs.journal import RunJournal
     from deep_vision_tpu_torch.obs.registry import Registry
-    from deep_vision_tpu_torch.ops.cuda import build
     from deep_vision_tpu_torch.serve.router import Server
     from deep_vision_tpu_torch.serve.transport import Transport
 
@@ -164,6 +180,7 @@ def _replica_main(spec: dict) -> None:
     journal = RunJournal(os.path.join(
         run_dir, f"replica-{rid}-a{spec['attempt']}.jsonl"), kind="serve")
     journal.manifest(config={"replica": rid, "attempt": spec["attempt"]})
+    _attach_cache(spec["excache_dir"], journal, registry)
     engine = spec["builder"](journal=journal, registry=registry,
                              **spec["builder_kwargs"])
     stats = engine.warmup()
@@ -182,7 +199,8 @@ def _replica_main(spec: dict) -> None:
     _atomic_json(os.path.join(run_dir, f"replica-{rid}{READY_SUFFIX}"), {
         "rid": rid, "attempt": spec["attempt"], "pid": os.getpid(),
         "port": transport.port, "generation": view.generation,
-        "warmup": _warmup_report(stats, build.build_count()),
+        "warmup": _warmup_report(stats, build.build_count(),
+                                 build.cache_load_count()),
         "ts": time.time(),
     })
     server.install_sigterm()
@@ -268,7 +286,10 @@ class ProcReplicaPool:
     must be a MODULE-LEVEL callable (spawn pickles it by reference). The
     parent calls it too, for the warmed template engine: it builds the
     CUDA kernels before any child starts (a child then builds none) and
-    gives SwapController its `primary_engine()`.
+    gives SwapController its `primary_engine()`. With `excache_dir`, the
+    parent and every child load their libraries through an executable
+    cache there (one cache a process: a parent with another attached
+    raises).
     """
 
     def __init__(self, builder: Callable, replicas: int = 2,
@@ -285,13 +306,8 @@ class ProcReplicaPool:
                  max_inflight: int = 64):
         if replicas < 1:
             raise ValueError(f"replicas must be >= 1, got {replicas}")
-        if excache_dir is not None:
-            raise NotImplementedError(
-                "ProcReplicaPool(excache_dir=): the executable cache has no "
-                "counterpart in the port yet (it waits for CUDA graphs per "
-                "serving bucket); a child warms by running each bucket, "
-                "with the kernels the parent's template built")
         self.builder = builder
+        self.excache_dir = excache_dir
         self.builder_kwargs = dict(builder_kwargs or {})
         self.n_replicas = int(replicas)
         self.run_dir = run_dir
@@ -346,18 +362,21 @@ class ProcReplicaPool:
     def start(self) -> "ProcReplicaPool":
         if self._started:
             return self
-        from deep_vision_tpu_torch.ops.cuda import build
+        from deep_vision_tpu_torch.core import build
 
         os.makedirs(self.rdzv_root, exist_ok=True)
-        # the template warms FIRST: its warm-up builds every CUDA kernel
-        # the model runs, so no child races nvcc
-        builds = build.build_count()
+        # the template warms FIRST: its warm-up builds (or loads from the
+        # cache) every library the model runs, so no child races the
+        # compiler
+        _attach_cache(self.excache_dir, self.journal, self.registry)
+        builds, loads = build.build_count(), build.cache_load_count()
         self._template = self.builder(journal=self.journal,
                                       registry=self.registry,
                                       **self.builder_kwargs)
         stats = self._template.warmup()
         self.template_warmup = _warmup_report(
-            stats, build.build_count() - builds)
+            stats, build.build_count() - builds,
+            build.cache_load_count() - loads)
         for i in range(self.n_replicas):
             slot = _ProcSlot(f"p{i}")
             self._slots[slot.rid] = slot
@@ -389,6 +408,7 @@ class ProcReplicaPool:
         spec = {
             "rid": slot.rid, "attempt": slot.attempt,
             "run_dir": self.run_dir, "rdzv_root": self.rdzv_root,
+            "excache_dir": self.excache_dir,
             "builder": self.builder, "builder_kwargs": self.builder_kwargs,
             "heartbeat_s": self.heartbeat_s,
             "expect_hosts": self.n_replicas, "generation": generation,

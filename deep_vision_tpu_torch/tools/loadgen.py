@@ -225,9 +225,17 @@ def aux_variables(seed: int = 1):
             "b": torch.from_numpy(rng.randn(5).astype(np.float32))}
 
 
-def fleet_builder(journal=None, registry=None, device=None) -> Engine:
+def fleet_builder(journal=None, registry=None, device=None,
+                  native: bool = False) -> Engine:
     """The two-toy-model engine every fleet process, and the parent's
-    template, builds."""
+    template, builds. `native=True` also loads the host record library
+    (data/native.py), as a replica that reads records would: on the CPU,
+    where the toy launches no kernel, it is the library a process loads
+    through its executable cache."""
+    if native:
+        from deep_vision_tpu_torch.data import native as native_lib
+
+        native_lib.load_library()
     eng = Engine(device=device, registry=registry)
     eng.register("toy", toy_fn, toy_variables(), input_shape=IMG,
                  buckets=BUCKETS)
@@ -238,14 +246,17 @@ def fleet_builder(journal=None, registry=None, device=None) -> Engine:
 
 # -- YOLOv3 ------------------------------------------------------------------
 
-def yolo_fleet_builder(journal=None, registry=None, device=None) -> Engine:
+def yolo_fleet_builder(journal=None, registry=None, device=None,
+                       excache=None) -> Engine:
     """YOLOv3 as chip_smoke.py's serving phase builds it (seed 0, running
     statistics calibrated on its seeded images, its detection
     parameters) in an Engine as model "yolov3". It is a float32 model,
     as the reference's: TF32 is turned off in this process, as the
     serving phase turns it off in its own. With a journal, the
     process's NMS launches are written to it when it closes (a `note`,
-    `nms_launches`), so a fleet's children report their own counts."""
+    `nms_launches`), so a fleet's children report their own counts.
+    `excache`: an executable cache (core/excache.py) the Engine
+    attaches, so the NMS library loads through it."""
     from deep_vision_tpu_torch.inference import yolo_predict_fn
     from deep_vision_tpu_torch.models import get_model
     from deep_vision_tpu_torch.nn.layers import calibrate_batch_stats
@@ -253,7 +264,7 @@ def yolo_fleet_builder(journal=None, registry=None, device=None) -> Engine:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    eng = Engine(device=device, registry=registry)
+    eng = Engine(device=device, registry=registry, excache=excache)
     model = get_model("yolov3", num_classes=YOLO_CLASSES, seed=0,
                       device=eng.device)
     rng = np.random.RandomState(CALIBRATION_SEED)

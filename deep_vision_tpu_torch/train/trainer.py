@@ -87,11 +87,17 @@ that is still being copied, silently. With a `data_loader`, a
 mid-epoch snapshot counts up to N batches in flight as consumed;
 epoch-boundary saves are exact.
 
+`executable_cache=` (core/excache.py) attaches the cache to the
+process (core/build.py `attach_cache`): the libraries the step loads
+(the CUDA kernels, the record reader) come from it, and a miss is
+compiled into it. The reference caches its compiled step executables
+there; the port compiles no step, so the step itself is unchanged.
+
 Not ported yet, and refused by the constructor when set: meshes and
 sharding rules, multistep supersteps, profiler windows (`profile_dir`,
-`autoprof`), checkify, the backend and host supervisors, the executable
-cache and telemetry. StepClock, goodput and alerts wait for
-obs/stepclock.py and their planes.
+`autoprof`), checkify, the backend and host supervisors, and telemetry.
+StepClock, goodput and alerts wait for obs/stepclock.py and their
+planes.
 """
 from __future__ import annotations
 
@@ -104,6 +110,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Union
 import torch
 from torch import nn
 
+from deep_vision_tpu_torch.core import build
 from deep_vision_tpu_torch.core.backend import DeviceLike, resolve_device
 from deep_vision_tpu_torch.core.metrics import MetricLogger
 from deep_vision_tpu_torch.core.train_state import create_train_state
@@ -169,7 +176,6 @@ class Trainer:
             mesh=mesh, rng=rng, profile_dir=profile_dir, autoprof=autoprof,
             backend_supervisor=backend_supervisor,
             host_supervisor=host_supervisor,
-            executable_cache=executable_cache,
             sharding_rules=sharding_rules, telemetry=telemetry).items()
             if v is not None]
         unported += ["checkify_errors"] if checkify_errors else []
@@ -178,6 +184,9 @@ class Trainer:
             raise NotImplementedError(
                 f"Trainer({', '.join(unported)}): not ported yet")
         self.device = resolve_device(device)
+        # one cache a process: attaching another root raises here
+        self.excache = (build.attach_cache(executable_cache)
+                        if executable_cache is not None else None)
         self.lr_schedule = lr_schedule or getattr(tx, "schedule", None)
         self.loss_fn = loss_fn
         self.eval_loss_fn = eval_loss_fn or loss_fn

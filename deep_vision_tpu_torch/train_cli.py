@@ -65,6 +65,12 @@ TPU float32 convolutions have no such switch; this is the port's choice.
 `torch.use_deterministic_algorithms(True)` with cudnn.benchmark off and
 CUBLAS_WORKSPACE_CONFIG=:4096:8 set before CUDA starts, so a run and its
 resume repeat bitwise.
+
+`--executable-cache DIR` (else `DVT_EXCACHE`) attaches an executable
+cache (core/excache.py) to the run: the compiled libraries load from
+DIR, a miss is compiled into it, and its excache_* events land in the
+journal. The reference also points JAX's own compilation cache at
+DIR/xla; the port traces nothing, so there is no counterpart.
 """
 from __future__ import annotations
 
@@ -374,7 +380,7 @@ def build_trainer(cfg: ExperimentConfig, train_fn, ckpt_dir: Optional[str],
                   health=None, device_prefetch: int = 0,
                   opt_state_dtype: Optional[str] = None, data_loader=None,
                   steps_per_epoch: Optional[int] = None,
-                  device: DeviceLike = None):
+                  device: DeviceLike = None, executable_cache=None):
     """The reference's build_trainer, on `device` (default cuda, raising
     without a card). Detection trains on `yolo_train_loss_fn` with the
     grids of the input size (s/32, s/16, s/8), pose on
@@ -429,7 +435,8 @@ def build_trainer(cfg: ExperimentConfig, train_fn, ckpt_dir: Optional[str],
                    plateau_metric=cfg.plateau_metric,
                    checkpoint_manager=ckpt, logger=logger,
                    eval_logger=eval_logger, ema_decay=ema_decay,
-                   journal=journal, health=health, data_loader=data_loader)
+                   journal=journal, health=health, data_loader=data_loader,
+                   executable_cache=executable_cache)
 
 
 #: the tasks trained by train/gan.py's trainers, not by Trainer
@@ -682,9 +689,27 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--opt-state-dtype", default=None,
                    choices=["bfloat16", "float32"],
                    help="storage dtype of the optimizer state")
+    p.add_argument("--executable-cache", default=None, metavar="DIR",
+                   help="executable cache dir (core/excache.py; env "
+                        "DVT_EXCACHE): the compiled libraries (CUDA "
+                        "kernels, record reader) load from this "
+                        "content-addressed store, and a miss is compiled "
+                        "into it, so a restarted process pays no compiler")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to train (default: the card)")
     return p
+
+
+def _make_excache(args, journal):
+    """--executable-cache, else DVT_EXCACHE: the ExecutableCache the run
+    attaches, journaling to the run's journal; None without either."""
+    if not args.executable_cache:
+        args.executable_cache = knobs.get_str("DVT_EXCACHE")
+    if not args.executable_cache:
+        return None
+    from deep_vision_tpu_torch.core.excache import ExecutableCache
+
+    return ExecutableCache(args.executable_cache, journal=journal)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -739,7 +764,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         health=health, device_prefetch=args.device_prefetch,
         opt_state_dtype=(None if args.opt_state_dtype == "float32"
                          else args.opt_state_dtype),
-        data_loader=data_loader, device=device)
+        data_loader=data_loader, device=device,
+        executable_cache=_make_excache(args, journal))
     if journal is not None:
         journal.add_closer(trainer.close)
     from deep_vision_tpu_torch.core.summary import count_params
@@ -831,6 +857,11 @@ def gan_main(parser, args, cfg: ExperimentConfig, train_fn, ckpt_dir: str,
     tracer = _make_tracer(args, journal)
     health = _make_health(args, journal)
     flight = _make_flight(args, journal)
+    excache = _make_excache(args, journal)
+    if excache is not None:
+        from deep_vision_tpu_torch.core import build
+
+        build.attach_cache(excache)
     trainer = build_gan_trainer(cfg, health=health, device=device)
     names = ({"G": "g", "D": "d"} if cfg.task == "dcgan" else
              {"G_ab": "gab", "G_ba": "gba", "D_a": "da", "D_b": "db"})

@@ -214,6 +214,43 @@ def test_train_from_records_with_a_data_snapshot(records, tmp_path, capsys):
         cpu_main("-m", "tiny_cli", "--fake-data", "--data-snapshot")
 
 
+def test_executable_cache_trains_bitwise_as_without(tmp_path,
+                                                    monkeypatch):
+    """--executable-cache DIR, and DVT_EXCACHE without the flag, attach
+    the cache to the run (its journal valid under --strict) and train
+    the same checkpoint bitwise as a run without one."""
+    from deep_vision_tpu_torch.core import build
+
+    sys.path.insert(0, ROOT)
+    from tools.check_journal import check_journal
+
+    base = ["-m", "tiny_cli", "--fake-data", "--fake-batches", "2",
+            "--epochs", "1"]
+    assert cpu_main(*base, "--ckpt-dir", str(tmp_path / "plain")) == 0
+    journal = str(tmp_path / "run.jsonl")
+    try:
+        assert cpu_main(*base, "--ckpt-dir", str(tmp_path / "flag"),
+                        "--journal", journal, "--executable-cache",
+                        str(tmp_path / "excache")) == 0
+        assert build._cache.root == str(tmp_path / "excache")
+        assert build._cache.journal.path == journal
+        build.detach_cache()
+        monkeypatch.setenv("DVT_EXCACHE", str(tmp_path / "env"))
+        assert cpu_main(*base, "--ckpt-dir", str(tmp_path / "env_ck")) == 0
+        assert build._cache.root == str(tmp_path / "env")
+    finally:
+        build.detach_cache()
+    assert check_journal(journal, strict=True) == []
+    want = CheckpointManager(str(tmp_path / "plain")).restore_variables(
+        device="cpu")
+    for run in ("flag", "env_ck"):
+        got = CheckpointManager(str(tmp_path / run)).restore_variables(
+            device="cpu")
+        assert set(got) == set(want)
+        for k, v in want.items():
+            assert torch.equal(got[k], v), (run, k)
+
+
 @pytest.mark.parametrize("flag", ["--tensorboard-dir=x", "--multistep=2",
                                   "--fault-spec=data.read:io_error",
                                   "--profile-dir=p", "--checkify"])

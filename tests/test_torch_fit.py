@@ -474,13 +474,48 @@ def test_schedule_plus_plateau_rejected():
 
 @pytest.mark.parametrize("kw", [{"mesh": object()}, {"multistep": 2},
                                 {"checkify_errors": True},
-                                {"profile_dir": "p"},
-                                {"executable_cache": object()}])
+                                {"profile_dir": "p"}])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         Trainer(port_tiny(), build_optimizer("sgd", 0.1),
                 classification_loss_fn, torch.zeros(1, 16, 16, 12),
                 device="cpu", **kw)
+
+
+def test_executable_cache_trains_bitwise_as_without(shards, tmp_path):
+    """Trainer(executable_cache=) attaches the cache to the process
+    (one root a process) and trains the records run bitwise as the
+    Trainer without it."""
+    from deep_vision_tpu_torch.core import build
+    from deep_vision_tpu_torch.core.excache import ExecutableCache
+
+    plain, data = records_trainer(shards, str(tmp_path / "a"))
+    plain.fit(lambda: data, epochs=1, handle_preemption=False)
+    cache = ExecutableCache(str(tmp_path / "excache"))
+    try:
+        tm = resnet.ResNet(stage_sizes=(1, 1, 1, 1), width=8,
+                           num_classes=1000, stem="s2d")
+        resnet.reset_parameters(tm, torch.Generator().manual_seed(11))
+        data = loader(shards)
+        cached = Trainer(tm, build_optimizer("sgd", 0.05, momentum=0.9),
+                         classification_loss_fn, torch.zeros(1, 16, 16, 12),
+                         device="cpu", data_loader=data,
+                         checkpoint_manager=CheckpointManager(
+                             str(tmp_path / "b")),
+                         plateau=ReduceLROnPlateau(factor=0.5, patience=0),
+                         executable_cache=cache)
+        assert cached.excache is cache and build._cache is cache
+        cached.fit(lambda: data, epochs=1, handle_preemption=False)
+        with pytest.raises(RuntimeError, match="second root"):
+            Trainer(port_tiny(), build_optimizer("sgd", 0.1),
+                    classification_loss_fn, torch.zeros(1, 16, 16, 12),
+                    device="cpu", executable_cache=ExecutableCache(
+                        str(tmp_path / "other")))
+    finally:
+        build.detach_cache()
+    assert cached.state.step == plain.state.step == 6
+    for k, v in plain.model.state_dict().items():
+        assert torch.equal(cached.model.state_dict()[k], v), k
 
 
 def test_current_lr_tracks_the_schedule():

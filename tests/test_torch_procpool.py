@@ -3,9 +3,10 @@ JAX package's: replicas are spawned processes over real sockets.
 
 One port fleet and one reference fleet serve the whole module, each
 `ProcReplicaPool(fleet_builder, replicas=2)` without an executable
-cache (every child on one torch thread: OMP_NUM_THREADS=1). On the same
-seeded images the two fleets answer the same `toy` and `aux` rows. Then
-on the port's fleet, in order: a Transport fronts it and one trace
+cache (every child on one torch thread: OMP_NUM_THREADS=1); a pool
+over `excache_dir=` runs in a subprocess of its own, a fresh parent. On
+the same seeded images the two fleets answer the same `toy` and `aux`
+rows. Then on the port's fleet, in order: a Transport fronts it and one trace
 crosses both sockets (tests/test_transport.py:568-614); a canary swap is
 promoted across processes and every base replica then answers with the
 new weights; a poisoned canary (NaN weights: its abort health policy
@@ -126,10 +127,53 @@ def port(fleets):
     return fleets["port"]
 
 
-def test_excache_dir_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="executable cache"):
-        ProcReplicaPool(fleet_builder, run_dir=str(tmp_path),
-                        excache_dir=str(tmp_path / "excache"))
+def test_excache_dir_loads_each_process_through_the_cache(tmp_path):
+    """`excache_dir=` is taken: in a fresh parent over an empty cache the
+    template's builder loads the record library (fleet_builder's
+    native=True) and compiles it into the cache; the child, a fresh
+    process, compiles nothing and reports the library as its cache hit;
+    the journals carry the excache rows and pass --strict."""
+    run, cache = str(tmp_path / "run"), str(tmp_path / "excache")
+    script = (
+        "import json, os\n"
+        "import numpy as np\n"
+        "from deep_vision_tpu_torch.obs.journal import RunJournal\n"
+        "from deep_vision_tpu_torch.serve import ProcReplicaPool\n"
+        "from deep_vision_tpu_torch.tools.loadgen import IMG, fleet_builder\n"
+        "if __name__ == '__main__':\n"
+        f"    os.makedirs({run!r})\n"
+        f"    journal = RunJournal(os.path.join({run!r}, 'journal.jsonl'),"
+        " kind='serve')\n"
+        "    journal.manifest()\n"
+        "    pool = ProcReplicaPool(fleet_builder, replicas=1,"
+        f" run_dir={run!r}, excache_dir={cache!r}, journal=journal,"
+        " heartbeat_s=0.4,"
+        " builder_kwargs={'device': 'cpu', 'native': True}).start()\n"
+        "    row = pool.submit('toy', np.zeros(IMG, np.float32)).result(60)\n"
+        "    print(json.dumps({'template': pool.template_warmup,"
+        " 'children': pool.warmup_stats(), 'row': sorted(row)}))\n"
+        "    pool.drain('close')\n"
+        "    journal.close()\n")
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, OMP_NUM_THREADS="1"))
+    assert res.returncode == 0, res.stderr[-2000:]
+    got = json.loads(res.stdout.splitlines()[-1])
+    assert got["row"] == ["mean", "scores"]
+    assert (got["template"]["backend_compiles"],
+            got["template"]["cache_hits"]) == (1, 0)
+    assert (got["children"]["p0"]["backend_compiles"],
+            got["children"]["p0"]["cache_hits"]) == (0, 1)
+    rows = {}
+    for name in ("journal.jsonl", "replica-p0-a1.jsonl"):
+        path = os.path.join(run, name)
+        assert check_journal(path, strict=True) == []
+        rows[name] = [(e["event"], e["name"]) for e in read_journal(path)
+                      if e["event"].startswith("excache_")]
+    assert rows == {
+        "journal.jsonl": [("excache_miss", "dvtpu_records"),
+                          ("excache_store", "dvtpu_records")],
+        "replica-p0-a1.jsonl": [("excache_hit", "dvtpu_records")]}
 
 
 def test_an_undrained_pool_stops_its_children_at_exit(tmp_path):

@@ -438,6 +438,59 @@ class TestReplicaDeath:
                    if e["note"] == "replica_respawn_fresh"]
         assert note["replica"] == "r0" and note["pairs"] == 3
 
+    def test_fresh_respawn_through_a_cache_attaching_factory(
+            self, journal, tmp_path):
+        """A factory whose Engine attaches an executable cache (the same
+        root every call: one cache a process). The fresh respawn builds
+        a second engine through it, and the pool's warm-up note and the
+        respawn's carry backend_compiles and cache_hits: 0 both, since
+        in one process a library is compiled or loaded once."""
+        from deep_vision_tpu_torch.core import build
+        from deep_vision_tpu_torch.core.excache import ExecutableCache
+
+        registry = Registry()
+        engines = []
+
+        def factory(rid):
+            eng = Engine(device="cpu", registry=registry,
+                         excache=ExecutableCache(str(tmp_path / "excache"),
+                                                 journal=journal,
+                                                 registry=registry))
+            eng.register("toy", toy_fn, toy_variables(), input_shape=IMG,
+                         buckets=(1, 2, 4))
+            engines.append(eng)
+            return eng
+
+        try:
+            pool = ReplicaPool(factory, replicas=1, journal=journal,
+                               registry=registry, respawn_fresh=True,
+                               max_wait_ms=3.0).start()
+            try:
+                faults.install_spec("serve.replica:io_error@1", seed=0,
+                                    journal=journal, export_env=False)
+                with pytest.raises(ReplicaLost):
+                    pool.submit("toy", images(1)[0]).result(timeout=30)
+                assert wait_all_serving(pool), pool.replica_states()
+                faults.install(None)
+                want = toy_fn(toy_variables(), torch.from_numpy(
+                    np.stack(images(1))))["scores"]
+                got = pool.submit("toy", images(1)[0]).result(timeout=30)
+                assert torch.equal(torch.as_tensor(got["scores"]), want[0])
+            finally:
+                faults.install(None)
+                pool.close()
+        finally:
+            build.detach_cache()
+        assert len(engines) == 2
+        assert engines[1].excache is engines[0].excache
+        assert pool.warmup_stats["backend_compiles"] == 0
+        journal.close()
+        (note,) = [e for e in events(journal.path, "note")
+                   if e["note"] == "replica_respawn_fresh"]
+        assert note["pairs"] == 3
+        assert (note["backend_compiles"], note["cache_hits"]) == (0, 0)
+        assert check_journal(journal.path, strict=True) == []
+
     def test_all_replicas_down_is_a_clear_error(self, journal):
         pool = make_pool(
             journal=journal, replicas=1,
