@@ -158,7 +158,16 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            tfrecord_val/, with --data-snapshot, a journal and the
            skip_step policy: run T trains 2 epochs (ms/step, images/s,
            peak memory, save and restore times, LR and val top1 by
-           epoch, from its journal); under DVT_DETERMINISTIC=1, run A
+           epoch, from its journal) with --summary, --tensorboard-dir,
+           --metrics-export and --telemetry-sample-every 2 (run_t_record:
+           every step row's StepClock fields, the sampled rows exactly
+           the even steps with sync_ms, device memory and the process's
+           compiler runs, step_time_ms over the rows' spacing within an
+           epoch in [0.9, 1.0], every step's and epoch's loss in the
+           event file, the export's train_step_ms_count, the table's
+           total equal to the count line; the median split of a step
+           printed), then the StepClock's own host cost
+           (clock_host_cost); under DVT_DETERMINISTIC=1, run A
            trains 2 epochs and run B 1 epoch, then `-c` to 2 in a fresh
            process: B's second epoch must read A's batches (checksums
            from a sitecustomize hook) and its final checkpoint must equal
@@ -241,7 +250,10 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            third, `-m dcgan_mnist --fake-data` one epoch and a resume to
            a second (the two GAN chains on a thread beside the pose and
            CenterNet ones), each run's moments launches counted by the
-           hook;
+           hook, the GAN train runs with --metrics-export and
+           --telemetry-sample-every 2: every step row carries the
+           `gan` StepClock's fields, the even steps its fence and device
+           memory, and the export gan_steps_total;
            the kernels line gains `bn_moments_*[hourglass_mpii]`,
            `[centernet_coco]` and `[dcgan_mnist]`;
 11. infer  the inference CLI, `deep_vision_tpu_torch.tools.infer.main`
@@ -3263,6 +3275,15 @@ CLI_SIGTERM_AFTER = 1
 CLI_LOSS_RTOL = 1e-3
 #: timed fixed-batch steps, with the skip policy off and on
 CLI_POLICY_STEPS = 5
+#: run T's fence cadence: its 8 steps never reach the default 16
+CLI_SAMPLE_EVERY = 2
+#: run T: step_time_ms over the spacing of consecutive step rows of one
+#: epoch (the journal's `ts`, rounded to 1 ms); a commit that missed the
+#: device's time would read far below, and the rest of a step (the
+#: loggers, the journal row) is outside the clock
+CLI_CLOCK_SHARE = (0.9, 1.0)
+#: the StepClock's host cost: empty steps timed a kind
+CLOCK_COST_STEPS = 2000
 #: phase 6's hook, imported by the CLI runs as sitecustomize: checksums
 #: of every batch Trainer.train_step reads (label (or detection class, or
 #: pose keypoint) and image sums weighted by row, in float64 on the card,
@@ -3276,6 +3297,7 @@ import atexit, json, os
 _path = os.environ.get("SMOKE_BATCH_LOG")
 if _path:
     import torch
+    from deep_vision_tpu_torch.core import build as _build
     from deep_vision_tpu_torch.ops.cuda.bn_act import fused_scale_bias_act
     from deep_vision_tpu_torch.ops.cuda.nms import greedy_nms
     from deep_vision_tpu_torch.ops.cuda.norm import batch_moments, layer_norm
@@ -3315,7 +3337,8 @@ if _path:
                                    for s, a, b in _rows],
                        "launches": launches, "nms": greedy_nms.launches,
                        "layer_norm": [layer_norm.launches,
-                                      layer_norm.backward_launches]}, f)
+                                      layer_norm.backward_launches],
+                       "builds": _build.build_count()}, f)
 
     atexit.register(_dump)
 """
@@ -3686,6 +3709,128 @@ def run_s_black_box(rows, trace_path, flight_dir, card):
           f"{bundle_bytes(bundles[0])} B ({card})")
 
 
+def run_t_record(steps, path, builds, card):
+    """Phase 6: run T's per-step record. Every step row carries
+    StepClock's fields; the sampled rows are exactly the steps the fence
+    cadence picks, each with sync_ms, device memory and `recompiles`
+    equal to the process's compiler runs (`builds`, from the hook); in
+    each epoch after its first step, the median of step_time_ms over the
+    spacing of consecutive rows lies in CLI_CLOCK_SHARE; the event file
+    holds every step's and both epochs' train loss; the export counts
+    every step; --summary's total is the count line's. Prints the median
+    split of a step."""
+    from deep_vision_tpu_torch.core.tensorboard import read_scalars
+
+    for r in steps:
+        check(r["step_time_ms"] >= r["data_wait_ms"] >= 0
+              and r["dispatch_ms"] > 0 and r["examples_per_sec"] > 0,
+              f"run T's step {r['step']} row: {r}")
+    sampled = [r for r in steps if "sync_ms" in r]
+    check([r["step"] for r in sampled]
+          == [r["step"] for r in steps
+              if r["step"] % CLI_SAMPLE_EVERY == 0],
+          f"run T sampled steps {[r['step'] for r in sampled]}")
+    for r in sampled:
+        check(r["hbm_bytes"] > 0 and r["hbm_peak_bytes"] >= r["hbm_bytes"]
+              and r["recompiles"] == builds,
+              f"run T's sampled step {r['step']}: hbm {r.get('hbm_bytes')}"
+              f" peak {r.get('hbm_peak_bytes')} recompiles "
+              f"{r.get('recompiles')} (the process ran {builds} compilers)")
+    shares, gaps = [], []
+    for a, b in zip(steps, steps[1:]):
+        if a["epoch"] == b["epoch"]:
+            gaps.append((b["ts"] - a["ts"]) * 1e3)
+            shares.append(b["step_time_ms"] / gaps[-1])
+    share = statistics.median(shares)
+    # the rows' ts are rounded to 1 ms: a gap reads up to 1 ms short
+    lo, hi = CLI_CLOCK_SHARE
+    check(lo <= share <= hi + 1.0 / statistics.median(gaps),
+          f"run T: step_time_ms over the rows' spacing, median {share} of "
+          f"{shares}")
+    (events,) = os.listdir(path("t_tb"))
+    scalars = [(t, s) for _, s, t, _ in read_scalars(
+        os.path.join(path("t_tb"), events))]
+    check([s for t, s in scalars if t == "train/batch_loss"]
+          == [r["step"] for r in steps]
+          and [s for t, s in scalars if t == "train/epoch_loss"]
+          == list(range(CLI_EPOCHS)),
+          f"run T's event file: {sorted(set(scalars))[:40]}")
+    counted = [line for line in open(path("t.prom")).read().splitlines()
+               if line.startswith("train_step_ms_count")]
+    check(counted == [f"train_step_ms_count {len(steps)}"],
+          f"run T's export counts {counted}")
+    log = open(path("t.log")).read()
+    table = re.findall(r"^trainable params: ([\d,]+) \(", log, re.M)
+    count = re.findall(r"^model \S+: ([\d,]+) trainable params", log, re.M)
+    check(len(table) == 1 and table == count,
+          f"run T's --summary total {table}, count line {count}")
+
+    def med(key, rows=steps):
+        return statistics.median(r[key] for r in rows)
+
+    print(f"[cli] run T's step record: {len(steps)} steps, fence every "
+          f"{CLI_SAMPLE_EVERY} ({len(sampled)} sampled); median "
+          f"data_wait_ms {med('data_wait_ms'):.3f}, dispatch_ms "
+          f"{med('dispatch_ms'):.3f}, sync_ms "
+          f"{med('sync_ms', sampled):.3f}, step_time_ms "
+          f"{med('step_time_ms'):.3f}; step_time_ms over the rows' spacing "
+          f"{share:.4f} (median of {len(shares)}); peak device memory "
+          f"{max(r['hbm_peak_bytes'] for r in sampled)} B, compiler runs "
+          f"{builds}; the event file {len(scalars)} scalars; --summary "
+          f"total {table[0]} (PERF.md section 5's fed step: 652.5-836.5 "
+          f"ms/step) ({card})")
+
+
+def clock_host_cost(torch, dev, card):
+    """The StepClock's own host cost on the card: us a step from enter
+    to commit around an empty body (as the Trainer commits: deferred,
+    with metrics and extra fields), unsampled, then sampled (the fence
+    over a finished stream and the memory read), then unsampled with a
+    journal row; each over CLOCK_COST_STEPS steps. Then the sampled
+    step's two parts alone: the stream sync and `hbm_stats`; the
+    memory it reads must be torch.cuda's own."""
+    from deep_vision_tpu_torch.obs.journal import RunJournal
+    from deep_vision_tpu_torch.obs.registry import Registry
+    from deep_vision_tpu_torch.obs.stepclock import StepClock, hbm_stats
+
+    out = torch.zeros((), device=dev)
+    torch.cuda.synchronize()
+    got = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind, every, journal in (
+                ("unsampled", CLOCK_COST_STEPS + 1, None),
+                ("sampled", 1, None),
+                ("unsampled + journal row", CLOCK_COST_STEPS + 1,
+                 RunJournal(os.path.join(tmp, "j.jsonl")))):
+            clock = StepClock(registry=Registry(), journal=journal,
+                              name="cost", sample_every=every)
+            t0 = time.perf_counter()
+            for i in range(CLOCK_COST_STEPS):
+                with clock.step(batch_size=256, auto_commit=False) as rec:
+                    rec.fence_on(out)
+                rec.commit(step=i, metrics={"loss": 1.0, "lr": 0.1},
+                           extra={"epoch": 0})
+            got[kind] = (time.perf_counter() - t0) / CLOCK_COST_STEPS * 1e6
+            check(clock.sync_samples == (CLOCK_COST_STEPS if every == 1
+                                         else 0), f"{kind}: samples")
+            if journal is not None:
+                journal.close()
+    check(hbm_stats(dev) == (torch.cuda.memory_allocated(dev),
+                             torch.cuda.max_memory_allocated(dev)),
+          f"hbm_stats {hbm_stats(dev)}")
+    stream = torch.cuda.current_stream(dev)
+    for kind, fn in (("the sync alone", stream.synchronize),
+                     ("hbm_stats alone", lambda: hbm_stats(dev))):
+        t0 = time.perf_counter()
+        for _ in range(CLOCK_COST_STEPS):
+            fn()
+        got[kind] = (time.perf_counter() - t0) / CLOCK_COST_STEPS * 1e6
+    print("[cli] StepClock host cost a step: " + ", ".join(
+        f"{k} {v:.2f} us" for k, v in got.items())
+        + f" (the fence a torch.cuda.current_stream(dev).synchronize() "
+          f"over a finished stream; {CLOCK_COST_STEPS} steps each) ({card})")
+
+
 def cli_phase(torch, dev, card, tmp, data, env, det):
     """Phase 6: the training CLI in subprocesses, as a user runs it, on
     `cli_records`' data under `tmp`."""
@@ -3695,8 +3840,11 @@ def cli_phase(torch, dev, card, tmp, data, env, det):
     def path(name):
         return os.path.join(tmp, name)
 
-    # the user's run: two epochs, timed
-    run_cli(cli_command(data, path("ck_t"), path("t.jsonl"), CLI_EPOCHS),
+    # the user's run: two epochs, timed, with the per-step record
+    run_cli(cli_command(data, path("ck_t"), path("t.jsonl"), CLI_EPOCHS,
+                        "--summary", "--tensorboard-dir", path("t_tb"),
+                        "--metrics-export", path("t.prom"),
+                        "--telemetry-sample-every", str(CLI_SAMPLE_EVERY)),
             dict(env, SMOKE_BATCH_LOG=path("t_batches.json")),
             path("t.log"), "T (2 epochs)")
     t_rows = read_journal(path("t.jsonl"))
@@ -3704,13 +3852,16 @@ def cli_phase(torch, dev, card, tmp, data, env, det):
     n_steps = CLI_EPOCHS * CLI_TRAIN_IMAGES // 256
     check(len(steps) == n_steps, f"run T took {len(steps)} steps, want "
           f"{n_steps}")
+    hooked = json.load(open(path("t_batches.json")))
+    run_t_record(steps, path, hooked["builds"], card)
+    clock_host_cost(torch, dev, card)
     # the kernels of the path, counted in the CLI process: every
     # BatchNorm of a train step takes its moments, and every fused one
-    # runs bn_act in the train steps, the eval batches and the
-    # Trainer's one sample forward at construction
+    # runs bn_act in the train steps, the eval batches, the Trainer's
+    # one sample forward at construction and --summary's one
     evals = CLI_EPOCHS * CLI_VAL_IMAGES // 256
-    launches = json.load(open(path("t_batches.json")))["launches"]
-    want = {"bn_act_fwd": 48 * (n_steps + evals + 1),
+    launches = hooked["launches"]
+    want = {"bn_act_fwd": 48 * (n_steps + evals + 2),
             "bn_act_bwd": 48 * n_steps,
             "bn_moments_fwd": 53 * n_steps,
             "bn_moments_bwd": 53 * n_steps}
@@ -5212,8 +5363,11 @@ def gan_pose_cli(torch, card, tmp, env):
 
     def gan_chain(name, first, extra):
         ck, journal = path(f"{name}_ck"), path(f"{name}.jsonl")
+        prom = path(f"{name}_train.prom")
         base = first + ["--ckpt-dir", ck, "--journal", journal]
-        _, hooked = run(name, "train", base + ["--epochs", str(extra)])
+        _, hooked = run(name, "train", base + [
+            "--epochs", str(extra), "--metrics-export", prom,
+            "--telemetry-sample-every", str(CLI_SAMPLE_EVERY)])
         lines, _ = run(name, "resume", base + ["--epochs", str(extra + 1),
                                                 "-c", "auto"])
         check(f"resumed GAN training at epoch {extra}" in lines,
@@ -5229,6 +5383,7 @@ def gan_pose_cli(torch, card, tmp, env):
               and all(np.isfinite(list(s.values())).all()
                       for s in summaries),
               f"{name}: {len(steps)} steps, epochs {summaries}")
+        gan_step_record(name, steps, extra * per_epoch, prom, card)
         n_bn = GAN_POSE_BN[name]
         want = {"bn_act_fwd": 0, "bn_act_bwd": 0,
                 "bn_moments_fwd": n_bn * extra * per_epoch,
@@ -5280,6 +5435,35 @@ def gan_pose_cli(torch, card, tmp, env):
               f"{name} --eval-only took batch moments")
     gan_runs.join()
     return launches
+
+
+def gan_step_record(name, steps, n_train, prom, card):
+    """Phase 10: a GAN chain's step rows are its `gan` StepClock's:
+    every row carries the timing fields; the train run's (its first
+    `n_train`, fenced every CLI_SAMPLE_EVERY) sampled rows are its even
+    steps, with sync_ms and device memory; the resume's (the default
+    cadence, 16) none; the train run's export counts its steps in
+    gan_steps_total."""
+    for r in steps:
+        check(r["step_time_ms"] >= r["data_wait_ms"] >= 0
+              and r["dispatch_ms"] > 0 and r["examples_per_sec"] > 0,
+              f"{name}'s step {r['step']} row: {r}")
+    sampled = [r["step"] for r in steps if "sync_ms" in r]
+    check(sampled == list(range(CLI_SAMPLE_EVERY, n_train + 1,
+                                CLI_SAMPLE_EVERY))
+          and all(r["hbm_peak_bytes"] >= r["hbm_bytes"] > 0
+                  for r in steps if "sync_ms" in r),
+          f"{name}'s sampled steps {sampled} of {n_train} trained")
+    counted = [line for line in open(prom).read().splitlines()
+               if line.startswith("gan_steps_total")]
+    check(counted == [f"gan_steps_total {n_train}"],
+          f"{name}'s export counts {counted}")
+    print(f"[gan_pose] {name}: {len(steps)} step rows with the clock's "
+          f"fields, sampled {sampled}; median step_time_ms "
+          f"{statistics.median(r['step_time_ms'] for r in steps):.3f}, "
+          f"dispatch_ms "
+          f"{statistics.median(r['dispatch_ms'] for r in steps):.3f} "
+          f"({card})")
 
 
 def gan_pose_phase(torch, dev, card, tmp, env):

@@ -14,8 +14,17 @@ its sources and flags (`hashed_path`). With one attached
 under a key that also covers the compiler's version, torch, the driver
 and the device, and a miss is compiled into the cache. A library loads
 once a process, so one cache applies to a process: attaching a second,
-different root raises. `build_count()` counts compiler runs and
-`cache_load_count()` the libraries loaded from the cache.
+different root raises. `build_count()` counts compiler runs,
+`compile_seconds()` sums their seconds and `cache_load_count()` counts
+the libraries loaded from the cache.
+
+These are the port's compiles. The reference counts XLA's backend
+compiles of its jitted steps (a jax.monitoring listener,
+obs/stepclock.py); the port compiles no step, and the compilers it runs
+are nvcc and g++, here. So obs/stepclock.py reads its `recompiles` and
+`compile_ms` from this module: the same "compiler runs this process"
+that the Engine's warm-up report and serve/swap.py's `compile_count()`
+give.
 """
 from __future__ import annotations
 
@@ -45,6 +54,7 @@ _loaded: Dict[str, ctypes.CDLL] = {}
 # the record library, which may itself load through the cache then
 _lock = threading.RLock()
 _builds = 0
+_compile_seconds = 0.0
 _cache_loads = 0
 _cache = None
 
@@ -75,6 +85,13 @@ def hashed_path(directory: Path, stem: str, files: Iterable[Path],
 def build_count() -> int:
     """Compiler runs this process has started (nvcc and g++)."""
     return _builds
+
+
+def compile_seconds() -> float:
+    """Seconds this process's compiler runs took, summed over the runs
+    (runs of one `compile_all` overlap, so the sum can exceed the wall
+    time they spanned)."""
+    return _compile_seconds
 
 
 def cache_load_count() -> int:
@@ -113,9 +130,10 @@ def compile_all(jobs: Dict[str, Tuple[Sequence[str], Sequence[str], Path]]
     """Run every job's compiler command, (compiler and flags, inputs,
     output), at once: `compiler flags -o <temporary> inputs`, whose file
     replaces the output when the command succeeds, with the compiler's
-    report beside it (`.log`). Returns the seconds until each finished;
-    raises with the report of every command that failed."""
-    global _builds
+    report beside it (`.log`). Returns the seconds until each finished
+    (each run's own seconds: all start at once), which `compile_seconds`
+    adds up; raises with the report of every command that failed."""
+    global _builds, _compile_seconds
     _builds += len(jobs)
     t0 = time.perf_counter()
     procs = {}
@@ -136,6 +154,7 @@ def compile_all(jobs: Dict[str, Tuple[Sequence[str], Sequence[str], Path]]
             continue
         out.with_suffix(".log").write_text(text)
         os.replace(tmp, out)
+    _compile_seconds += sum(seconds.values())
     if failed:
         raise RuntimeError("build failed:\n" + "\n".join(failed.values()))
     return seconds

@@ -1,12 +1,16 @@
 """Metrics: the port of deep_vision_tpu/core/metrics.py.
 
 `topk_accuracy` is computed inside a step (:25-41). `MetricLogger`
-(:44-165) is the host side: per-epoch meters weighted by batch size,
-stdout lines with ISO timestamps, an examples/s meter, the epoch
-history that rides the checkpoint sidecar (`state_dict`), and the
-fan-out of every step's metrics to gauges of the port's obs/registry.py
-and of every epoch summary to the journal's `epoch` event. TensorBoard
-(the reference's core/tensorboard.py) is not ported yet.
+(:63-158) is the host side: per-epoch meters weighted by batch size,
+stdout lines with ISO timestamps, an examples/s meter (StepClock's rate
+and data wait when the caller has a clock, obs/stepclock.py; else the
+instantaneous rate), the epoch history that rides the checkpoint
+sidecar (`state_dict`), TensorBoard scalars through a `tb_writer`
+(core/tensorboard.py `SummaryWriter`: `{name}/batch_{k}`,
+`{name}/examples_per_sec`, `{name}/data_wait_ms` a step and
+`{name}/epoch_{k}` an epoch), and the fan-out of every step's metrics to
+gauges of the port's obs/registry.py and of every epoch summary to the
+journal's `epoch` event.
 """
 from __future__ import annotations
 
@@ -58,12 +62,15 @@ def _metric_slug(name: str) -> str:
 class MetricLogger:
     """Host-side metric series, stdout logging and examples/s meter.
 
-    With `registry`/`journal`, every step's metrics also land as gauges
-    and every epoch summary as a journal `epoch` event."""
+    With `tb_writer`, every step's metrics and every epoch summary are
+    also TensorBoard scalars; with `registry`/`journal`, every step's
+    metrics also land as gauges and every epoch summary as a journal
+    `epoch` event."""
 
-    def __init__(self, print_every: int = 10, name: str = "train",
-                 registry=None, journal=None):
+    def __init__(self, tb_writer=None, print_every: int = 10,
+                 name: str = "train", registry=None, journal=None):
         self.history: Dict[str, list] = collections.defaultdict(list)
+        self.tb = tb_writer
         self.print_every = print_every
         self.name = name
         self.registry = registry
@@ -80,19 +87,30 @@ class MetricLogger:
         self._last_step_time = None
 
     def log_step(self, step: int, metrics: dict, batch_size: int = 0,
-                 epoch: Optional[int] = None, lr: Optional[float] = None):
+                 epoch: Optional[int] = None, lr: Optional[float] = None,
+                 data_wait_ms: Optional[float] = None,
+                 examples_per_sec: Optional[float] = None):
         metrics = {k: float(v) for k, v in metrics.items()}
         for k, v in metrics.items():
             self._epoch_meters[k].update(v, max(batch_size, 1))
         self._epoch_examples += batch_size
-        # the rate is wall time since the previous log_step (StepClock's
-        # data_wait_ms and rate wait for obs/stepclock)
+        # without a StepClock's rate: wall time since the previous
+        # log_step
         now = time.time()
-        examples_per_sec = None
-        if batch_size and self._last_step_time is not None:
+        if examples_per_sec is None and batch_size and \
+                self._last_step_time is not None:
             dt = max(now - self._last_step_time, 1e-9)
             examples_per_sec = batch_size / dt
         self._last_step_time = now
+        if self.tb is not None:
+            for k, v in metrics.items():
+                self.tb.scalar(f"{self.name}/batch_{k}", v, step)
+            if examples_per_sec is not None:
+                self.tb.scalar(f"{self.name}/examples_per_sec",
+                               examples_per_sec, step)
+            if data_wait_ms is not None:
+                self.tb.scalar(f"{self.name}/data_wait_ms", data_wait_ms,
+                               step)
         if self.registry is not None:
             for k, v in metrics.items():
                 self.registry.gauge(
@@ -106,18 +124,27 @@ class MetricLogger:
             ep_s = f"epoch {epoch} " if epoch is not None else ""
             perf_s = ""
             if examples_per_sec is not None:
-                perf_s = f" ex/s={examples_per_sec:.1f}"
+                perf_s += f" ex/s={examples_per_sec:.1f}"
+            if data_wait_ms is not None:
+                perf_s += f" data_wait_ms={data_wait_ms:.1f}"
             print(f"[{ts}] {self.name} {ep_s}step {step}: {parts}{lr_s}"
                   f"{perf_s}", flush=True)
 
-    def end_epoch(self, epoch: int) -> dict:
+    def end_epoch(self, epoch: int, extra: Optional[dict] = None) -> dict:
+        """The epoch's summary (the meters' means, `extra`'s values, the
+        examples/s and the seconds), into the history, TensorBoard, the
+        registry and the journal, and printed."""
         elapsed = max(time.time() - self._epoch_start, 1e-9)
         summary = {k: m.avg for k, m in self._epoch_meters.items()}
+        if extra:
+            summary.update({k: float(v) for k, v in extra.items()})
         if self._epoch_examples:
             summary["examples_per_sec"] = self._epoch_examples / elapsed
         summary["epoch_time_s"] = elapsed
         for k, v in summary.items():
             self.history[k].append((epoch, v))
+            if self.tb is not None:
+                self.tb.scalar(f"{self.name}/epoch_{k}", v, epoch)
             if self.registry is not None:
                 self.registry.gauge(
                     f"{self.name}_epoch_{_metric_slug(k)}").set(v)

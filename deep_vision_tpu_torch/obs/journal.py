@@ -8,8 +8,13 @@ writes:
 
   run_manifest  kind, argv, python, host, pid; torch and CUDA versions,
                 the device's name and count (the reference's jax fields)
-  step          one per training step (Trainer): step, epoch, examples,
-                lr, loss, grad_norm, skipped
+  step          one per training step, written by the step's StepClock
+                (obs/stepclock.py): step_time_ms, data_wait_ms,
+                dispatch_ms, examples_per_sec; sync_ms, recompiles,
+                compile_ms, hbm_bytes, hbm_peak_bytes where the step
+                sampled or compiled; and the caller's fields (the
+                Trainer's metrics {loss, lr}, epoch, examples, lr, loss,
+                grad_norm, skipped; the GAN loop's epoch, examples, lr)
   epoch, eval   MetricLogger / Trainer.evaluate summaries
   checkpoint    a save started, with save_ms, the time the training
                 loop spent in it (the write itself is asynchronous: a
@@ -21,6 +26,9 @@ writes:
   flight_dump   a flight bundle written or failed (obs/flight.py)
   lock_order_violation, lock_contention  the armed lock sanitizer's
                 (obs/locksmith.py)
+  retry         a RetryPolicy's attempt (resilience/retry.py)
+  excache_hit, excache_miss, excache_store, excache_invalid  the
+                executable cache's (core/excache.py)
   fault, ckpt_quarantine, preempt_checkpoint, data_resume, note
   crash         atexit marker: the process died without close()
   exit          clean close, with status
@@ -31,10 +39,8 @@ parent_span_id, unless the caller passed a trace_id itself (the
 Server's dispatcher stamps each request's own context).
 
 Events it does not write yet, because their modules are not ported:
-StepClock's timing fields on `step` (step_time_ms, data_wait_ms, ...),
-`profile` and `profile_capture`, `retry` (the port's RetryPolicy counts in the
-registry only), `data_skip`, the goodput and alert planes' rows,
-`sharding_resolved`, `backend_*`, `host_*`, `excache_*` and
+`profile` and `profile_capture`, `data_skip`, the goodput and alert
+planes' rows, `sharding_resolved`, `backend_*`, `host_*` and
 `telemetry_server`.
 
 The writer flushes every line (a crash loses at most the line in flight)

@@ -2,8 +2,9 @@
 
 A copy of deep_vision_tpu/obs/registry.py's metrics, its Prometheus
 text export (which the flight recorder's bundle carries as
-metrics.prom) and its per-process file naming: host-side objects, safe
-to touch from any thread, with bucket-resolution quantiles. The
+metrics.prom, and `write_prometheus` writes for train_cli's
+--metrics-export) and its per-process file naming: host-side objects,
+safe to touch from any thread, with bucket-resolution quantiles. The
 reference's JSONL snapshot writer is not ported.
 
 A process's index is its `torch.distributed` rank when a process group
@@ -260,6 +261,23 @@ class Registry:
             for m in members:
                 lines.extend(m.to_prometheus())
         return "\n".join(lines) + ("\n" if lines else "")
+
+    def write_prometheus(self, path: str) -> bool:
+        """Write `to_prometheus()` to `path` whole: into `path.tmp`, then
+        renamed over `path`, parent directories created. Process 0 only;
+        returns whether this process wrote."""
+        if not is_primary_host():
+            return False
+        import os
+
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(self.to_prometheus())
+        os.replace(tmp, path)
+        return True
 
 
 _DEFAULT = Registry()

@@ -364,6 +364,12 @@ class Rendezvous:
             # able to rejoin under the same id — the stale marker is
             # retired, not honored forever
             if refusal.get("versions", None) in (None, self.versions):
+                # a refused host drops its lease, as the self-refusal
+                # below does: a record that kept beating would stay the
+                # earliest joiner of its id and, elected the version
+                # reference, refuse the fleet's own hosts (the reference
+                # raises here with its heartbeat still running)
+                self.leave()
                 raise RendezvousRefused(
                     str(refusal.get("kind", "refused")),
                     str(refusal.get("detail", "")))

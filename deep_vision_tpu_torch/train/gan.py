@@ -35,13 +35,24 @@ optimizer step, with `{"epoch": ...}` as the host state; `restore`
 returns the next epoch to run. `load_variables` loads one JAX variable
 tree per sub-network (convert.py), strictly.
 
+Each trainer times its steps with a StepClock named `gan`
+(obs/stepclock.py, `self.clock`, on `registry` and `journal`, its fence
+every `telemetry_sample_every` steps, 32 as the reference's): the
+train_step's body is the record, fenced on the step's metrics, and the
+record commits when the body ends. The metrics stay on the device (the
+caller reads them at the epoch's end), so a step's row carries timing
+only: an unsampled DCGAN step_time_ms is the host's issue time; a
+CycleGAN step waits for its G step at the pool's host copy. The row's
+`step` is the optimizer step of the first sub-network, and `extra`
+(train_cli's epoch, examples and lr) rides it: a resumed run numbers on
+from its checkpoint. The reference numbers the rows by the clock's
+count of steps, which starts at 1 in every process.
+
 The profiler ranges `GAN_STEP_RANGE`, `GAN_POOL_RANGE` and the G and D
 step ranges mark the work for tools/profile_train.py, and the trace
 spans `gan/step` (both trainers), `gan/g_step`, `gan/pool`, `gan/d_step`
 (CycleGAN), `checkpoint/save` and `checkpoint/restore` for obs/trace.py,
-as the reference's. Not ported: the
-reference's meshes, StepClock telemetry and autoprof; the per-step
-journal events are the CLI loop's (train_cli.gan_main).
+as the reference's. Not ported: the reference's meshes and autoprof.
 """
 from __future__ import annotations
 
@@ -66,6 +77,7 @@ from deep_vision_tpu_torch.losses.gan import (
     lsgan_generator_loss,
 )
 from deep_vision_tpu_torch.nn.layers import Dropout
+from deep_vision_tpu_torch.obs.stepclock import StepClock
 from deep_vision_tpu_torch.obs.trace import span
 from deep_vision_tpu_torch.train.trainer import dropout_step_seed
 
@@ -143,6 +155,14 @@ class _GanBase:
 
     health = None
 
+    def _record(self, record, metrics: Dict[str, torch.Tensor],
+                extra: Optional[dict]) -> None:
+        """The end of a step's body: fence on its metrics, number its
+        row by the first sub-network's optimizer step, add `extra`."""
+        record.fence_on(metrics)
+        record.step = int(next(iter(self.states().values())).step)
+        record.extra.update(extra or {})
+
     def states(self) -> Dict[str, TrainState]:
         raise NotImplementedError
 
@@ -196,10 +216,14 @@ class DcganTrainer(_GanBase):
                  g_tx: Callable[[nn.Module], torch.optim.Optimizer],
                  d_tx: Callable[[nn.Module], torch.optim.Optimizer],
                  latent_dim: int = 100, image_shape=(28, 28, 1),
-                 device: DeviceLike = None, health=None):
+                 device: DeviceLike = None, health=None, journal=None,
+                 registry=None, telemetry_sample_every: int = 32):
         self.device = resolve_device(device)
         self.latent_dim = latent_dim
         self.health = health
+        self.clock = StepClock(registry=registry, journal=journal,
+                               name="gan",
+                               sample_every=telemetry_sample_every)
         self.g_state = create_train_state(
             generator, g_tx, torch.zeros((2, latent_dim)),
             device=self.device)
@@ -214,17 +238,19 @@ class DcganTrainer(_GanBase):
         return {"g": self.g_state, "d": self.d_state}
 
     def train_step(self, real_images, noise=None,
-                   dropout_masks: Optional[Sequence[Sequence]] = None
+                   dropout_masks: Optional[Sequence[Sequence]] = None,
+                   extra: Optional[dict] = None
                    ) -> Dict[str, torch.Tensor]:
         """One G and one D update on `real_images` (B, H, W, C); returns
         {"g_loss", "d_loss"} as device scalars. `noise` (B, latent) and
         `dropout_masks` (three D applications x D's Dropouts) replace
-        the draws."""
+        the draws; `extra` rides the step's journal row."""
         g, d = self.g_state.model, self.d_state.model
         g.train()
         d.train()
         with span("gan/step"), torch.profiler.record_function(
-                GAN_STEP_RANGE):
+                GAN_STEP_RANGE), self.clock.step(
+                batch_size=len(real_images)) as rec:
             real = torch.as_tensor(real_images).to(self.device,
                                                    non_blocking=True)
             self._gen.manual_seed(dropout_step_seed(
@@ -246,8 +272,10 @@ class DcganTrainer(_GanBase):
             (d_grads,) = _grads([self.d_state], d_loss)
             _apply(self.g_state, g_grads)
             _apply(self.d_state, d_grads)
+            metrics = {"g_loss": g_loss.detach(), "d_loss": d_loss.detach()}
+            self._record(rec, metrics, extra)
         self._beat()
-        return {"g_loss": g_loss.detach(), "d_loss": d_loss.detach()}
+        return metrics
 
 
 class CycleGanTrainer(_GanBase):
@@ -257,9 +285,13 @@ class CycleGanTrainer(_GanBase):
                  disc_a: nn.Module, disc_b: nn.Module, g_tx_fn: Callable,
                  d_tx_fn: Callable, image_shape=(256, 256, 3),
                  pool_size: int = 50, device: DeviceLike = None,
-                 health=None):
+                 health=None, journal=None, registry=None,
+                 telemetry_sample_every: int = 32):
         self.device = resolve_device(device)
         self.health = health
+        self.clock = StepClock(registry=registry, journal=journal,
+                               name="gan",
+                               sample_every=telemetry_sample_every)
         sample = torch.zeros((2, *image_shape))
 
         def state(model, tx):
@@ -313,13 +345,15 @@ class CycleGanTrainer(_GanBase):
             _apply(state, grads)
         return {"d_loss": loss.detach()}
 
-    def train_step(self, real_a, real_b) -> Dict[str, torch.Tensor]:
+    def train_step(self, real_a, real_b, extra: Optional[dict] = None
+                   ) -> Dict[str, torch.Tensor]:
         """G step, pool query, D step; returns the G and D metrics as
-        device scalars."""
+        device scalars. `extra` rides the step's journal row."""
         for s in self.states().values():
             s.model.train()
         with span("gan/step"), torch.profiler.record_function(
-                GAN_STEP_RANGE):
+                GAN_STEP_RANGE), self.clock.step(
+                batch_size=len(real_a)) as rec:
             real_a = torch.as_tensor(real_a).to(self.device,
                                                 non_blocking=True)
             real_b = torch.as_tensor(real_b).to(self.device,
@@ -337,5 +371,7 @@ class CycleGanTrainer(_GanBase):
             with span("gan/d_step"), torch.profiler.record_function(
                     GAN_D_STEP_RANGE):
                 d_metrics = self._d_step(real_a, real_b, fake_a, fake_b)
+            metrics = {**g_metrics, **d_metrics}
+            self._record(rec, metrics, extra)
         self._beat()
-        return {**g_metrics, **d_metrics}
+        return metrics

@@ -31,12 +31,26 @@ refused (trainer.py:300-320).
 
 The epoch loop `fit` follows trainer.py:891-993 and `_run_epoch`,
 `_single_step_and_log` and `_post_epoch` follow :1158-1250 and
-:1313-1373: each step's metrics are read on the host once (as the
-reference floats them for its loggers) and go to the train
-`MetricLogger`, the journal (a `step` event with the loss, grad norm and
-lr), the health monitor and the preemption poll; each epoch
-ends with the divergence check (a non-finite mean loss raises
-FloatingPointError unless an explicit warn policy relaxes it),
+:1313-1373. Each step runs inside a StepClock record (obs/stepclock.py,
+`self.clock`, on the Trainer's registry and journal, its fence every
+`telemetry_sample_every` steps): `_run_epoch` iterates
+`clock.iter_data` around the prefetcher, so the data wait is the wait
+for a batch; the with-block issues the step (dispatch_ms) and, on a
+sampled step, synchronizes the step's stream (sync_ms). Then the host
+reads the step's metrics once (as the reference floats them for its
+loggers), and only then commits the record: the reference's blocking
+fetch there is `int(state.step)`, the port's step is a host int, and
+the `float()` is what waits for the device, so step_time_ms covers the
+device's work of the step on every step, sampled or not. The commit
+writes the journal's one `step` row a step: StepClock's fields,
+`metrics` {loss, lr}, and the port's epoch, examples, lr, loss,
+grad_norm and skipped. The read metrics then go to the train
+`MetricLogger` (with the clock's data wait and rate), the health monitor
+and the preemption poll. Under the skip_step health policy `train_step`
+reads the finiteness flag on the host, so there dispatch_ms includes
+the device's step. Each epoch ends with the divergence check (a
+non-finite mean loss raises FloatingPointError unless an explicit warn
+policy relaxes it),
 `evaluate` (the val logger and a journal `eval` event), the plateau and
 the save cadence. Checkpoints (`_save_checkpoint`, `resume`,
 `_resume_data_state`, :994-1026, :1375-1464) carry the model, the
@@ -51,13 +65,15 @@ never swapped), and the shadow is saved by a sibling manager under
 parallel/multihost.py PreemptionGuard: on SIGTERM the step in flight
 finishes, the state is saved (`_preempt_save`), the run is marked for
 requeue (obs/flight.py `request_requeue`, which train_cli turns into
-exit code 75) and fit returns.
+exit code 75) and fit returns. `close()` flushes the loggers'
+TensorBoard writers (their owner closes them).
 
 Spans (obs/trace.py, no-ops without an installed Tracer): `train/epoch`
-around each epoch's steps, `train/step` around each step's issue and
-step read (with `step` in its args), `eval`, `checkpoint/save` and
-`checkpoint/restore`. A span brackets host time only: on the card a
-step's span is the time the host took to issue it.
+around each epoch's steps, `train/step` around each step's issue, its
+metrics' read and the clock's commit (with `step` in its args), `eval`,
+`checkpoint/save` and `checkpoint/restore`. A span brackets host time
+only: on the card a step's span is the time the host took to issue it
+and to wait for its metrics.
 
 The non-finite skip (health policy `skip_step`, trainer.py:614-627)
 keeps the whole pre-step state when the loss or the gradient norm is
@@ -96,8 +112,7 @@ there; the port compiles no step, so the step itself is unchanged.
 Not ported yet, and refused by the constructor when set: meshes and
 sharding rules, multistep supersteps, profiler windows (`profile_dir`,
 `autoprof`), checkify, the backend and host supervisors, and telemetry.
-StepClock, goodput and alerts wait for obs/stepclock.py and their
-planes.
+Goodput and alerts wait for their planes.
 """
 from __future__ import annotations
 
@@ -121,6 +136,7 @@ from deep_vision_tpu_torch.data.device_prefetch import (
 from deep_vision_tpu_torch.nn.layers import Dropout
 from deep_vision_tpu_torch.obs import flight
 from deep_vision_tpu_torch.obs.registry import get_registry
+from deep_vision_tpu_torch.obs.stepclock import StepClock
 from deep_vision_tpu_torch.obs.trace import span
 from deep_vision_tpu_torch.parallel.multihost import PreemptionGuard
 from deep_vision_tpu_torch.train.ema import EmaParams
@@ -152,7 +168,8 @@ class Trainer:
     """loss_fn(outputs, batch) -> (loss, metrics dict). `tx` builds the
     optimizer from the model (`train.optimizers.build_optimizer`);
     `lr_schedule` (step -> lr) defaults to its `schedule`, if any;
-    `device_prefetch` > 0 places that many batches ahead in `fit`."""
+    `device_prefetch` > 0 places that many batches ahead in `fit`;
+    `telemetry_sample_every` is the StepClock's fence cadence."""
 
     def __init__(self, model: nn.Module,
                  tx: Callable[[nn.Module], torch.optim.Optimizer],
@@ -171,7 +188,8 @@ class Trainer:
                  checkify_errors: bool = False, autoprof=None,
                  multistep: int = 1, backend_supervisor=None,
                  host_supervisor=None, executable_cache=None,
-                 sharding_rules=None, telemetry=None):
+                 sharding_rules=None, telemetry=None,
+                 telemetry_sample_every: int = 16):
         unported = [k for k, v in dict(
             mesh=mesh, rng=rng, profile_dir=profile_dir, autoprof=autoprof,
             backend_supervisor=backend_supervisor,
@@ -196,6 +214,11 @@ class Trainer:
         self.plateau_metric = plateau_metric
         self.journal = journal
         self.registry = registry or get_registry()
+        # the step-time breakdown, its registry families and the
+        # journal's step rows
+        self.clock = StepClock(registry=self.registry, journal=journal,
+                               name="train",
+                               sample_every=telemetry_sample_every)
         self.health = health
         self._skip_nonfinite = bool(health is not None
                                     and health.skip_nonfinite)
@@ -379,6 +402,9 @@ class Trainer:
         self._closed = True
         if self.health is not None:
             self.health.stop()
+        for lg in (self.logger, self.eval_logger):
+            if lg.tb is not None:
+                lg.tb.flush()
         if self.ckpt is not None:
             self.ckpt.wait()
         if self._ema_ckpt is not None:
@@ -465,7 +491,7 @@ class Trainer:
         data = train_data_fn()
         if self.prefetcher is not None:
             data = self.prefetcher(data)
-        for batch in data:
+        for batch in self.clock.iter_data(data):
             if self._single_step_and_log(batch, epoch) == "preempted":
                 # no end_epoch: the re-run epoch writes its own summary
                 return "preempted", None
@@ -474,27 +500,34 @@ class Trainer:
     def _single_step_and_log(self, batch, epoch: int):
         n = self._rows(batch)
         with span("train/step", epoch=epoch) as sp:
-            metrics = self.train_step(batch)
+            with self.clock.step(batch_size=n, auto_commit=False) as rec:
+                metrics = self.train_step(batch)
+                rec.fence_on(metrics)
             opt_step = self.state.step
+            lr = self.lr_at(opt_step)
             sp.set(step=opt_step)
-        lr = self.lr_at(opt_step)
-        # one host read for the loggers and the health monitor
-        metrics_f = {k: float(v) for k, v in metrics.items()}
-        loss_f = metrics_f.get("loss")
-        grad_norm_f = metrics_f.get("grad_norm")
-        skipped = (self._skip_nonfinite
-                   and metrics_f.get("skipped", 0.0) > 0)
+            # the one host read for the record, the loggers and the
+            # health monitor; it waits for the device, so it goes before
+            # the commit, inside step_time_ms
+            metrics_f = {k: float(v) for k, v in metrics.items()}
+            loss_f = metrics_f.get("loss")
+            grad_norm_f = metrics_f.get("grad_norm")
+            skipped = (self._skip_nonfinite
+                       and metrics_f.get("skipped", 0.0) > 0)
+            rec.commit(step=opt_step,
+                       metrics={"loss": loss_f, "lr": lr}
+                       if "loss" in metrics_f else {"lr": lr},
+                       extra=dict(epoch=epoch, examples=n, lr=lr,
+                                  loss=loss_f, grad_norm=grad_norm_f,
+                                  skipped=skipped))
         if skipped:
             # the discarded update's loss and gradients stay out of the
             # epoch means; the health event carries the record
             metrics_f = {k: v for k, v in metrics_f.items()
                          if math.isfinite(v)}
         self.logger.log_step(opt_step, metrics_f, batch_size=n, epoch=epoch,
-                             lr=lr)
-        if self.journal is not None:
-            self.journal.step(opt_step, epoch=epoch, examples=n, lr=lr,
-                              loss=loss_f, grad_norm=grad_norm_f,
-                              skipped=skipped)
+                             lr=lr, data_wait_ms=rec.data_wait_ms,
+                             examples_per_sec=rec.examples_per_sec)
         if self.health is not None:
             self.health.check_step(opt_step, loss=loss_f,
                                    grad_norm=grad_norm_f, skipped=skipped)

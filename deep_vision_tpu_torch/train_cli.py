@@ -56,6 +56,17 @@ without a clean close, and none on a clean exit; `DVT_LOCKSMITH=1`
 arms the lock-order sanitizer, whose findings land in the journal as
 `lock_order_violation` / `lock_contention` events.
 
+The per-step record (obs/stepclock.py): every training step's journal
+`step` row carries StepClock's breakdown (step_time_ms, data_wait_ms,
+dispatch_ms, examples_per_sec; sync_ms, recompiles, hbm_bytes and
+hbm_peak_bytes on the steps the fence samples, every
+`--telemetry-sample-every`, 16 by default, for the Trainer and the GAN
+trainers alike). `--tensorboard-dir DIR` writes TensorBoard
+scalars through both loggers (core/tensorboard.py); `--metrics-export
+PATH` writes the metrics registry as Prometheus text after the run;
+`--summary` prints the parameter table before training (one for the
+Trainer's model, one each for a GAN's G and D).
+
 Float32 precision: the CLI keeps PyTorch's defaults, which no registered
 config overrides, and prints them at start-up: cuDNN convolutions may
 use TF32 (`torch.backends.cudnn.allow_tf32`, True by default) and cuBLAS
@@ -380,12 +391,17 @@ def build_trainer(cfg: ExperimentConfig, train_fn, ckpt_dir: Optional[str],
                   health=None, device_prefetch: int = 0,
                   opt_state_dtype: Optional[str] = None, data_loader=None,
                   steps_per_epoch: Optional[int] = None,
-                  device: DeviceLike = None, executable_cache=None):
+                  device: DeviceLike = None, executable_cache=None,
+                  tb_dir: Optional[str] = None,
+                  telemetry_sample_every: int = 16):
     """The reference's build_trainer, on `device` (default cuda, raising
     without a card). Detection trains on `yolo_train_loss_fn` with the
     grids of the input size (s/32, s/16, s/8), pose on
     `hourglass_loss_fn`, CenterNet on `centernet_loss_fn`; the GAN tasks
-    raise ValueError (`build_gan_trainer` builds theirs)."""
+    raise ValueError (`build_gan_trainer` builds theirs). With `tb_dir`,
+    both loggers write to one TensorBoard `SummaryWriter` there, which
+    the caller closes (`trainer.logger.tb`); `telemetry_sample_every` is
+    the StepClock's fence cadence."""
     from deep_vision_tpu_torch.core.checkpoint import CheckpointManager
     from deep_vision_tpu_torch.core.metrics import MetricLogger
     from deep_vision_tpu_torch.losses import (
@@ -425,9 +441,14 @@ def build_trainer(cfg: ExperimentConfig, train_fn, ckpt_dir: Optional[str],
     plateau = ReduceLROnPlateau(**cfg.plateau) if cfg.plateau else None
     ckpt = CheckpointManager(ckpt_dir, journal=journal) if ckpt_dir else None
     sample = torch.ones((2, *model_input_shape(cfg)), dtype=torch.float32)
-    logger = MetricLogger(name="train", registry=get_registry(),
-                          journal=journal)
-    eval_logger = MetricLogger(name="val", print_every=0,
+    tb = None
+    if tb_dir:
+        from deep_vision_tpu_torch.core.tensorboard import SummaryWriter
+
+        tb = SummaryWriter(tb_dir)
+    logger = MetricLogger(tb_writer=tb, name="train",
+                          registry=get_registry(), journal=journal)
+    eval_logger = MetricLogger(tb_writer=tb, name="val", print_every=0,
                                registry=get_registry())
     return Trainer(model, tx, loss_fn, sample, device=dev,
                    lr_schedule=lr if callable(lr) else None,
@@ -436,7 +457,8 @@ def build_trainer(cfg: ExperimentConfig, train_fn, ckpt_dir: Optional[str],
                    checkpoint_manager=ckpt, logger=logger,
                    eval_logger=eval_logger, ema_decay=ema_decay,
                    journal=journal, health=health, data_loader=data_loader,
-                   executable_cache=executable_cache)
+                   executable_cache=executable_cache,
+                   telemetry_sample_every=telemetry_sample_every)
 
 
 #: the tasks trained by train/gan.py's trainers, not by Trainer
@@ -444,14 +466,17 @@ GAN_TASKS = ("dcgan", "cyclegan")
 
 
 def build_gan_trainer(cfg: ExperimentConfig, health=None,
-                      device: DeviceLike = None):
+                      device: DeviceLike = None, journal=None,
+                      telemetry_sample_every: int = 32):
     """The reference's build_gan_trainer (train_cli.py:435-466): a
     DcganTrainer or a CycleGanTrainer on `device` (default cuda), each
     sub-network with its own optimizer from the config's (name, learning
     rate and the rest), and seeded weights (seeds 0, 1, ... in the
     reference's order of sub-networks). As in the reference, the
     config's `schedule` is not applied: the learning rate stays the
-    config's."""
+    config's. Each trainer's StepClock (fenced every
+    `telemetry_sample_every` steps) writes its step rows to
+    `journal`."""
     from deep_vision_tpu_torch.models import get_model
     from deep_vision_tpu_torch.train import build_optimizer
     from deep_vision_tpu_torch.train.gan import CycleGanTrainer, DcganTrainer
@@ -471,14 +496,16 @@ def build_gan_trainer(cfg: ExperimentConfig, health=None,
         return DcganTrainer(
             model("dcgan_generator", 0), model("dcgan_discriminator", 1),
             tx_fn(), tx_fn(), image_shape=cfg.input_shape, device=dev,
-            health=health)
+            health=health, journal=journal,
+            telemetry_sample_every=telemetry_sample_every)
     if cfg.task != "cyclegan":
         raise ValueError(f"task {cfg.task!r} has no GAN trainer")
     return CycleGanTrainer(
         model("cyclegan_generator", 0), model("cyclegan_generator", 1),
         model("cyclegan_discriminator", 2),
         model("cyclegan_discriminator", 3), tx_fn, tx_fn,
-        image_shape=cfg.input_shape, device=dev, health=health)
+        image_shape=cfg.input_shape, device=dev, health=health,
+        journal=journal, telemetry_sample_every=telemetry_sample_every)
 
 
 def run_eval_only(cfg: ExperimentConfig, trainer, eval_fn) -> dict:
@@ -695,6 +722,16 @@ def make_parser() -> argparse.ArgumentParser:
                         "kernels, record reader) load from this "
                         "content-addressed store, and a miss is compiled "
                         "into it, so a restarted process pays no compiler")
+    p.add_argument("--tensorboard-dir", default=None)
+    p.add_argument("--metrics-export", default=None, metavar="PATH",
+                   help="write the metrics registry as Prometheus text "
+                        "exposition format at the end of the run")
+    p.add_argument("--telemetry-sample-every", type=int, default=16,
+                   help="stream-synchronize fence cadence for the "
+                        "step-time breakdown (obs/stepclock.py)")
+    p.add_argument("--summary", action="store_true",
+                   help="print the per-parameter model summary table "
+                        "(torchsummary analog) before training")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where to train (default: the card)")
     return p
@@ -765,11 +802,31 @@ def main(argv: Optional[List[str]] = None) -> int:
         opt_state_dtype=(None if args.opt_state_dtype == "float32"
                          else args.opt_state_dtype),
         data_loader=data_loader, device=device,
-        executable_cache=_make_excache(args, journal))
+        executable_cache=_make_excache(args, journal),
+        tb_dir=args.tensorboard_dir,
+        telemetry_sample_every=args.telemetry_sample_every)
+    try:
+        _train_or_evaluate(args, cfg, trainer, train_fn, eval_fn, journal)
+    finally:
+        if trainer.logger.tb is not None:
+            trainer.logger.tb.close()
+    _finish(device, journal, tracer=tracer, flight=flight,
+            sanitizer=sanitizer, metrics_export=args.metrics_export)
+    return _exit_code()
+
+
+def _train_or_evaluate(args, cfg: ExperimentConfig, trainer, train_fn,
+                       eval_fn, journal) -> None:
+    """main's run of a built Trainer: the parameter count (and with
+    --summary the table), the resume, then training or --eval-only."""
+    from deep_vision_tpu_torch.core.summary import count_params, model_summary
+
     if journal is not None:
         journal.add_closer(trainer.close)
-    from deep_vision_tpu_torch.core.summary import count_params
-
+    if args.summary:
+        # the module build_trainer built, not a rebuild
+        print(model_summary(trainer.model, torch.ones(
+            (2, *model_input_shape(cfg)), dtype=torch.float32)), flush=True)
     print(f"model {cfg.model}: {count_params(trainer.model):,} trainable "
           f"params", flush=True)
     start_epoch = 0
@@ -783,9 +840,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         trainer.fit(train_fn, eval_fn, epochs=cfg.epochs,
                     start_epoch=start_epoch, eval_first=args.eval_first)
     trainer.close()
-    _finish(device, journal, tracer=tracer, flight=flight,
-            sanitizer=sanitizer)
-    return _exit_code()
 
 
 def _exit_code() -> int:
@@ -797,10 +851,11 @@ def _exit_code() -> int:
 
 
 def _finish(device: torch.device, journal, tracer=None, flight=None,
-            sanitizer=None) -> None:
+            sanitizer=None, metrics_export: Optional[str] = None) -> None:
     """Print (and journal) the peak device memory; close the tracer (its
     file is written), disarm this run's lock sanitizer (its queued rows
-    reach the journal), close the journal, and disarm the flight
+    reach the journal), write the metrics registry to `metrics_export`
+    (Prometheus text), close the journal, and disarm the flight
     recorder: a clean exit leaves no bundle."""
     from deep_vision_tpu_torch.obs import locksmith
 
@@ -819,6 +874,11 @@ def _finish(device: torch.device, journal, tracer=None, flight=None,
               "chrome://tracing)", flush=True)
     if sanitizer is not None and locksmith.get_sanitizer() is sanitizer:
         locksmith.disarm()
+    if metrics_export:
+        from deep_vision_tpu_torch.obs.registry import get_registry
+
+        if get_registry().write_prometheus(metrics_export):
+            print(f"metrics exported to {metrics_export}", flush=True)
     if journal is not None:
         journal.close()
     if flight is not None:
@@ -835,11 +895,12 @@ def gan_main(parser, args, cfg: ExperimentConfig, train_fn, ckpt_dir: str,
     the state is saved at the next step boundary, marked so that a
     resume re-runs the interrupted epoch, and the run ends with the
     requeue code (75).
-    Every step journals a `step` event (the step, the epoch, its images
-    and the first sub-network's learning rate); the metrics stay on the
-    device until the epoch ends."""
+    Every step journals the trainer's StepClock row (its timing, the
+    first sub-network's optimizer step, the epoch, its images and that
+    sub-network's learning rate); the metrics stay on the device until
+    the epoch ends. --summary prints G's and D's tables."""
     from deep_vision_tpu_torch.core.checkpoint import CheckpointManager
-    from deep_vision_tpu_torch.core.summary import count_params
+    from deep_vision_tpu_torch.core.summary import count_params, model_summary
     from deep_vision_tpu_torch.obs import flight as flight_mod
     from deep_vision_tpu_torch.obs import locksmith
     from deep_vision_tpu_torch.parallel.multihost import PreemptionGuard
@@ -862,13 +923,26 @@ def gan_main(parser, args, cfg: ExperimentConfig, train_fn, ckpt_dir: str,
         from deep_vision_tpu_torch.core import build
 
         build.attach_cache(excache)
-    trainer = build_gan_trainer(cfg, health=health, device=device)
+    trainer = build_gan_trainer(
+        cfg, health=health, device=device, journal=journal,
+        telemetry_sample_every=args.telemetry_sample_every)
     names = ({"G": "g", "D": "d"} if cfg.task == "dcgan" else
              {"G_ab": "gab", "G_ba": "gba", "D_a": "da", "D_b": "db"})
     states = trainer.states()
     print(f"model {cfg.model}: " + " ".join(
         f"{k}={count_params(states[v].model):,}" for k, v in names.items())
         + " trainable params", flush=True)
+    if args.summary:
+        img = torch.ones((2, *cfg.input_shape), dtype=torch.float32)
+        if cfg.task == "dcgan":
+            parts = {"G": (trainer.g_state,
+                           torch.ones((2, trainer.latent_dim))),
+                     "D": (trainer.d_state, img)}
+        else:
+            parts = {"G": (trainer.gab, img), "D": (trainer.da, img)}
+        for k, (state, sample) in parts.items():
+            print(f"-- {k} --")
+            print(model_summary(state.model, sample), flush=True)
     save_every = 2 if cfg.task == "cyclegan" else 1
     ckpt = CheckpointManager(ckpt_dir,
                              max_to_keep=3 if cfg.task == "dcgan" else None,
@@ -886,22 +960,22 @@ def gan_main(parser, args, cfg: ExperimentConfig, train_fn, ckpt_dir: str,
         for epoch in range(start_epoch, cfg.epochs):
             collected: list = []
             interrupted = False
-            for batch_i, batch in enumerate(train_fn()):
+            for batch_i, batch in enumerate(
+                    trainer.clock.iter_data(train_fn())):
                 if guard.agreed(step=batch_i):
                     interrupted = True
                     break
                 images = batch["image"]
+                extra = dict(epoch=epoch, examples=len(images),
+                             lr=first.optimizer.param_groups[0]["lr"])
                 if cfg.task == "dcgan":
-                    metrics = trainer.train_step(images)
+                    metrics = trainer.train_step(images, extra=extra)
                 else:
                     half = len(images) // 2 or 1
                     metrics = trainer.train_step(images[:half],
-                                                 images[half:half * 2])
+                                                 images[half:half * 2],
+                                                 extra=extra)
                 collected.append(metrics)
-                if journal is not None:
-                    journal.step(first.step, epoch=epoch,
-                                 examples=len(images),
-                                 lr=first.optimizer.param_groups[0]["lr"])
             if collected and not interrupted:
                 summary = {k: sum(float(m[k]) for m in collected)
                            / len(collected) for k in sorted(collected[0])}
@@ -933,7 +1007,7 @@ def gan_main(parser, args, cfg: ExperimentConfig, train_fn, ckpt_dir: str,
     if health is not None:
         health.stop()
     _finish(device, journal, tracer=tracer, flight=flight,
-            sanitizer=sanitizer)
+            sanitizer=sanitizer, metrics_export=args.metrics_export)
     return _exit_code()
 
 

@@ -246,25 +246,39 @@ def refusal_marker_retires_after_the_fix(mod, root):
     stale = mod.Rendezvous(root, "flaky", **FAST, client_version="v1")
     with pytest.raises(mod.RendezvousRefused):
         stale.join(expect_hosts=2, timeout_s=10)
-    fixed = {}
-
-    def rejoin():
-        r = mod.Rendezvous(root, "flaky", **FAST, client_version="v2")
-        fixed["view"] = r.join(expect_hosts=2, timeout_s=20)
-        fixed["r"] = r
-
-    inc = {}
-    tw = threading.Thread(target=rejoin)
-    tw.start()
-    ti = threading.Thread(target=lambda: inc.update(
-        view=incumbent.join(expect_hosts=2, timeout_s=20)))
-    ti.start()
-    tw.join(30)
-    ti.join(30)
-    hosts = sorted(fixed["view"].hosts)
+    # the refused process is gone before its relaunch. The reference's
+    # refused object would beat on (the port's has left already): see
+    # test_a_refused_host_drops_its_lease
+    stale.leave()
+    fixed, inc = rejoin_beside_the_incumbent(mod, root, incumbent, 20)
     incumbent.leave()
     fixed["r"].leave()
-    return {"hosts": hosts, "incumbent": sorted(inc["view"].hosts)}
+    for who, got in (("flaky", fixed), ("good", inc)):
+        assert "view" in got, f"{who}'s join: {got.get('error')!r}"
+    return {"hosts": sorted(fixed["view"].hosts),
+            "incumbent": sorted(inc["view"].hosts)}
+
+
+def rejoin_beside_the_incumbent(mod, root, incumbent, timeout_s):
+    """"flaky" at v2 and the incumbent join at once, on two threads;
+    -> ({"view" or "error", "r": the new Rendezvous}, {"view" or
+    "error"}): a join that raised (a timeout, a refusal) says so."""
+    fixed, inc = {}, {}
+
+    def join(out, r):
+        try:
+            out["view"] = r.join(expect_hosts=2, timeout_s=timeout_s)
+        except Exception as e:
+            out["error"] = e
+
+    fixed["r"] = mod.Rendezvous(root, "flaky", **FAST, client_version="v2")
+    ts = [threading.Thread(target=join, args=(fixed, fixed["r"])),
+          threading.Thread(target=join, args=(inc, incumbent))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout_s + 10)
+    return fixed, inc
 
 
 def leader_excludes_skewed_member(mod, root):
@@ -497,3 +511,57 @@ def test_a_slow_reader_does_not_age_a_live_lease(tmp_path, monkeypatch):
         monkeypatch.setattr(mod, "_read_json", read)
     assert gaps["port"] < 0.3
     assert gaps["ref"] > 0.7  # two records read, each after a 0.4 s wait
+
+
+def test_a_refused_host_drops_its_lease(tmp_path, monkeypatch):
+    """A host refused by its standing marker raises; the reference's
+    Rendezvous keeps beating its old member record then, the port's
+    leaves. The refusal scenario with the refused object left running
+    and each rejoining host's first member sweep held until that object
+    has rewritten flaky's v1 record (the interleaving a loaded host
+    makes by chance, as in a loaded test run): with both records 1-vs-1, the
+    v1 record is the earliest joiner and so the version reference, the
+    incumbent refuses itself and flaky's ack barrier times out. The port
+    forms the world."""
+    got = {}
+    for impl, mod in IMPLS.items():
+        root = str(tmp_path / impl)
+        sweep = mod.Rendezvous.members
+        held = set()
+
+        def members(self, _sweep=sweep, _held=held):
+            if self.versions.get("client_version") == "v2" \
+                    and self.host not in _held:
+                _held.add(self.host)
+                path = os.path.join(self.root, "members", "flaky.json")
+                deadline = time.time() + 4 * FAST["heartbeat_s"]
+                while time.time() < deadline:
+                    rec = mod._read_json(path) or {}
+                    if rec.get("client_version") == "v1":
+                        break
+                    time.sleep(0.002)
+            return _sweep(self)
+
+        incumbent = mod.Rendezvous(root, "good", **FAST,
+                                   client_version="v2")
+        incumbent.start_heartbeat()
+        stale = mod.Rendezvous(root, "flaky", **FAST, client_version="v1")
+        with pytest.raises(mod.RendezvousRefused):
+            stale.join(expect_hosts=2, timeout_s=10)
+        beating = stale._hb_thread is not None \
+            and stale._hb_thread.is_alive()
+        monkeypatch.setattr(mod.Rendezvous, "members", members)
+        fixed, inc = rejoin_beside_the_incumbent(mod, root, incumbent, 3.0)
+        monkeypatch.setattr(mod.Rendezvous, "members", sweep)
+        for r in (incumbent, fixed["r"], stale):
+            r.leave()
+        got[impl] = {
+            "beating": beating,
+            "flaky": sorted(fixed["view"].hosts) if "view" in fixed
+            else type(fixed["error"]).__name__,
+            "good": sorted(inc["view"].hosts) if "view" in inc
+            else getattr(inc["error"], "kind", type(inc["error"]).__name__)}
+    assert got["port"] == {"beating": False, "flaky": ["flaky", "good"],
+                           "good": ["flaky", "good"]}
+    assert got["ref"] == {"beating": True, "flaky": "RendezvousTimeout",
+                          "good": ref_rdzv.REFUSAL_VERSION_SKEW}
