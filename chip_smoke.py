@@ -82,7 +82,16 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            its plain version and its times at the fleet's buckets;
            p50/p99 and images/s per model, sheds by reason, the respawn's
            and each swap phase's ms; the kernels line gains
-           `nms[fleet]`;
+           `nms[fleet]`; the pool carries a TelemetryServer
+           (obs/telemetry.py): before the traffic /healthz is 200 with
+           `fleet` and `serve:<rid>` for each replica; a thread scrapes
+           /healthz, /statusz and /metrics at 20 Hz through the death,
+           the respawn and both swaps (each 200 or 503, /statusz and
+           /metrics always 200, never a refused connection, every
+           /metrics body valid); after the respawn /healthz is 200 and
+           every replica `serving` in /statusz; after the swaps (each
+           canary's sources leave with it) /healthz is 200 again; the
+           journal holds the server's `started` and `stopped`;
 4d. procfleet  the process fleet behind its front door:
            ProcReplicaPool(replicas=2, heartbeat_s=1.0) of
            tools/loadgen.py's yolo_fleet_builder (phase 4's YOLOv3, its
@@ -120,7 +129,15 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            and falling loss; the step as fit runs it
            (`_single_step_and_log`: the step, its train/step span, the
            host read of its metrics) timed with a Tracer installed and
-           without, alternated (TRACED_STEPS);
+           without, alternated (TRACED_STEPS); the Trainer's live
+           endpoint (a TelemetryServer it registered with): (a) every
+           route read while a ~300 ms spin queued behind a step still
+           holds the device, each answering 200 before an event recorded
+           after the spin is reached (no handler waits on the device),
+           with its ms; (b) the step as fit runs it in blocks of
+           SCRAPE_BLOCK_STEPS, without and with a 20 Hz scraper of every
+           route (off, on, on, off): the step's ms (CUDA events) both
+           ways and the scrapes' p50 and p99;
            then one float32 step at batch 8 on the card (kernels)
            against the same step on the CPU (plain versions); then
            ViT-S/16 at 512x512 (bf16, batch 64, AdamW + warmup-cosine)
@@ -166,8 +183,16 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            epoch in [0.9, 1.0], every step's and epoch's loss in the
            event file, the export's train_step_ms_count, the table's
            total equal to the count line; the median split of a step
-           printed), then the StepClock's own host cost
-           (clock_host_cost); under DVT_DETERMINISTIC=1, run A
+           printed) and --telemetry-port 0, its endpoint polled at 10 Hz
+           from a thread here through the discovery file under its
+           checkpoint dir (run_t_telemetry: every /metrics body valid,
+           every /healthz 200, /statusz's train.step never decreasing
+           and reaching the journal's last step, p50/p95 in its perf
+           section once a step has landed, the port's `obs_poll --once`
+           exiting 0 mid-run, the file gone after the run and one
+           `started` and one `stopped` row at the bound port; the polls'
+           p50/p99 beside the step's median), then the StepClock's own
+           host cost (clock_host_cost); under DVT_DETERMINISTIC=1, run A
            trains 2 epochs and run B 1 epoch, then `-c` to 2 in a fresh
            process: B's second epoch must read A's batches (checksums
            from a sitecustomize hook) and its final checkpoint must equal
@@ -253,7 +278,10 @@ Phases (any failure exits non-zero; nothing is caught and logged away):
            hook, the GAN train runs with --metrics-export and
            --telemetry-sample-every 2: every step row carries the
            `gan` StepClock's fields, the even steps its fence and device
-           memory, and the export gan_steps_total;
+           memory, and the export gan_steps_total; cyclegan's train
+           run with --telemetry-port 0 and --health-policy warn, its
+           /healthz polled at 10 Hz (200, the `train` check only) and
+           its discovery file gone after it;
            the kernels line gains `bn_moments_*[hourglass_mpii]`,
            `[centernet_coco]` and `[dcgan_mnist]`;
 11. infer  the inference CLI, `deep_vision_tpu_torch.tools.infer.main`
@@ -1517,6 +1545,240 @@ def check_vit_against_cpu(torch, dev):
               f"{e:.3e} > {VIT_CHECK_TOL[kind]}")
 
 
+#: the live telemetry plane (obs/telemetry.py), scraped on runs that
+#: exist already: its routes; phase 5's spin queued behind a step while
+#: each route is read, ~300 ms at the H100's clocks (SPIN_CYCLES' rate);
+#: the scrapers' period (20 Hz; run T's and cyclegan's 10 Hz); phase 5's
+#: steps a block, with the scraper and without, alternated
+TELEMETRY_ROUTES = ("/metrics", "/varz", "/healthz", "/statusz", "/alertz")
+SCRAPE_SLEEP_CYCLES = 500_000_000
+SCRAPE_EVERY_S, CLI_SCRAPE_EVERY_S = 0.05, 0.1
+SCRAPE_BLOCK_STEPS = 10
+#: phase 5 (b)'s scraper in a process of its own, as a monitoring server
+#: scrapes: GETs the routes argv[4:] of argv[1] every argv[2] s until the
+#: file argv[3] exists, touching argv[3] + ".ready" after its first
+#: round; then prints one JSON list of [route, status, ms]
+SCRAPER_CHILD = """
+import json, os, sys, time, urllib.error, urllib.request
+address, every, stop, routes = sys.argv[1], float(sys.argv[2]), \\
+    sys.argv[3], sys.argv[4:]
+out = []
+while not os.path.exists(stop):
+    for r in routes:
+        t = time.perf_counter()
+        try:
+            with urllib.request.urlopen(f"http://{address}{r}",
+                                        timeout=30) as resp:
+                resp.read()
+                code = resp.status
+        except urllib.error.HTTPError as e:
+            code = e.code
+        out.append([r, code, (time.perf_counter() - t) * 1e3])
+    if not os.path.exists(stop + ".ready"):
+        open(stop + ".ready", "w").close()
+    time.sleep(every)
+print(json.dumps(out))
+"""
+
+
+def http_get(address, path, timeout=30.0):
+    """GET http://address/path -> (status, body text, host ms); an HTTP
+    error status returns with its body, a refused connection raises."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(f"http://{address}{path}",
+                                    timeout=timeout) as resp:
+            code, body = resp.status, resp.read().decode("utf-8")
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read().decode("utf-8")
+    return code, body, (time.perf_counter() - t0) * 1e3
+
+
+class TelemetryWatch:
+    """A thread polling a live telemetry endpoint every `every_s`: the
+    server at `address`, or the process whose discovery file appears
+    under `run_dir`. Each poll reads `routes` and is kept as {route:
+    (status, body, ms)}, then handed to `on_poll`. A run_dir watch ends
+    when the file is gone after it was seen; a refused connection is an
+    error unless the file is gone a second later (a run closes its
+    server before it removes the file)."""
+
+    def __init__(self, address=None, run_dir=None, routes=TELEMETRY_ROUTES,
+                 every_s=SCRAPE_EVERY_S, on_poll=None):
+        import threading
+
+        self.address, self.run_dir = address, run_dir
+        self.routes, self.every_s, self.on_poll = routes, every_s, on_poll
+        self.rec = None
+        self.polls, self.errors = [], []
+        self._stop = threading.Event()
+        self._bg = Background(self._run, "telemetry-watch")
+
+    def _gone(self):
+        from deep_vision_tpu_torch.obs.telemetry import read_discovery
+
+        return self.run_dir is not None and not read_discovery(self.run_dir)
+
+    def _run(self):
+        from deep_vision_tpu_torch.obs.telemetry import read_discovery
+
+        while not self._stop.is_set():
+            address = self.address
+            if self.run_dir is not None:
+                recs = read_discovery(self.run_dir)
+                if not recs:
+                    if self.rec is not None:
+                        return
+                    self._stop.wait(0.02)
+                    continue
+                self.rec = self.rec or recs[0]
+                address = f"{recs[0]['host']}:{recs[0]['port']}"
+            try:
+                poll = {r: http_get(address, r) for r in self.routes}
+            except OSError as e:
+                time.sleep(1.0)
+                if self._gone():
+                    return
+                self.errors.append(repr(e))
+                continue
+            self.polls.append(poll)
+            if self.on_poll is not None:
+                self.on_poll(poll)
+            self._stop.wait(self.every_s)
+
+    def stop(self):
+        """Stop polling and join; re-raises what the thread raised."""
+        self._stop.set()
+        self._bg.join()
+        return self
+
+    def codes(self):
+        """{route: {status: polls}}."""
+        out = {}
+        for p in self.polls:
+            for route, (code, _, _) in p.items():
+                out.setdefault(route, {}).setdefault(code, 0)
+                out[route][code] += 1
+        return out
+
+    def quantiles(self):
+        """(p50, p99) of every GET's ms."""
+        ms = [m for p in self.polls for _, _, m in p.values()]
+        return np.percentile(ms, 50), np.percentile(ms, 99)
+
+
+def telemetry_step_phase(torch, trainer, batch, tele, card):
+    """Phase 5: the flagship Trainer's live endpoint. (a) Every route
+    answers while a spin queued behind a step still holds the device
+    (an event recorded after it not yet reached): no handler waits on
+    the device. (b) The step as fit runs it, SCRAPE_BLOCK_STEPS steps a
+    block, without and with a 20 Hz scraper of every route, alternated
+    off, on, on, off: the step's device ms (CUDA events) both ways and
+    the scrapes' p50 and p99."""
+    from deep_vision_tpu_torch.obs.telemetry import validate_prometheus
+
+    t_phase = time.perf_counter()
+    tele.start()
+    trainer.logger.start_epoch()
+    trainer._single_step_and_log(batch, epoch=0)
+    # (a) the step, then the spin, queued; every route read behind them
+    torch.cuda.synchronize()
+    trainer.train_step(batch)
+    torch.cuda._sleep(SCRAPE_SLEEP_CYCLES)
+    done = torch.cuda.Event()
+    done.record()
+    answered = {}
+    for route in TELEMETRY_ROUTES:
+        code, body, ms = http_get(tele.address, route)
+        answered[route] = (code, body, ms, not done.query())
+    t = time.perf_counter()
+    torch.cuda.synchronize()
+    left_ms = (time.perf_counter() - t) * 1e3
+    print("[telemetry] (a) behind a queued step and a ~300 ms spin: "
+          + ", ".join(f"{r} {a[0]} in {a[2]:.3f} ms ({len(a[1])} B)"
+                      for r, a in answered.items())
+          + f"; the device still had {left_ms:.1f} ms of work after the "
+            f"last answer ({card})")
+    for route, (code, body, ms, pending) in answered.items():
+        check(code == 200 and pending, f"{route} answered {code} with the "
+              f"device {'busy' if pending else 'idle'}: a scrape that "
+              "waits on the device")
+    check(validate_prometheus(answered["/metrics"][1]) == [],
+          "the flagship /metrics body does not validate")
+    status = json.loads(answered["/statusz"][1])["status"]
+    check(isinstance(status["train"]["step"], int)
+          and "step_time_ms_p50" in status["perf"],
+          f"the flagship /statusz: {status}")
+    # (b) the step without a scraper, with one on a thread of this
+    # process and with one in a process of its own
+    times = {"off": [], "thread": [], "process": []}
+    gets = {"thread": [], "process": []}
+    tmp = tempfile.mkdtemp()
+    for k, block in enumerate(("off", "thread", "process", "process",
+                               "thread", "off")):
+        watch = child = None
+        if block == "thread":
+            watch = TelemetryWatch(tele.address)
+        elif block == "process":
+            stop = os.path.join(tmp, f"stop{k}")
+            child = subprocess.Popen(
+                [sys.executable, "-c", SCRAPER_CHILD, tele.address,
+                 str(SCRAPE_EVERY_S), stop, *TELEMETRY_ROUTES],
+                stdout=subprocess.PIPE, text=True)
+            deadline = time.perf_counter() + 60
+            while not os.path.exists(stop + ".ready"):
+                check(child.poll() is None
+                      and time.perf_counter() < deadline,
+                      "the scraper process did not start scraping")
+                time.sleep(0.01)
+        pairs = []
+        for _ in range(SCRAPE_BLOCK_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            trainer._single_step_and_log(batch, epoch=0)
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        times[block] += [s.elapsed_time(e) for s, e in pairs]
+        if watch is not None:
+            watch.stop()
+            check(not watch.errors and watch.polls, f"the scraper thread: "
+                  f"{len(watch.polls)} polls, errors {watch.errors[:3]}")
+            gets["thread"] += [(r, c, m) for p in watch.polls
+                               for r, (c, _, m) in p.items()]
+        if child is not None:
+            open(stop, "w").close()
+            out, _ = child.communicate(timeout=60)
+            check(child.returncode == 0, f"the scraper process exited "
+                  f"{child.returncode}")
+            gets["process"] += [tuple(g) for g in json.loads(out)]
+    shutil.rmtree(tmp)
+    for kind, rows in gets.items():
+        check(rows and {c for _, c, _ in rows} == {200},
+              f"the {kind} scraper's statuses: "
+              f"{sorted({c for _, c, _ in rows})}")
+    tele.close()
+    off = statistics.median(times["off"])
+    print(f"[telemetry] (b) the flagship step as fit runs it (CUDA events, "
+          f"median of {len(times['off'])} each), with a 20 Hz scraper of "
+          f"{len(TELEMETRY_ROUTES)} routes: none {off:.3f} ms, "
+          + ", ".join(
+              f"{kind} {statistics.median(times[kind]):.3f} ms "
+              f"({(statistics.median(times[kind]) / off - 1) * 100:+.2f}%; "
+              f"{len(gets[kind])} GETs, p50 "
+              f"{np.percentile([m for _, _, m in gets[kind]], 50):.3f} ms "
+              f"p99 {np.percentile([m for _, _, m in gets[kind]], 99):.3f})"
+              for kind in ("thread", "process"))
+          + f" (a thread of the trainer's process shares its interpreter; "
+            f"a process of its own is how a monitoring server scrapes); "
+            f"phase 5's scrapes {time.perf_counter() - t_phase:.1f} s "
+            f"({card})")
+
+
 def train_phase(torch, trainer, batch, card):
     """Phase 5: the flagship step through the Trainer. Returns the
     bn_act launch counts of its run."""
@@ -2123,6 +2385,10 @@ def fleet_phase(torch, dev, card, yolo, det):
     from deep_vision_tpu_torch.obs.journal import RunJournal, read_journal
     from deep_vision_tpu_torch.obs.locksmith import disarm
     from deep_vision_tpu_torch.obs.registry import Registry
+    from deep_vision_tpu_torch.obs.telemetry import (
+        TelemetryServer,
+        validate_prometheus,
+    )
     from deep_vision_tpu_torch.ops.cuda import build
     from deep_vision_tpu_torch.ops.cuda.bn_act import fused_scale_bias_act
     from deep_vision_tpu_torch.ops.cuda.flash_attention import flash_attention
@@ -2151,15 +2417,30 @@ def fleet_phase(torch, dev, card, yolo, det):
     journal = RunJournal(os.path.join(tmp, "fleet.jsonl"), kind="serve")
     journal.manifest(config={"name": "chip_smoke_fleet", "task": "serving"})
     sanitizer = arm_locksmith(journal)
+    registry = Registry()
+    t_tele = time.perf_counter()  # the plane's own calls on this thread
+    tele = TelemetryServer(port=0, role="serve", registry=registry,
+                           journal=journal, discovery_dir=tmp).start()
     pool = ReplicaPool(fleet_engine_factory(torch, dev, models, det),
                        replicas=FLEET_REPLICAS, journal=journal,
-                       registry=Registry(),
-                       admission=AdmissionController(**FLEET_ADMISSION))
+                       registry=registry,
+                       admission=AdmissionController(**FLEET_ADMISSION),
+                       telemetry=tele)
     pool.start()
     warm = pool.warmup_stats
     print(f"[fleet] {warm['replicas']} replicas warmed {warm['pairs']} "
           f"(model, bucket) pairs in {warm['warmup_ms_total']:.1f} ms "
           f"({card})")
+    t_tele = time.perf_counter() - t_tele
+    t0 = time.perf_counter()
+    names = ["fleet"] + [f"serve:r{i}" for i in range(FLEET_REPLICAS)]
+    code, body, _ = http_get(tele.address, "/healthz")
+    check(code == 200 and sorted(json.loads(body)["checks"]) == names,
+          f"the fleet's /healthz before traffic: {code} {body}")
+    # scraped from here to the drain: the death, the respawn, both swaps
+    watch = TelemetryWatch(tele.address,
+                           routes=("/healthz", "/statusz", "/metrics"))
+    t_tele += time.perf_counter() - t0
     # canaries are mounted inside swap(): keep their engines for the
     # canary batch's NMS check below
     canaries = []
@@ -2199,6 +2480,15 @@ def fleet_phase(torch, dev, card, yolo, det):
         time.sleep(0.005)
     faults.install(None)
     traffic.event = "stream"
+    t0 = time.perf_counter()
+    code, body, _ = http_get(tele.address, "/healthz")
+    _, status, _ = http_get(tele.address, "/statusz")
+    t_tele += time.perf_counter() - t0
+    states = {rid: r["state"] for rid, r in
+              json.loads(status)["status"]["fleet"]["replicas"].items()}
+    check(code == 200 and sorted(json.loads(body)["checks"]) == names
+          and set(states.values()) == {"serving"},
+          f"after the respawn: /healthz {code} {body}, states {states}")
 
     # swap 1: seeded noise on every floating YOLOv3 tensor, promoted
     base = {k: v.clone() for k, v in
@@ -2260,7 +2550,17 @@ def fleet_phase(torch, dev, card, yolo, det):
     fleet_against_cpu(torch, traffic, models, card)
     traffic_s = time.perf_counter() - t_traffic
     report = pool.slo.report()
+    t0 = time.perf_counter()
+    watch.stop()
+    # both canaries gone with their sources: healthy again
+    code, body, _ = http_get(tele.address, "/healthz")
+    t_tele += time.perf_counter() - t0
+    check(code == 200 and sorted(json.loads(body)["checks"]) == names,
+          f"after the swaps: /healthz {code} {body}")
     summary = pool.drain("close")
+    t0 = time.perf_counter()
+    tele.close()
+    t_tele += time.perf_counter() - t0
     launches = greedy_nms.launches - side  # ... and ends here
     others = (fused_scale_bias_act.launches,
               fused_scale_bias_act.backward_launches,
@@ -2303,6 +2603,13 @@ def fleet_phase(torch, dev, card, yolo, det):
           f"burst {FLEET_POSE_BURST / burst_s:.1f}/s, the open-loop "
           f"segment {FLEET_OPEN_LOOP[0] / segment_s:.1f}/s (host clock); "
           f"{traffic.bursts} closed-loop bursts ({card})")
+    codes = watch.codes()
+    p50, p99 = watch.quantiles()
+    print(f"[fleet] telemetry: {len(watch.polls)} scrapes of /healthz, "
+          f"/statusz and /metrics through the death, the respawn and "
+          f"both swaps, statuses {codes}; a GET p50 {p50:.3f} ms p99 "
+          f"{p99:.3f} ms; the plane's own calls on the phase's thread "
+          f"{t_tele:.2f} s ({card})")
     respawn_ms, timelines, lost_rid = fleet_journal_times(rows)
     print(f"[fleet] replica {lost_rid}: replica_lost to replica_recovered "
           f"{respawn_ms:.1f} ms ({card})")
@@ -2360,6 +2667,18 @@ def fleet_phase(torch, dev, card, yolo, det):
         r["event"] == "lock_order_violation" for r in rows),
         f"lock-order violations: {violations}")
     check(len(canaries) == 2, f"{len(canaries)} canaries mounted")
+    check(not watch.errors and len(watch.polls) > 0
+          and all(set(c) <= {200, 503} for c in codes.values())
+          and set(codes["/statusz"]) == set(codes["/metrics"]) == {200},
+          f"the fleet's scrapes: {codes}, errors {watch.errors[:3]}")
+    check(all(validate_prometheus(p["/metrics"][1]) == []
+              for p in watch.polls), "a fleet /metrics body does not "
+          "validate")
+    tele_rows = [(r["outcome"], r["port"]) for r in rows
+                 if r["event"] == "telemetry_server"]
+    check(len(tele_rows) == 2 and [o for o, _ in tele_rows] == [
+        "started", "stopped"] and tele_rows[0][1] == tele_rows[1][1],
+        f"the fleet journal's telemetry_server rows {tele_rows}")
 
     # the canary's batch: NMS against its plain version, then its times
     # at the fleet's buckets
@@ -3781,6 +4100,76 @@ def run_t_record(steps, path, builds, card):
           f"ms/step) ({card})")
 
 
+def run_t_poll(poll, path, polled):
+    """Phase 6: on each poll of run T's endpoint, once a step has
+    landed, the port's `obs_poll --once` against the live run, once, in
+    this process (a child process took longer to start than run T's
+    last steps): (the step, its exit code, its lines) go to `polled`."""
+    from deep_vision_tpu_torch.tools import obs_poll
+
+    code, body, _ = poll["/statusz"]
+    step = (json.loads(body)["status"].get("train", {}).get("step")
+            if code == 200 else None)
+    if polled or step is None:
+        return
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = obs_poll.main(["--run-dir", path("ck_t"), "--once"])
+    polled.append((step, rc, out.getvalue().strip()))
+
+
+def run_t_telemetry(watch, polled, rows, steps, path, t_watch, card):
+    """Phase 6: run T's live endpoint, polled through its discovery file
+    while it ran: every /metrics body validates, every /healthz is 200,
+    /statusz's train.step never decreases and reaches the journal's last
+    step, its perf section has p50/p95 wherever a step has landed, and
+    `obs_poll --once` exited 0 mid-run; after the run the file is gone
+    and the journal holds one `started` and one `stopped` at the bound
+    port."""
+    from deep_vision_tpu_torch.obs.telemetry import (
+        read_discovery,
+        validate_prometheus,
+    )
+
+    check(watch.rec is not None, "run T wrote no discovery file")
+    codes = watch.codes()
+    check(not watch.errors and all(set(c) == {200} for c in codes.values()),
+          f"run T's scrapes: {codes}, errors {watch.errors[:3]}")
+    seq, perf_ok = [], True
+    for p in watch.polls:
+        check(validate_prometheus(p["/metrics"][1]) == [],
+              "a run T /metrics body does not validate")
+        status = json.loads(p["/statusz"][1])["status"]
+        # the server starts before the Trainer registers its sources
+        step = status.get("train", {}).get("step")
+        if step is not None or seq:
+            seq.append(step)
+            perf_ok &= {"step_time_ms_p50", "step_time_ms_p95"} <= set(
+                status["perf"])
+    check(seq and None not in seq and seq == sorted(seq)
+          and seq[-1] == steps[-1]["step"] and perf_ok,
+          f"run T's /statusz steps {seq} (the journal's last "
+          f"{steps[-1]['step']}), perf p50/p95 every time: {perf_ok}")
+    check(len(polled) == 1 and polled[0][1] == 0,
+          f"obs_poll --once against run T: {polled}")
+    check(read_discovery(path("ck_t")) == [],
+          "run T's discovery file outlived the run")
+    tele = [(r["outcome"], r["port"]) for r in rows
+            if r["event"] == "telemetry_server"]
+    check(tele == [("started", watch.rec["port"]),
+                   ("stopped", watch.rec["port"])],
+          f"run T's telemetry_server rows {tele}")
+    p50, p99 = watch.quantiles()
+    print(f"[cli] run T's live endpoint: {len(watch.polls)} polls of "
+          f"/metrics, /statusz and /healthz at {1 / CLI_SCRAPE_EVERY_S:.0f} "
+          f"Hz, steps seen {sorted(set(seq))}; a GET p50 {p50:.3f} ms p99 "
+          f"{p99:.3f} ms, beside run T's step_time_ms median "
+          f"{statistics.median(r['step_time_ms'] for r in steps):.3f}; "
+          f"obs_poll --once, started at step {polled[0][0]}: "
+          f"{polled[0][2]!r}; the watch's join after the run "
+          f"{t_watch:.3f} s ({card})")
+
+
 def clock_host_cost(torch, dev, card):
     """The StepClock's own host cost on the card: us a step from enter
     to commit around an empty body (as the Trainer commits: deferred,
@@ -3840,13 +4229,24 @@ def cli_phase(torch, dev, card, tmp, data, env, det):
     def path(name):
         return os.path.join(tmp, name)
 
-    # the user's run: two epochs, timed, with the per-step record
+    # the user's run: two epochs, timed, with the per-step record, its
+    # live endpoint polled from a thread here through its discovery file
+    polled = []
+    watch = TelemetryWatch(run_dir=path("ck_t"),
+                           routes=("/metrics", "/statusz", "/healthz"),
+                           every_s=CLI_SCRAPE_EVERY_S,
+                           on_poll=lambda poll: run_t_poll(poll, path,
+                                                           polled))
     run_cli(cli_command(data, path("ck_t"), path("t.jsonl"), CLI_EPOCHS,
                         "--summary", "--tensorboard-dir", path("t_tb"),
                         "--metrics-export", path("t.prom"),
-                        "--telemetry-sample-every", str(CLI_SAMPLE_EVERY)),
+                        "--telemetry-sample-every", str(CLI_SAMPLE_EVERY),
+                        "--telemetry-port", "0"),
             dict(env, SMOKE_BATCH_LOG=path("t_batches.json")),
             path("t.log"), "T (2 epochs)")
+    t_watch = time.perf_counter()
+    watch.stop()
+    t_watch = time.perf_counter() - t_watch
     t_rows = read_journal(path("t.jsonl"))
     steps, _ = cli_report(t_rows, "run T", card)
     n_steps = CLI_EPOCHS * CLI_TRAIN_IMAGES // 256
@@ -3854,6 +4254,7 @@ def cli_phase(torch, dev, card, tmp, data, env, det):
           f"{n_steps}")
     hooked = json.load(open(path("t_batches.json")))
     run_t_record(steps, path, hooked["builds"], card)
+    run_t_telemetry(watch, polled, t_rows, steps, path, t_watch, card)
     clock_host_cost(torch, dev, card)
     # the kernels of the path, counted in the CLI process: every
     # BatchNorm of a train step takes its moments, and every fused one
@@ -5365,9 +5766,20 @@ def gan_pose_cli(torch, card, tmp, env):
         ck, journal = path(f"{name}_ck"), path(f"{name}.jsonl")
         prom = path(f"{name}_train.prom")
         base = first + ["--ckpt-dir", ck, "--journal", journal]
+        live, watch = [], None
+        if name == "cyclegan":
+            # the live endpoint, and the health monitor it reports
+            live = ["--telemetry-port", "0", "--health-policy", "warn"]
+            watch = TelemetryWatch(run_dir=ck, routes=("/healthz",),
+                                   every_s=CLI_SCRAPE_EVERY_S)
         _, hooked = run(name, "train", base + [
             "--epochs", str(extra), "--metrics-export", prom,
-            "--telemetry-sample-every", str(CLI_SAMPLE_EVERY)])
+            "--telemetry-sample-every", str(CLI_SAMPLE_EVERY)] + live)
+        if watch is not None:
+            t0 = time.perf_counter()
+            gan_telemetry(watch.stop(), ck, journal, card)
+            print(f"[gan_pose] cyclegan's telemetry checks after its run "
+                  f"{time.perf_counter() - t0:.3f} s ({card})")
         lines, _ = run(name, "resume", base + ["--epochs", str(extra + 1),
                                                 "-c", "auto"])
         check(f"resumed GAN training at epoch {extra}" in lines,
@@ -5435,6 +5847,32 @@ def gan_pose_cli(torch, card, tmp, env):
               f"{name} --eval-only took batch moments")
     gan_runs.join()
     return launches
+
+
+def gan_telemetry(watch, ck, journal, card):
+    """Phase 10: cyclegan's live endpoint, polled through its discovery
+    file: every /healthz 200 with the `train` check (the GAN branch's
+    only source); after the run the file is gone and the journal holds
+    one `started` and one `stopped`."""
+    from deep_vision_tpu_torch.obs.journal import read_journal
+    from deep_vision_tpu_torch.obs.telemetry import read_discovery
+
+    checks = [sorted(json.loads(p["/healthz"][1])["checks"])
+              for p in watch.polls]
+    check(watch.rec is not None and watch.polls and not watch.errors
+          and watch.codes() == {"/healthz": {200: len(watch.polls)}}
+          and all(c == ["train"] for c in checks),
+          f"cyclegan's /healthz: {watch.codes()}, checks {checks[:3]}, "
+          f"errors {watch.errors[:3]}")
+    tele = [(r["outcome"], r["port"]) for r in read_journal(journal)
+            if r["event"] == "telemetry_server"]
+    check(read_discovery(ck) == [] and tele == [
+        ("started", watch.rec["port"]), ("stopped", watch.rec["port"])],
+        f"cyclegan's discovery file and telemetry_server rows {tele}")
+    p50, p99 = watch.quantiles()
+    print(f"[gan_pose] cyclegan's live endpoint: {len(watch.polls)} "
+          f"/healthz polls, 200 with the train check; a GET p50 "
+          f"{p50:.3f} ms p99 {p99:.3f} ms ({card})")
 
 
 def gan_step_record(name, steps, n_train, prom, card):
@@ -6394,6 +6832,8 @@ def main():
         nms_plain,
         selection_plan,
     )
+    from deep_vision_tpu_torch.obs.registry import get_registry
+    from deep_vision_tpu_torch.obs.telemetry import TelemetryServer
     from deep_vision_tpu_torch.ops.cuda.norm import batch_moments, layer_norm
     from deep_vision_tpu_torch.serve import Engine, Server
     from deep_vision_tpu_torch.tools.profile_train import make_train_parts
@@ -6442,7 +6882,12 @@ def main():
     # -- 3. kernels against plain versions -----------------------------------
     check_nms(torch, dev)
 
-    trainer, train_batch = make_train_parts(TRAIN_BATCH, "s2d", device=dev)
+    # the flagship Trainer registers its live sources now; phase 5 starts
+    # the server
+    step_tele = TelemetryServer(port=0, role="train",
+                                registry=get_registry())
+    trainer, train_batch = make_train_parts(TRAIN_BATCH, "s2d", device=dev,
+                                            telemetry=step_tele)
     calls, moment_calls = batchnorm_calls(torch, trainer.model,
                                           train_batch["image"])
     check(sum(calls.values()) == 48,
@@ -6644,6 +7089,7 @@ def main():
     step_tmp = tempfile.mkdtemp(dir=build.BUILD_DIR)
     traced_step_times(torch, trainer, train_batch, card, step_tmp)
     shutil.rmtree(step_tmp)
+    telemetry_step_phase(torch, trainer, train_batch, step_tele, card)
     del trainer, train_batch
     torch.cuda.empty_cache()
     check_against_cpu(torch, dev)

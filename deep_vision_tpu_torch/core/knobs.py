@@ -11,6 +11,8 @@ and thresholds (`DVT_LOCKSMITH`, `DVT_LOCKSMITH_HOLD_MS`,
 `DVT_LOCKSMITH_WAIT_MS`, knobs.py:123-131, obs/locksmith.py), the
 rendezvous generation a re-entering member attaches to
 (`DVT_RDZV_GENERATION`, knobs.py:142, resilience/rendezvous.py), the
+live telemetry port the training CLI binds when --telemetry-port is
+absent (`DVT_TELEMETRY`, knobs.py:145, obs/telemetry.py), the
 front door's default deadline and Retry-After hint
 (`DVT_TRANSPORT_DEADLINE_MS`, `DVT_TRANSPORT_RETRY_AFTER_MS`,
 knobs.py:148-155, serve/transport.py), the executable cache's directory
@@ -60,6 +62,9 @@ KNOBS = {k.name: k for k in (
     Knob("DVT_RDZV_GENERATION", "int", None,
          "Rendezvous generation to re-attach to (resilience/"
          "rendezvous.py) when attach() is given none."),
+    Knob("DVT_TELEMETRY", "int", None,
+         "Telemetry HTTP port used when --telemetry-port is absent; "
+         "0 binds a free port."),
     Knob("DVT_TRANSPORT_DEADLINE_MS", "float", 0.0,
          "Default request deadline (milliseconds) the serving front door "
          "(serve/transport.py) applies to requests that carry no "

@@ -269,6 +269,14 @@ class FlightRecorder:
         except Exception:
             return ""
 
+    def tail(self, n: int = 32) -> List[dict]:
+        """The last `n` journal rows of the ring, the telemetry server's
+        /statusz `recent_events`; copied under the lock, so a scraper
+        thread never walks the deque while a tap appends."""
+        with self._lock:
+            rows = list(self._tail)
+        return rows[-max(0, int(n)):]
+
     # -- lifecycle ---------------------------------------------------------
 
     @property

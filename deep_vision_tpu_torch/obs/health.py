@@ -15,6 +15,11 @@ The port of deep_vision_tpu/obs/health.py:47-370, host-side code:
   eval batch) completes within it, every Python thread's stack goes
   into a `health` event (`kind=hang`) and to stderr.
 
+`healthz()` is the telemetry server's health source (obs/telemetry.py):
+unhealthy once the run has aborted (a latch set before each abort raise
+unwinds, and never cleared) and while the watchdog's latch is up (the
+next heartbeat clears it).
+
 Findings reach the flight recorder (obs/flight.py) through the
 journal's tap; with no journal they go to the installed recorder
 directly, so a hang or an abort still leaves its bundle.
@@ -93,6 +98,11 @@ class HealthMonitor:
             "health_watchdog_fires_total",
             "watchdog deadline expiries (stack dumps written)")
 
+        # the readiness latch /healthz reads: set before every abort raise
+        # and never cleared (a fresh monitor is a fresh run)
+        self.aborted = False
+        self.abort_reason: Optional[str] = None
+
         self._losses: deque = deque(maxlen=self.window)
         self._spike_streak = 0
         self._checks = 0
@@ -156,10 +166,10 @@ class HealthMonitor:
                       f"{step} — update skipped", file=sys.stderr, flush=True)
                 return "skip"
             if self.policy == "abort":
-                raise TrainingHealthError(
+                raise self._abort(TrainingHealthError(
                     f"non-finite {'/'.join(bad) or 'loss'} at step {step} "
                     f"(loss={loss!r}, grad_norm={grad_norm!r}); aborting per "
-                    "--health-policy abort")
+                    "--health-policy abort"))
             print(f"health: non-finite {'/'.join(bad)} at step {step} "
                   f"(loss={loss!r}, grad_norm={grad_norm!r})",
                   file=sys.stderr, flush=True)
@@ -188,7 +198,7 @@ class HealthMonitor:
                            f"loss spikes (z={z:.1f}, loss={loss:.4g} vs "
                            f"window mean {mean:.4g})")
                     if self.policy == "abort":
-                        raise TrainingHealthError(msg)
+                        raise self._abort(TrainingHealthError(msg))
                     print("health: " + msg, file=sys.stderr, flush=True)
                 # a spiking loss stays out of the window, which models the
                 # healthy recent past
@@ -209,11 +219,37 @@ class HealthMonitor:
         self._emit("non_finite", epoch=int(epoch), fields=sorted(bad),
                    action=self.policy)
         if self.policy == "abort":
-            raise TrainingHealthError(
+            raise self._abort(TrainingHealthError(
                 f"non-finite epoch {epoch} summary: {bad}; aborting per "
-                "--health-policy abort")
+                "--health-policy abort"))
         print(f"health: non-finite epoch {epoch} summary {bad}",
               file=sys.stderr, flush=True)
+
+    def _abort(self, err: TrainingHealthError) -> TrainingHealthError:
+        """Latch the abort for /healthz and hand the error back to its
+        raise site: the latch is up before the raise unwinds, so a probe
+        racing the abort never reads healthy-but-dying."""
+        self.aborted = True
+        self.abort_reason = str(err)
+        return err
+
+    def healthz(self):
+        """Telemetry health source: (ok, detail). Unhealthy once aborted,
+        or while the watchdog's latch is up."""
+        with self._wd_lock:
+            fired = self._wd_fired
+            beat_age = time.monotonic() - self._last_beat
+        ok = not self.aborted and not fired
+        detail = {
+            "policy": self.policy,
+            "monitor": self.name,
+            "aborted": self.aborted,
+            "watchdog_fired": fired,
+            "last_beat_age_s": round(beat_age, 3),
+        }
+        if self.abort_reason:
+            detail["abort_reason"] = self.abort_reason
+        return ok, detail
 
     @property
     def skip_nonfinite(self) -> bool:

@@ -27,6 +27,9 @@ writes:
   lock_order_violation, lock_contention  the armed lock sanitizer's
                 (obs/locksmith.py)
   retry         a RetryPolicy's attempt (resilience/retry.py)
+  telemetry_server  the live telemetry server (obs/telemetry.py) bound
+                (`started`), closed (`stopped`) or failed to bind
+                (`failed`), with host, port, outcome, role and pid
   excache_hit, excache_miss, excache_store, excache_invalid  the
                 executable cache's (core/excache.py)
   fault, ckpt_quarantine, preempt_checkpoint, data_resume, note
@@ -40,8 +43,10 @@ Server's dispatcher stamps each request's own context).
 
 Events it does not write yet, because their modules are not ported:
 `profile` and `profile_capture`, `data_skip`, the goodput and alert
-planes' rows, `sharding_resolved`, `backend_*`, `host_*` and
-`telemetry_server`.
+planes' rows, `sharding_resolved`, `backend_*` and `host_*`.
+
+`manifest_row()` hands back the manifest as written, which the
+telemetry server's /statusz serves without reading the file again.
 
 The writer flushes every line (a crash loses at most the line in flight)
 and registers an atexit hook that stamps `crash` when close() never ran.
@@ -96,6 +101,7 @@ class RunJournal:
         # that is held around a write()
         self._lock = locksmith.lock("obs.journal")
         self.dropped_lines = 0  # lines lost to journal I/O errors
+        self._manifest_row: Optional[dict] = None  # /statusz identity card
         d = os.path.dirname(self.path)
         if d:
             os.makedirs(d, exist_ok=True)
@@ -215,7 +221,12 @@ class RunJournal:
         if config is not None:
             info["config"] = config
         info.update(extra)
+        self._manifest_row = {k: _jsonable(v) for k, v in info.items()}
         self.write("run_manifest", **info)
+
+    def manifest_row(self) -> Optional[dict]:
+        """The manifest as written (None before manifest() runs)."""
+        return self._manifest_row
 
     def step(self, step: int, **fields) -> None:
         self.write("step", step=int(step), **fields)

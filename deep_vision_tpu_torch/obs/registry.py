@@ -2,10 +2,12 @@
 
 A copy of deep_vision_tpu/obs/registry.py's metrics, its Prometheus
 text export (which the flight recorder's bundle carries as
-metrics.prom, and `write_prometheus` writes for train_cli's
---metrics-export) and its per-process file naming: host-side objects,
-safe to touch from any thread, with bucket-resolution quantiles. The
-reference's JSONL snapshot writer is not ported.
+metrics.prom, `write_prometheus` writes for train_cli's
+--metrics-export, and the telemetry server serves at /metrics), its
+JSON `snapshot` (the telemetry server's /varz body) and its
+per-process file naming: host-side objects, safe to touch from any
+thread, with bucket-resolution quantiles. The reference's JSONL
+snapshot writer is not ported.
 
 A process's index is its `torch.distributed` rank when a process group
 is initialised, else 0; the check reads `sys.modules`, so data workers
@@ -112,6 +114,9 @@ class Counter:
         return [f"{self.name}{_fmt_labels(self.labels)} "
                 f"{_fmt_value(self._value)}"]
 
+    def snapshot(self):
+        return self._value
+
 
 class Gauge:
     """Point-in-time value."""
@@ -137,6 +142,9 @@ class Gauge:
     def to_prometheus(self) -> List[str]:
         return [f"{self.name}{_fmt_labels(self.labels)} "
                 f"{_fmt_value(self._value)}"]
+
+    def snapshot(self):
+        return self._value
 
 
 class Histogram:
@@ -203,6 +211,21 @@ class Histogram:
                      f"{self._count}")
         return lines
 
+    def snapshot(self):
+        # a quantile above the top bucket is +Inf, which json.dumps would
+        # write as the non-standard `Infinity`: None keeps the body strict
+        # JSON
+        def finite(v):
+            return v if math.isfinite(v) else None
+
+        return {
+            "count": self._count,
+            "sum": self._sum,
+            "mean": self.mean,
+            "p50": finite(self.quantile(0.5)),
+            "p99": finite(self.quantile(0.99)),
+        }
+
 
 class Registry:
     """Named metric store with get-or-create accessors."""
@@ -261,6 +284,12 @@ class Registry:
             for m in members:
                 lines.extend(m.to_prometheus())
         return "\n".join(lines) + ("\n" if lines else "")
+
+    def snapshot(self) -> dict:
+        """{name + labels: value} over every metric: a counter's or a
+        gauge's value, a histogram's count, sum, mean, p50 and p99."""
+        return {m.name + _fmt_labels(m.labels): m.snapshot()
+                for m in self.metrics()}
 
     def write_prometheus(self, path: str) -> bool:
         """Write `to_prometheus()` to `path` whole: into `path.tmp`, then

@@ -37,8 +37,14 @@ the warm-up's `backend_compiles` and `cache_hits` (in one process the
 libraries are loaded already, so both are 0 there: the cache pays off in
 a fresh process).
 
-The live telemetry plane is not ported: `telemetry=` raises, as the
-Server's does; `healthz` and `telemetry_status` are plain methods.
+With `telemetry=` (an obs/telemetry.py TelemetryServer) the pool
+registers the fleet view as `fleet` (`healthz`, `telemetry_status`), and
+each replica's Server, built with the same server, registers its own
+`serve:<rid>`: a respawned replica's Server takes over its dead
+predecessor's slot by name. A canary's Server registers
+`serve:canary<N>`, and `remove_canary` takes that entry out again. (The
+reference leaves it, so after its first canary its /healthz answers 503
+for good, from the drained canary's Server.)
 """
 from __future__ import annotations
 
@@ -181,10 +187,6 @@ class ReplicaPool:
                  respawn_fresh: bool = False, telemetry=None):
         if replicas < 1:
             raise ValueError(f"replicas must be >= 1, got {replicas}")
-        if telemetry is not None:
-            raise NotImplementedError(
-                "ReplicaPool(telemetry=): the live telemetry plane is not "
-                "ported yet")
         self.build_engine = build_engine
         self.n_replicas = int(replicas)
         self.journal = journal
@@ -220,6 +222,12 @@ class ReplicaPool:
         self._respawn_q: _queue.Queue = _queue.Queue()
         self._supervisor: Optional[threading.Thread] = None
         self.warmup_stats: Optional[dict] = None
+        # the live plane: the pool's fleet view; each replica's Server
+        # registers its own serve:<rid> sources (Server.__init__)
+        self.telemetry = telemetry
+        if telemetry is not None:
+            telemetry.add_health("fleet", self.healthz)
+            telemetry.add_status("fleet", self.telemetry_status)
 
     # -- lifecycle -----------------------------------------------------------
 
@@ -231,7 +239,7 @@ class ReplicaPool:
             max_wait_ms=self.max_wait_ms, slo_ms=self.slo_ms,
             drain_timeout_s=self.drain_timeout_s,
             health_policy=health_policy or self.health_policy,
-            tags={"replica": rid},
+            tags={"replica": rid}, telemetry=self.telemetry,
             on_fatal=lambda exc, _rid=rid: self._on_replica_fatal(_rid, exc))
 
     def start(self) -> "ReplicaPool":
@@ -541,6 +549,9 @@ class ReplicaPool:
         self._retire(slot)
         with self._lock:
             self._slots.pop(slot.rid, None)
+        if self.telemetry is not None:
+            # the drained canary's sources leave with it
+            self.telemetry.remove(f"serve:{slot.rid}")
         return summary
 
     def promote_variables(self, variables_by_model: dict) -> None:

@@ -28,10 +28,12 @@ runs under a `serve/batch` span and the drain under `serve/drain`
 outputs fails its requests instead of shipping NaNs. A SIGTERM drain
 dumps a `preempt` flight bundle (obs/flight.py); a clean close() leaves
 none. The locks are locksmith roles (`serve.device`, `serve.counts`,
-`serve.submit`), which the armed sanitizer checks. The live plane's
-health and status sources (`healthz`, `telemetry_status`, `queue_depth`)
-are plain methods, which a ReplicaPool reads; the JAX server's
-telemetry plane itself is not ported: `telemetry=` raises.
+`serve.submit`), which the armed sanitizer checks. With `telemetry=` (an
+obs/telemetry.py TelemetryServer) the Server registers its health and
+status sources (`healthz`, `telemetry_status`) as
+`serve:<tags["replica"] or "server">`; registration is by name, so a
+respawned replica's Server takes over its predecessor's slot. A
+ReplicaPool reads the same methods and `queue_depth`.
 """
 from __future__ import annotations
 
@@ -99,10 +101,6 @@ class Server:
         if health_policy not in HEALTH_POLICIES:
             raise ValueError(
                 f"health_policy {health_policy!r} not in {HEALTH_POLICIES}")
-        if telemetry is not None:
-            raise NotImplementedError(
-                "Server(telemetry=): the live telemetry plane is not "
-                "ported yet")
         self.engine = engine
         self.journal = journal
         self.tags = dict(tags or {})
@@ -129,6 +127,14 @@ class Server:
         self._drain_done = threading.Event()
         self._stop = threading.Event()
         self._prev_sigterm = None
+        # the live plane: a respawned replica's Server takes over its
+        # predecessor's slot by name, so /healthz follows the current
+        # Server's drain state
+        self.telemetry = telemetry
+        if telemetry is not None:
+            name = f"serve:{self.tags.get('replica', 'server')}"
+            telemetry.add_health(name, self.healthz)
+            telemetry.add_status(name, self.telemetry_status)
 
     # -- lifecycle -----------------------------------------------------------
 

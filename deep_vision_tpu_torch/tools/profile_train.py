@@ -170,13 +170,14 @@ def input_shape(stem: str) -> Tuple[int, ...]:
 def make_train_parts(batch_per_chip: int = BATCH_PER_CHIP, stem: str = "s2d",
                      device: DeviceLike = None,
                      dtype: torch.dtype = torch.bfloat16,
-                     device_prefetch: int = 0):
+                     device_prefetch: int = 0, telemetry=None):
     """(trainer, batch): a Trainer over the seeded flagship model and one
     batch on its device. The batch is the reference's: `RandomState(0)`
     `rand` images cast to the compute dtype (bf16), then
     `randint(0, 1000)` labels. `dtype` exists for the float32 check
     against the plain path at a small batch; `device_prefetch` is the
-    Trainer's, for the fed step."""
+    Trainer's, for the fed step; `telemetry` a TelemetryServer the
+    Trainer registers its live sources with."""
     dev = resolve_device(device)
     model = get_model("resnet50", num_classes=NUM_CLASSES, dtype=dtype,
                       stem=stem, device=dev, seed=0, train=True)
@@ -185,7 +186,7 @@ def make_train_parts(batch_per_chip: int = BATCH_PER_CHIP, stem: str = "s2d",
     shape = input_shape(stem)
     sample = torch.ones((1, *shape), dtype=torch.float32)
     trainer = Trainer(model, tx, classification_loss_fn, sample, device=dev,
-                      device_prefetch=device_prefetch)
+                      device_prefetch=device_prefetch, telemetry=telemetry)
     rng = np.random.RandomState(0)
     images = rng.rand(batch_per_chip, *shape).astype(np.float32)
     labels = rng.randint(0, NUM_CLASSES, size=(batch_per_chip,))

@@ -109,10 +109,18 @@ process (core/build.py `attach_cache`): the libraries the step loads
 compiled into it. The reference caches its compiled step executables
 there; the port compiles no step, so the step itself is unchanged.
 
+`telemetry=` (an obs/telemetry.py TelemetryServer) registers the
+Trainer's live sources: the `train` status (the last step, epoch and
+examples/s, from a host mirror the step loop writes after each commit,
+so a scrape never reads a tensor), the `perf` status through
+obs/perfwatch.py (StepClock's step-time p50/p95, the compiler runs),
+and, with a HealthMonitor, the `train` health source. The reference's
+`goodput` status, its alert engine and its `rendezvous` health source
+wait for their planes (goodput and alerts, elastic training).
+
 Not ported yet, and refused by the constructor when set: meshes and
 sharding rules, multistep supersteps, profiler windows (`profile_dir`,
-`autoprof`), checkify, the backend and host supervisors, and telemetry.
-Goodput and alerts wait for their planes.
+`autoprof`), checkify, and the backend and host supervisors.
 """
 from __future__ import annotations
 
@@ -134,7 +142,7 @@ from deep_vision_tpu_torch.data.device_prefetch import (
     PlacedBatch,
 )
 from deep_vision_tpu_torch.nn.layers import Dropout
-from deep_vision_tpu_torch.obs import flight
+from deep_vision_tpu_torch.obs import flight, perfwatch
 from deep_vision_tpu_torch.obs.registry import get_registry
 from deep_vision_tpu_torch.obs.stepclock import StepClock
 from deep_vision_tpu_torch.obs.trace import span
@@ -194,7 +202,7 @@ class Trainer:
             mesh=mesh, rng=rng, profile_dir=profile_dir, autoprof=autoprof,
             backend_supervisor=backend_supervisor,
             host_supervisor=host_supervisor,
-            sharding_rules=sharding_rules, telemetry=telemetry).items()
+            sharding_rules=sharding_rules).items()
             if v is not None]
         unported += ["checkify_errors"] if checkify_errors else []
         unported += ["multistep"] if multistep != 1 else []
@@ -265,6 +273,43 @@ class Trainer:
         self._pguard: Optional[PreemptionGuard] = None
         self._closed = False
         self.preempted = False
+        # the live telemetry plane: host-side sources only. /statusz reads
+        # the plain-Python mirror the step loop writes after each commit
+        self._live_step: Optional[int] = None
+        self._live_epoch: Optional[int] = None
+        self._live_eps: Optional[float] = None
+        self.telemetry = telemetry
+        if telemetry is not None:
+            telemetry.add_status("train", self._telemetry_status)
+            perfwatch.set_quantile_source(self._step_time_quantiles)
+            telemetry.add_status("perf", perfwatch.telemetry_status)
+            if self.health is not None:
+                telemetry.add_health("train", self.health.healthz)
+
+    def _telemetry_status(self) -> dict:
+        """The /statusz `train` source: the last step, epoch and
+        examples/s the step loop published."""
+        return {
+            "step": self._live_step,
+            "epoch": self._live_epoch,
+            "examples_per_sec": (round(self._live_eps, 1)
+                                 if self._live_eps else self._live_eps),
+            "steps_seen": int(self.clock.steps_seen),
+            "multistep": 1,
+        }
+
+    def _step_time_quantiles(self) -> dict:
+        """Step-time p50/p95 for the /statusz `perf` source, at the
+        StepClock histogram's bucket resolution ({} until a step lands)."""
+        h = self.clock._h_step
+        if not h.count:
+            return {}
+
+        def finite(v):
+            return round(v, 3) if math.isfinite(v) else None
+
+        return {"step_time_ms_p50": finite(h.quantile(0.5)),
+                "step_time_ms_p95": finite(h.quantile(0.95))}
 
     @property
     def model(self) -> nn.Module:
@@ -339,7 +384,8 @@ class Trainer:
             if self._buffer_snapshot is None:
                 self._buffer_snapshot = [torch.empty_like(b)
                                          for b in buffers]
-            torch._foreach_copy_(self._buffer_snapshot, buffers)
+            if buffers:  # a model without buffers (lenet5) has none to keep
+                torch._foreach_copy_(self._buffer_snapshot, buffers)
         if self._dropouts:
             self._dropout_gen.manual_seed(dropout_step_seed(
                 self.state.generator.initial_seed(), self.state.step))
@@ -356,8 +402,9 @@ class Trainer:
                 ok = ok & torch.isfinite(metrics["loss"])
             metrics["skipped"] = 1.0 - ok.float()
             if not bool(ok):  # the policy's one host read a step
-                torch._foreach_copy_(list(model.buffers()),
-                                     self._buffer_snapshot)
+                if self._buffer_snapshot:
+                    torch._foreach_copy_(list(model.buffers()),
+                                         self._buffer_snapshot)
                 opt.zero_grad(set_to_none=True)
                 return {k: v.detach() for k, v in metrics.items()}
         if self.lr_schedule is not None:
@@ -520,6 +567,10 @@ class Trainer:
                        extra=dict(epoch=epoch, examples=n, lr=lr,
                                   loss=loss_f, grad_norm=grad_norm_f,
                                   skipped=skipped))
+        # the host mirror the telemetry scraper reads: plain attribute
+        # writes, never a tensor
+        self._live_step, self._live_epoch = opt_step, epoch
+        self._live_eps = rec.examples_per_sec
         if skipped:
             # the discarded update's loss and gradients stay out of the
             # epoch means; the health event carries the record

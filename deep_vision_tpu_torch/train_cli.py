@@ -67,6 +67,18 @@ PATH` writes the metrics registry as Prometheus text after the run;
 `--summary` prints the parameter table before training (one for the
 Trainer's model, one each for a GAN's G and D).
 
+The live plane (obs/telemetry.py): `--telemetry-port PORT` (else
+`DVT_TELEMETRY`; 0 binds a free port) serves /metrics, /varz, /healthz,
+/statusz and /alertz over HTTP while the run lasts, journals the bound
+port as a `telemetry_server` event, prints `telemetry:
+http://<addr>/statusz` and writes a discovery file
+`telemetry-train-<pid>.json` under the checkpoint dir, which
+`python -m deep_vision_tpu_torch.tools.obs_poll --run-dir DIR` reads.
+The Trainer registers its `train` and `perf` status and, with a health
+monitor, the `train` health source; the GAN loop the health source
+only. A knob that does not parse or a port that does not bind is a
+warning on stderr, and the run goes on without the endpoints.
+
 Float32 precision: the CLI keeps PyTorch's defaults, which no registered
 config overrides, and prints them at start-up: cuDNN convolutions may
 use TF32 (`torch.backends.cudnn.allow_tf32`, True by default) and cuBLAS
@@ -393,7 +405,7 @@ def build_trainer(cfg: ExperimentConfig, train_fn, ckpt_dir: Optional[str],
                   steps_per_epoch: Optional[int] = None,
                   device: DeviceLike = None, executable_cache=None,
                   tb_dir: Optional[str] = None,
-                  telemetry_sample_every: int = 16):
+                  telemetry_sample_every: int = 16, telemetry=None):
     """The reference's build_trainer, on `device` (default cuda, raising
     without a card). Detection trains on `yolo_train_loss_fn` with the
     grids of the input size (s/32, s/16, s/8), pose on
@@ -401,7 +413,8 @@ def build_trainer(cfg: ExperimentConfig, train_fn, ckpt_dir: Optional[str],
     raise ValueError (`build_gan_trainer` builds theirs). With `tb_dir`,
     both loggers write to one TensorBoard `SummaryWriter` there, which
     the caller closes (`trainer.logger.tb`); `telemetry_sample_every` is
-    the StepClock's fence cadence."""
+    the StepClock's fence cadence; `telemetry` a TelemetryServer the
+    Trainer registers its sources with."""
     from deep_vision_tpu_torch.core.checkpoint import CheckpointManager
     from deep_vision_tpu_torch.core.metrics import MetricLogger
     from deep_vision_tpu_torch.losses import (
@@ -458,7 +471,8 @@ def build_trainer(cfg: ExperimentConfig, train_fn, ckpt_dir: Optional[str],
                    eval_logger=eval_logger, ema_decay=ema_decay,
                    journal=journal, health=health, data_loader=data_loader,
                    executable_cache=executable_cache,
-                   telemetry_sample_every=telemetry_sample_every)
+                   telemetry_sample_every=telemetry_sample_every,
+                   telemetry=telemetry)
 
 
 #: the tasks trained by train/gan.py's trainers, not by Trainer
@@ -657,6 +671,42 @@ def _make_health(args, journal):
     return health
 
 
+def _make_telemetry(args, journal, flight, discovery_dir: str,
+                    role: str = "train"):
+    """--telemetry-port, else DVT_TELEMETRY: the started TelemetryServer,
+    or None. A knob that does not parse or a failed bind is a warning:
+    the telemetry plane never kills the run it observes."""
+    import sys
+
+    port = args.telemetry_port
+    if port is None:
+        try:
+            port = knobs.get_int("DVT_TELEMETRY")
+        except knobs.KnobError as e:
+            print(f"warning: {e}; telemetry disabled", file=sys.stderr)
+            return None
+    if port is None:
+        return None
+    from deep_vision_tpu_torch.obs.registry import get_registry
+    from deep_vision_tpu_torch.obs.telemetry import TelemetryServer
+
+    tele = TelemetryServer(port=port, role=role, registry=get_registry(),
+                           journal=journal, flight=flight,
+                           discovery_dir=discovery_dir)
+    try:
+        tele.start()
+    except OSError as e:
+        print(f"warning: telemetry server failed to bind port {port} "
+              f"({e}); continuing without live endpoints", file=sys.stderr)
+        return None
+    if journal is not None:
+        # an abnormal unwind closes it with the journal; close is
+        # idempotent, so _finish closing it first is a no-op here
+        journal.add_closer(tele.close)
+    print(f"telemetry: http://{tele.address}/statusz", flush=True)
+    return tele
+
+
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="deep_vision_tpu_torch trainer "
@@ -729,6 +779,14 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--telemetry-sample-every", type=int, default=16,
                    help="stream-synchronize fence cadence for the "
                         "step-time breakdown (obs/stepclock.py)")
+    p.add_argument("--telemetry-port", type=int, default=None,
+                   metavar="PORT",
+                   help="serve live /metrics /varz /healthz /statusz "
+                        "/alertz over HTTP on PORT (0: a free port, "
+                        "journaled as a telemetry_server event and written "
+                        "to a discovery file under the checkpoint dir for "
+                        "deep_vision_tpu_torch.tools.obs_poll); env "
+                        "DVT_TELEMETRY (obs/telemetry.py)")
     p.add_argument("--summary", action="store_true",
                    help="print the per-parameter model summary table "
                         "(torchsummary analog) before training")
@@ -776,10 +834,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         args.num_workers, preprocessing=args.preprocessing,
         num_procs=args.num_procs)
     ckpt_dir = args.ckpt_dir or os.path.join("checkpoints", cfg.name)
+    # the discovery files go to the run's dir, not a resume's
+    run_dir = ckpt_dir
     if args.checkpoint and args.checkpoint != "auto":
         ckpt_dir = args.checkpoint  # saves follow the resume dir
     if cfg.task in GAN_TASKS:
-        return gan_main(parser, args, cfg, train_fn, ckpt_dir, device)
+        return gan_main(parser, args, cfg, train_fn, ckpt_dir, device,
+                        run_dir)
     journal = _make_journal(args, cfg)
     # DVT_LOCKSMITH arms the lock sanitizer for this run (journal-less
     # too: its findings then count in report() only)
@@ -787,6 +848,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     tracer = _make_tracer(args, journal)
     health = _make_health(args, journal)
     flight = _make_flight(args, journal)
+    telemetry = _make_telemetry(args, journal, flight, run_dir)
     data_loader = None
     if args.data_snapshot:
         cand = train_fn()
@@ -804,14 +866,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         data_loader=data_loader, device=device,
         executable_cache=_make_excache(args, journal),
         tb_dir=args.tensorboard_dir,
-        telemetry_sample_every=args.telemetry_sample_every)
+        telemetry_sample_every=args.telemetry_sample_every,
+        telemetry=telemetry)
     try:
         _train_or_evaluate(args, cfg, trainer, train_fn, eval_fn, journal)
     finally:
         if trainer.logger.tb is not None:
             trainer.logger.tb.close()
     _finish(device, journal, tracer=tracer, flight=flight,
-            sanitizer=sanitizer, metrics_export=args.metrics_export)
+            sanitizer=sanitizer, metrics_export=args.metrics_export,
+            telemetry=telemetry)
     return _exit_code()
 
 
@@ -851,13 +915,18 @@ def _exit_code() -> int:
 
 
 def _finish(device: torch.device, journal, tracer=None, flight=None,
-            sanitizer=None, metrics_export: Optional[str] = None) -> None:
-    """Print (and journal) the peak device memory; close the tracer (its
-    file is written), disarm this run's lock sanitizer (its queued rows
-    reach the journal), write the metrics registry to `metrics_export`
-    (Prometheus text), close the journal, and disarm the flight
-    recorder: a clean exit leaves no bundle."""
+            sanitizer=None, metrics_export: Optional[str] = None,
+            telemetry=None) -> None:
+    """Close the telemetry server first (no scrape reads what the rest
+    tears down); print (and journal) the peak device memory; close the
+    tracer (its file is written), disarm this run's lock sanitizer (its
+    queued rows reach the journal), write the metrics registry to
+    `metrics_export` (Prometheus text), close the journal, and disarm
+    the flight recorder: a clean exit leaves no bundle."""
     from deep_vision_tpu_torch.obs import locksmith
+
+    if telemetry is not None:
+        telemetry.close()
 
     if device.type == "cuda":
         peak = torch.cuda.max_memory_allocated(device)
@@ -886,7 +955,7 @@ def _finish(device: torch.device, journal, tracer=None, flight=None,
 
 
 def gan_main(parser, args, cfg: ExperimentConfig, train_fn, ckpt_dir: str,
-             device: torch.device) -> int:
+             device: torch.device, run_dir: str) -> int:
     """The reference's GAN branch of main (train_cli.py:1110-1265): the
     G/D parameter counts, restore-or-initialize from `-c`, then epochs
     of steps under a PreemptionGuard, each epoch's mean metrics printed,
@@ -898,7 +967,10 @@ def gan_main(parser, args, cfg: ExperimentConfig, train_fn, ckpt_dir: str,
     Every step journals the trainer's StepClock row (its timing, the
     first sub-network's optimizer step, the epoch, its images and that
     sub-network's learning rate); the metrics stay on the device until
-    the epoch ends. --summary prints G's and D's tables."""
+    the epoch ends. --summary prints G's and D's tables. With
+    --telemetry-port the live server registers the health monitor as
+    its `train` health source, and nothing else, as the reference's GAN
+    branch does; its discovery file goes to `run_dir`."""
     from deep_vision_tpu_torch.core.checkpoint import CheckpointManager
     from deep_vision_tpu_torch.core.summary import count_params, model_summary
     from deep_vision_tpu_torch.obs import flight as flight_mod
@@ -918,6 +990,9 @@ def gan_main(parser, args, cfg: ExperimentConfig, train_fn, ckpt_dir: str,
     tracer = _make_tracer(args, journal)
     health = _make_health(args, journal)
     flight = _make_flight(args, journal)
+    telemetry = _make_telemetry(args, journal, flight, run_dir)
+    if telemetry is not None and health is not None:
+        telemetry.add_health("train", health.healthz)
     excache = _make_excache(args, journal)
     if excache is not None:
         from deep_vision_tpu_torch.core import build
@@ -1004,6 +1079,8 @@ def gan_main(parser, args, cfg: ExperimentConfig, train_fn, ckpt_dir: str,
             if (epoch + 1) % save_every == 0:
                 trainer.save(ckpt, epoch)
     ckpt.wait()
+    if telemetry is not None:
+        telemetry.close()  # first: no scrape reads a stopped monitor
     if health is not None:
         health.stop()
     _finish(device, journal, tracer=tracer, flight=flight,

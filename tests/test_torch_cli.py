@@ -251,7 +251,7 @@ def test_executable_cache_trains_bitwise_as_without(tmp_path,
             assert torch.equal(got[k], v), (run, k)
 
 
-@pytest.mark.parametrize("flag", ["--telemetry-port=9100", "--multistep=2",
+@pytest.mark.parametrize("flag", ["--autoprof", "--multistep=2",
                                   "--fault-spec=data.read:io_error",
                                   "--profile-dir=p", "--checkify"])
 def test_reference_flags_not_ported_are_unknown(flag, capsys):

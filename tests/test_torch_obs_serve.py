@@ -11,7 +11,8 @@ they journal the same `serve_request`, `serve_batch`, `serve_drain` and
 fails one request, `health_policy="abort"` fails a NaN batch, a SIGTERM
 drain leaves one valid `preempt` bundle and a clean close none, an
 armed drain journals zero lock violations, each batch is one
-`serve/batch` span, `telemetry=` raises, and `check_journal --strict`
+`serve/batch` span, `telemetry=` registers the Server's sources as
+`serve:server`, and `check_journal --strict`
 accepts the port's journal.
 """
 import os
@@ -32,6 +33,7 @@ from deep_vision_tpu.serve import Server as RefServer
 from deep_vision_tpu_torch.obs import flight, locksmith, propagate, trace
 from deep_vision_tpu_torch.obs.journal import RunJournal, read_journal
 from deep_vision_tpu_torch.obs.registry import Registry
+from deep_vision_tpu_torch.obs.telemetry import TelemetryServer
 from deep_vision_tpu_torch.resilience import FaultInjected, faults
 from deep_vision_tpu_torch.serve import Engine, Server
 
@@ -297,7 +299,11 @@ def test_constructor_takes_the_references_order():
     got = list(inspect.signature(Server).parameters)
     want = list(inspect.signature(RefServer).parameters)
     assert got == want
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        Server(eng, telemetry=object())
+    tele = TelemetryServer()
+    server = Server(eng, telemetry=tele)
+    assert server.telemetry is tele
+    ok, body = tele.healthz()
+    assert list(body["checks"]) == ["serve:server"] and not ok  # unstarted
+    assert tele.statusz()["status"]["serve:server"]["accepted"] == 0
     with pytest.raises(ValueError, match="health_policy"):
         Server(eng, health_policy="skip_step")

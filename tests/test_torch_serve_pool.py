@@ -29,6 +29,7 @@ from deep_vision_tpu.serve import TokenBucket as RefTokenBucket
 from deep_vision_tpu_torch.obs import locksmith
 from deep_vision_tpu_torch.obs.journal import RunJournal, read_journal
 from deep_vision_tpu_torch.obs.registry import Registry
+from deep_vision_tpu_torch.obs.telemetry import TelemetryServer
 from deep_vision_tpu_torch.resilience import RetryPolicy, faults
 from deep_vision_tpu_torch.serve import (
     REPLICA_STATES,
@@ -339,8 +340,22 @@ class TestPoolRouting:
             pool.close()
 
     def test_telemetry_is_not_ported(self):
-        with pytest.raises(NotImplementedError):
-            ReplicaPool(build_engine_factory(Registry()), telemetry=object())
+        """(The name is kept from when `telemetry=` raised.) The pool
+        registers the fleet view as `fleet`, and each replica's Server
+        its own `serve:<rid>`."""
+        tele = TelemetryServer()
+        pool = ReplicaPool(build_engine_factory(Registry()), replicas=2,
+                           telemetry=tele)
+        assert list(tele.healthz()[1]["checks"]) == ["fleet"]
+        pool.start()
+        try:
+            ok, body = tele.healthz()
+            assert ok and sorted(body["checks"]) == [
+                "fleet", "serve:r0", "serve:r1"]
+            assert tele.statusz()["status"]["fleet"]["replicas"][
+                "r1"]["state"] == "serving"
+        finally:
+            pool.close()
 
 
 # -- replica death -----------------------------------------------------------
